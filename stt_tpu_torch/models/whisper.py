@@ -1,0 +1,669 @@
+"""Whisper encoder/decoder in PyTorch with KV-cached greedy decoding.
+
+Counterpart of ``stt_tpu/models/whisper.py`` for the serving step at
+beam 1 without timestamps. Layouts and numerics follow the JAX package so
+that the two can be held against each other on identical weights:
+
+- Parameters keep the JAX layouts (linear weights (d_in, d_out), conv
+  kernels (K, C_in, C_out)); :func:`init_params` draws them with the same
+  numpy generator calls, so a seed gives bit-identical weights in both
+  packages. ``stt_tpu_torch.convert`` maps the JAX tree onto the modules.
+- Layer norm takes float32 statistics (eps 1e-5); linear layers
+  accumulate in float32 and add the bias before rounding to the compute
+  type (``addmm``); attention logits, softmax and the weighted mix run in
+  float32, with the softmax weights rounded to the compute type first,
+  as the JAX package's ``preferred_element_type=float32`` einsums do.
+- The KV caches are head-split with k pre-scaled by ``d_head**-0.25``.
+  The cross K/V is stored int8 with per-(layer, row, head) scales under
+  bfloat16 compute (the JAX default ``STT_CROSS_KV_DTYPE=int8``), folded
+  into q and the output as in ``_cross_layer_attn``.
+
+Unlike the JAX package, caches are updated in place, and the greedy loop
+is a Python loop that checks for all-rows-finished every
+``FINISH_CHECK_EVERY`` steps; extra steps after every row has finished
+only rewrite end-of-text tokens, so the result is the same.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..convert import from_jax_params
+from .presets import (  # noqa: F401
+    WHISPER_LANG_CODES,
+    TokenLayout,
+    WhisperConfig,
+    get_config,
+    token_layout,
+)
+
+# ---------------------------------------------------------------------------
+# Parameter init (numpy, bit-identical to the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _sinusoids(length: int, channels: int) -> np.ndarray:
+    assert channels % 2 == 0
+    log_timescale = math.log(10000.0) / (channels // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+def _init_block(rng: np.random.Generator, d: int, cross: bool) -> Dict[str, Any]:
+    def lin(n_in, n_out, bias=True):
+        w = rng.normal(0.0, n_in**-0.5, (n_in, n_out)).astype(np.float32)
+        out = {"w": w}
+        if bias:
+            out["b"] = np.zeros(n_out, np.float32)
+        return out
+
+    def ln():
+        return {"g": np.ones(d, np.float32), "b": np.zeros(d, np.float32)}
+
+    block = {
+        "ln1": ln(),
+        "attn": {
+            "q": lin(d, d), "k": lin(d, d, bias=False),
+            "v": lin(d, d), "o": lin(d, d),
+        },
+        "ln2": ln(),
+        "mlp": {"fc1": lin(d, 4 * d), "fc2": lin(4 * d, d)},
+    }
+    if cross:
+        block["ln_x"] = ln()
+        block["xattn"] = {
+            "q": lin(d, d), "k": lin(d, d, bias=False),
+            "v": lin(d, d), "o": lin(d, d),
+        }
+    return block
+
+
+def _stack_blocks(blocks: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """List of per-layer dicts -> single dict with (L, ...) leaves."""
+    first = blocks[0]
+    return {
+        k: _stack_blocks([b[k] for b in blocks]) if isinstance(v, dict)
+        else np.stack([b[k] for b in blocks])
+        for k, v in first.items()
+    }
+
+
+def init_params(config: WhisperConfig, seed: int = 0) -> Dict[str, Any]:
+    """Deterministic random parameters with the checkpoint structure, as a
+    JAX-layout tree of float32 numpy arrays (the JAX package's
+    ``init_params`` draws the same numbers from the same seed)."""
+    rng = np.random.default_rng(seed)
+    d_a, d_t = config.n_audio_state, config.n_text_state
+
+    enc = {
+        "conv1": {
+            "w": rng.normal(0, (3 * config.n_mels) ** -0.5,
+                            (3, config.n_mels, d_a)).astype(np.float32),
+            "b": np.zeros(d_a, np.float32),
+        },
+        "conv2": {
+            "w": rng.normal(0, (3 * d_a) ** -0.5, (3, d_a, d_a)).astype(np.float32),
+            "b": np.zeros(d_a, np.float32),
+        },
+        "pos": _sinusoids(config.n_audio_ctx, d_a),
+        "blocks": _stack_blocks(
+            [_init_block(rng, d_a, cross=False) for _ in range(config.n_audio_layer)]
+        ),
+        "ln_post": {"g": np.ones(d_a, np.float32), "b": np.zeros(d_a, np.float32)},
+    }
+    dec = {
+        "tok": rng.normal(0, 0.02, (config.n_vocab, d_t)).astype(np.float32),
+        "pos": rng.normal(0, 0.01, (config.n_text_ctx, d_t)).astype(np.float32),
+        "blocks": _stack_blocks(
+            [_init_block(rng, d_t, cross=True) for _ in range(config.n_text_layer)]
+        ),
+        "ln": {"g": np.ones(d_t, np.float32), "b": np.zeros(d_t, np.float32)},
+    }
+    return {"encoder": enc, "decoder": dec}
+
+
+# ---------------------------------------------------------------------------
+# Modules (parameter names mirror the JAX tree)
+# ---------------------------------------------------------------------------
+
+
+def _param(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape), requires_grad=False)
+
+
+class Linear(nn.Module):
+    def __init__(self, d_in: int, d_out: int, bias: bool = True) -> None:
+        super().__init__()
+        self.w = _param(d_in, d_out)
+        self.b = _param(d_out) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _linear(x, self)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int) -> None:
+        super().__init__()
+        self.g = _param(d)
+        self.b = _param(d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _layer_norm(x, self)
+
+
+class Conv(nn.Module):
+    def __init__(self, c_in: int, c_out: int) -> None:
+        super().__init__()
+        self.w = _param(3, c_in, c_out)
+        self.b = _param(c_out)
+
+
+class Attention(nn.Module):
+    def __init__(self, d: int) -> None:
+        super().__init__()
+        self.q = Linear(d, d)
+        self.k = Linear(d, d, bias=False)
+        self.v = Linear(d, d)
+        self.o = Linear(d, d)
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int) -> None:
+        super().__init__()
+        self.fc1 = Linear(d, 4 * d)
+        self.fc2 = Linear(4 * d, d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class Block(nn.Module):
+    def __init__(self, d: int, cross: bool) -> None:
+        super().__init__()
+        self.ln1 = LayerNorm(d)
+        self.attn = Attention(d)
+        self.ln2 = LayerNorm(d)
+        self.mlp = MLP(d)
+        if cross:
+            self.ln_x = LayerNorm(d)
+            self.xattn = Attention(d)
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, config: WhisperConfig) -> None:
+        super().__init__()
+        d = config.n_audio_state
+        self.n_head = config.n_audio_head
+        self.conv1 = Conv(config.n_mels, d)
+        self.conv2 = Conv(d, d)
+        self.pos = _param(config.n_audio_ctx, d)
+        self.blocks = nn.ModuleList(
+            Block(d, cross=False) for _ in range(config.n_audio_layer)
+        )
+        self.ln_post = LayerNorm(d)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel (B, n_mels, T_frames) -> encoder states (B, T_frames//2, d)."""
+        x = mel.transpose(1, 2)  # (B, T, n_mels)
+        x = F.gelu(_conv1d(x, self.conv1, 1))
+        x = F.gelu(_conv1d(x, self.conv2, 2))
+        x = x + self.pos[: x.shape[1]].to(x.dtype)
+        for block in self.blocks:
+            x = x + _self_attn(block.ln1(x), block.attn, self.n_head)
+            x = x + block.mlp(block.ln2(x))
+        return self.ln_post(x)
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, config: WhisperConfig) -> None:
+        super().__init__()
+        d = config.n_text_state
+        self.n_head = config.n_text_head
+        self.tok = _param(config.n_vocab, d)
+        self.pos = _param(config.n_text_ctx, d)
+        self.blocks = nn.ModuleList(
+            Block(d, cross=True) for _ in range(config.n_text_layer)
+        )
+        self.ln = LayerNorm(d)
+        self._tok_f32: Optional[torch.Tensor] = None
+
+    def tok_f32(self) -> torch.Tensor:
+        """The token table in float32 for the tied logits product (made
+        once under a narrower compute type; the weights are fixed after
+        loading). Its values are the stored ones, so the float32 product
+        equals the JAX package's float32-accumulated one."""
+        if self.tok.dtype == torch.float32:
+            return self.tok
+        if self._tok_f32 is None or self._tok_f32.device != self.tok.device:
+            self._tok_f32 = self.tok.float()
+        return self._tok_f32
+
+
+class Whisper(nn.Module):
+    def __init__(self, config: WhisperConfig) -> None:
+        super().__init__()
+        self.config = config
+        self.encoder = AudioEncoder(config)
+        self.decoder = TextDecoder(config)
+
+
+def build_model(
+    config: WhisperConfig,
+    params: Dict[str, Any],
+    device: torch.device,
+    dtype: torch.dtype = torch.float32,
+) -> Whisper:
+    """Whisper module on ``device`` in ``dtype`` from a JAX-layout tree
+    (e.g. :func:`init_params`); no float32 copy is made on the host."""
+    with torch.device("meta"):
+        model = Whisper(config)
+    model.load_state_dict(from_jax_params(params), strict=True, assign=True)
+    model = model.to(device=device, dtype=dtype)
+    model.requires_grad_(False)
+    return model.eval()
+
+
+# ---------------------------------------------------------------------------
+# Core ops
+# ---------------------------------------------------------------------------
+
+
+def _layer_norm(x: torch.Tensor, p: LayerNorm) -> torch.Tensor:
+    return F.layer_norm(
+        x.float(), (x.shape[-1],), p.g.float(), p.b.float(), 1e-5
+    ).to(x.dtype)
+
+
+def _linear(x: torch.Tensor, p: Linear) -> torch.Tensor:
+    if p.b is None:
+        return torch.matmul(x, p.w)
+    y = torch.addmm(p.b, x.reshape(-1, x.shape[-1]), p.w)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    b, t, d = x.shape  # (B, T, d) -> (B, H, T, Dh)
+    return x.reshape(b, t, n_head, d // n_head).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, dh = x.shape  # (B, H, T, Dh) -> (B, T, d)
+    return x.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def _attn_cached(qh, kh, vh, mask=None) -> torch.Tensor:
+    """Attention over pre-split, pre-scaled q and K: qh (B, H, Tq, Dh),
+    kh/vh (B, H, Tk, Dh), possibly stored narrower (int8 cross K/V).
+    float32 logits and softmax; the weights round to q's type before the
+    float32 mix. Returns float32 (B, H, Tq, Dh)."""
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    if mask is not None:
+        logits = logits + mask
+    weights = torch.softmax(logits, dim=-1).to(qh.dtype)
+    return torch.matmul(weights.float(), vh.to(qh.dtype).float())
+
+
+def _attention(q, k, v, n_head: int, mask=None) -> torch.Tensor:
+    """q: (B, Tq, d); k/v: (B, Tk, d). q and k each scaled by
+    d_head**-0.25, as whisper."""
+    scale = (q.shape[-1] // n_head) ** -0.25
+    qh = _split_heads(q, n_head) * scale
+    kh = _split_heads(k, n_head) * scale
+    vh = _split_heads(v, n_head)
+    return _merge_heads(_attn_cached(qh, kh, vh, mask).to(q.dtype))
+
+
+def _self_attn(x, p: Attention, n_head: int, mask=None) -> torch.Tensor:
+    return p.o(_attention(p.q(x), p.k(x), p.v(x), n_head, mask))
+
+
+def _conv1d(x: torch.Tensor, p: Conv, stride: int) -> torch.Tensor:
+    """x (B, T, C_in), kernel (3, C_in, C_out), padding 1 -> (B, T', C_out)."""
+    w = p.w.to(x.dtype).permute(2, 1, 0)  # (C_out, C_in, K)
+    y = F.conv1d(x.transpose(1, 2), w, stride=stride, padding=1)
+    return y.transpose(1, 2) + p.b.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decoder with KV cache
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    """Self-attention cache, head-split: (L, B, H, T_max, Dh) post-projection
+    k and v, k pre-scaled by d_head**-0.25. Written in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_kv_cache(config: WhisperConfig, batch: int, max_len: int,
+                  dtype: torch.dtype, device: torch.device) -> KVCache:
+    h = config.n_text_head
+    shape = (config.n_text_layer, batch, h, max_len, config.n_text_state // h)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+class CrossKV(NamedTuple):
+    """Cross-attention K/V for all layers, head-split, k pre-scaled:
+    (L, B, H, T_audio, Dh). ``k_scale``/``v_scale`` are the per-(layer,
+    row, head) dequant scales (L, B, H, 1, 1) float32 when storage is
+    int8, else None."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
+
+
+def _q8(x: torch.Tensor):
+    """Symmetric int8 with one scale per (row, head) over (T, Dh)."""
+    xf = x.float()
+    s = torch.clamp_min(torch.amax(torch.abs(xf), dim=(2, 3), keepdim=True) / 127.0, 1e-12)
+    return torch.round(xf / s).to(torch.int8), s
+
+
+def precompute_cross_kv(dec: TextDecoder, enc_out: torch.Tensor) -> CrossKV:
+    """Cross-attention K/V for all layers, computed once per window. Stored
+    int8 with per-(layer, row, head) scales under bfloat16 compute, else
+    in the compute type."""
+    n_head = dec.n_head
+    scale = (enc_out.shape[-1] // n_head) ** -0.25
+    int8 = enc_out.dtype == torch.bfloat16
+    ks, vs, kss, vss = [], [], [], []
+    for block in dec.blocks:
+        k = _split_heads(block.xattn.k(enc_out), n_head) * scale
+        v = _split_heads(block.xattn.v(enc_out), n_head)
+        if int8:
+            (k, k_s), (v, v_s) = _q8(k), _q8(v)
+            kss.append(k_s)
+            vss.append(v_s)
+        ks.append(k)
+        vs.append(v)
+    return CrossKV(
+        torch.stack(ks), torch.stack(vs),
+        torch.stack(kss) if int8 else None, torch.stack(vss) if int8 else None,
+    )
+
+
+def _cross_dequant(ckv: CrossKV):
+    """(k, v) in the compute type, materialised — for the one-shot
+    teacher-forced pass only; the decode loop reads storage through
+    :func:`_cross_layer_attn`."""
+    if ckv.k_scale is None:
+        return ckv.k, ckv.v
+    k = ckv.k.to(torch.bfloat16) * ckv.k_scale.to(torch.bfloat16)
+    v = ckv.v.to(torch.bfloat16) * ckv.v_scale.to(torch.bfloat16)
+    return k, v
+
+
+def _cross_layer_attn(qx: torch.Tensor, ckv: CrossKV, li: int) -> torch.Tensor:
+    """Cross-attention for one layer against the stored K/V. int8 storage
+    folds the per-(row, head) scales into q and the output — logits =
+    (q*ks)·kq and out = (w·vq)*vs are exact since each scale is one
+    number per (row, head) — so the large K/V are only converted."""
+    ck, cv = ckv.k[li], ckv.v[li]
+    if ckv.k_scale is not None:
+        qx = qx * ckv.k_scale[li].to(qx.dtype)
+        return _attn_cached(qx, ck, cv) * ckv.v_scale[li]
+    return _attn_cached(qx, ck, cv)
+
+
+def _tok_logits(dec: TextDecoder, x: torch.Tensor) -> torch.Tensor:
+    """float32 vocab logits against the tied token table."""
+    return F.linear(x.float(), dec.tok_f32())
+
+
+def _decoder_step(dec: TextDecoder, tokens: torch.Tensor, pos: int,
+                  cache: KVCache, cross_kv: CrossKV) -> torch.Tensor:
+    """One decode position for the whole batch at scalar position ``pos``:
+    tokens (B,) -> logits (B, V) float32. Writes k/v of ``pos`` into the
+    cache in place and attends over slots [0, pos]."""
+    n_head = dec.n_head
+    h = (dec.tok[tokens] + dec.pos[pos].to(dec.tok.dtype))[:, None, :]  # (B, 1, d)
+    scale = (h.shape[-1] // n_head) ** -0.25
+    for li, block in enumerate(dec.blocks):
+        hn = block.ln1(h)
+        qh = _split_heads(block.attn.q(hn), n_head) * scale
+        k_new = _split_heads(block.attn.k(hn), n_head) * scale
+        v_new = _split_heads(block.attn.v(hn), n_head)
+        cache.k[li, :, :, pos] = k_new[:, :, 0].to(cache.k.dtype)
+        cache.v[li, :, :, pos] = v_new[:, :, 0].to(cache.v.dtype)
+        attn_out = _attn_cached(
+            qh, cache.k[li, :, :, : pos + 1], cache.v[li, :, :, : pos + 1]
+        ).to(h.dtype)
+        h = h + block.attn.o(_merge_heads(attn_out))
+        qx = _split_heads(block.xattn.q(block.ln_x(h)), n_head) * scale
+        x_out = _cross_layer_attn(qx, cross_kv, li).to(h.dtype)
+        h = h + block.xattn.o(_merge_heads(x_out))
+        h = h + block.mlp(block.ln2(h))
+    return _tok_logits(dec, dec.ln(h)[:, 0, :])
+
+
+def _causal_mask(width: int, device: torch.device) -> torch.Tensor:
+    i = torch.arange(width, device=device)
+    zero = torch.zeros((), device=device)
+    return torch.where(i[None, :] <= i[:, None], zero, -torch.inf)[None, None]
+
+
+def _prefill_parallel(dec: TextDecoder, tokens: torch.Tensor, width: int,
+                      cache: KVCache, cross_kv: CrossKV) -> torch.Tensor:
+    """Teacher-forced pass over positions [0, width): writes the cache
+    contents of ``width`` sequential :func:`_decoder_step` calls in one
+    batched pass. Returns pre-final-LN hidden states (B, width, d)."""
+    n_head = dec.n_head
+    h = dec.tok[tokens[:, :width]] + dec.pos[:width][None].to(dec.tok.dtype)
+    scale = (h.shape[-1] // n_head) ** -0.25
+    causal = _causal_mask(width, h.device)
+    for li, block in enumerate(dec.blocks):
+        hn = block.ln1(h)
+        qh = _split_heads(block.attn.q(hn), n_head) * scale
+        k_new = (_split_heads(block.attn.k(hn), n_head) * scale).to(cache.k.dtype)
+        v_new = _split_heads(block.attn.v(hn), n_head).to(cache.v.dtype)
+        cache.k[li, :, :, :width] = k_new
+        cache.v[li, :, :, :width] = v_new
+        attn_out = _attn_cached(qh, k_new, v_new, causal).to(h.dtype)
+        h = h + block.attn.o(_merge_heads(attn_out))
+        qx = _split_heads(block.xattn.q(block.ln_x(h)), n_head) * scale
+        x_out = _cross_layer_attn(qx, cross_kv, li).to(h.dtype)
+        h = h + block.xattn.o(_merge_heads(x_out))
+        h = h + block.mlp(block.ln2(h))
+    return h
+
+
+def _prefill(dec: TextDecoder, tokens: torch.Tensor, p_len: int,
+             cache: KVCache, cross_kv: CrossKV, sot_pos: int,
+             layout: TokenLayout) -> torch.Tensor:
+    """Fill cache positions [0, p_len - 1) (the loop processes the last
+    prompt position) and return p(no_speech) read from the logits AT the
+    sot position (openai ``DecodingTask._main_loop``)."""
+    if p_len <= 1:
+        return torch.zeros(tokens.shape[0], device=tokens.device)
+    h = _prefill_parallel(dec, tokens, p_len - 1, cache, cross_kv)
+    h_sot = h[:, sot_pos : sot_pos + 1]
+    logits = _tok_logits(dec, dec.ln(h_sot)[:, 0, :])
+    return torch.softmax(logits, dim=-1)[:, layout.no_speech]
+
+
+def decoder_forward(model: Whisper, tokens: torch.Tensor,
+                    enc_out: torch.Tensor) -> torch.Tensor:
+    """Full teacher-forced decoder pass: tokens (B, T) -> logits (B, T, V)."""
+    dec = model.decoder
+    n_head = dec.n_head
+    t = tokens.shape[1]
+    h = dec.tok[tokens] + dec.pos[:t][None].to(dec.tok.dtype)
+    causal = _causal_mask(t, h.device)
+    xk, xv = _cross_dequant(precompute_cross_kv(dec, enc_out))
+    scale = (h.shape[-1] // n_head) ** -0.25
+    for li, block in enumerate(dec.blocks):
+        h = h + _self_attn(block.ln1(h), block.attn, n_head, causal)
+        qx = _split_heads(block.xattn.q(block.ln_x(h)), n_head) * scale
+        x_out = _merge_heads(_attn_cached(qx, xk[li], xv[li]).to(h.dtype))
+        h = h + block.xattn.o(x_out)
+        h = h + block.mlp(block.ln2(h))
+    return _tok_logits(dec, dec.ln(h))
+
+
+# ---------------------------------------------------------------------------
+# Greedy decoding
+# ---------------------------------------------------------------------------
+
+BLANK_TOKEN = 220  # byte-level BPE id of " " (openai tokenizer.encode(" "))
+# host syncs in the greedy loop: test for all-rows-finished every N steps
+FINISH_CHECK_EVERY = 8
+
+
+class DecodeResult(NamedTuple):
+    tokens: torch.Tensor          # (B, T_max) int64, prompt + generated, eot-padded
+    lengths: torch.Tensor         # (B,) total valid length incl. prompt
+    sum_logprob: torch.Tensor     # (B,) sum of generated-token logprobs
+    no_speech_prob: torch.Tensor  # (B,) p(no_speech) at the sot position
+
+
+def _suppress_mask(config: WhisperConfig) -> np.ndarray:
+    """Additive logit mask suppressing special/timestamp tokens (greedy,
+    no-timestamps mode): every special except eot."""
+    layout = token_layout(config.n_vocab)
+    mask = np.zeros(config.n_vocab, np.float32)
+    mask[layout.sot:] = -np.inf
+    mask[layout.eot] = 0.0
+    return mask
+
+
+def _sample_begin_mask(config: WhisperConfig) -> np.ndarray:
+    """Additive mask for the FIRST generated position under
+    ``suppress_blank``: never start with a lone space or an eot."""
+    layout = token_layout(config.n_vocab)
+    mask = np.zeros(config.n_vocab, np.float32)
+    mask[BLANK_TOKEN] = -np.inf
+    mask[layout.eot] = -np.inf
+    return mask
+
+
+def greedy_decode(
+    model: Whisper,
+    enc_out: torch.Tensor,
+    prompt: torch.Tensor,
+    prompt_len: torch.Tensor,
+    max_new_tokens: int,
+    *,
+    suppress_blank: bool = True,
+    sot_pos: int = 0,
+    cross_kv: Optional[CrossKV] = None,
+) -> DecodeResult:
+    """Batched greedy decode with per-row early stop.
+
+    prompt: (B, P) integer, right-padded with eot past ``prompt_len``;
+    enc_out: (B, T_a, d). Same contract as the JAX package's
+    ``greedy_decode`` without repetition penalty or n-gram bans.
+    """
+    config = model.config
+    dec = model.decoder
+    layout = token_layout(config.n_vocab)
+    device = enc_out.device
+    b, p_len = prompt.shape
+    t_max = p_len + max_new_tokens
+    cache = init_kv_cache(config, b, t_max, enc_out.dtype, device)
+    if cross_kv is None:
+        cross_kv = precompute_cross_kv(dec, enc_out)
+    suppress = torch.from_numpy(_suppress_mask(config)).to(device)
+    begin = torch.from_numpy(
+        _sample_begin_mask(config) if suppress_blank
+        else np.zeros(config.n_vocab, np.float32)
+    ).to(device)
+    prompt_len = prompt_len.to(device)
+
+    tokens = torch.full((b, t_max), layout.eot, dtype=torch.long, device=device)
+    tokens[:, :p_len] = prompt.to(device=device, dtype=torch.long)
+    no_speech_prob = _prefill(dec, tokens, p_len, cache, cross_kv, sot_pos, layout)
+
+    finished = torch.zeros(b, dtype=torch.bool, device=device)
+    sum_lp = torch.zeros(b, dtype=torch.float32, device=device)
+    zero = torch.zeros((), device=device)
+    pos = p_len
+    while pos < t_max:
+        logits = _decoder_step(dec, tokens[:, pos - 1], pos - 1, cache, cross_kv)
+        logits = logits + suppress + torch.where(
+            (prompt_len == pos)[:, None], begin[None, :], zero
+        )
+        logprobs = torch.log_softmax(logits, dim=-1)
+        next_tok = torch.argmax(logits, dim=-1)
+        next_tok = torch.where(finished, layout.eot, next_tok)
+        tok_lp = torch.gather(logprobs, 1, next_tok[:, None])[:, 0]
+        sum_lp = sum_lp + torch.where(finished, zero, tok_lp)
+        tokens[:, pos] = next_tok
+        finished = finished | (next_tok == layout.eot)
+        pos += 1
+        if (pos - p_len) % FINISH_CHECK_EVERY == 0 and bool(finished.all()):
+            break
+
+    # length = index of the first eot at/after the prompt (or pos if none)
+    is_eot = (tokens == layout.eot) & (
+        torch.arange(t_max, device=device)[None, :] >= p_len
+    )
+    first_eot = torch.where(
+        is_eot.any(dim=1), torch.argmax(is_eot.to(torch.int32), dim=1),
+        torch.full((b,), pos, device=device, dtype=torch.long),
+    )
+    return DecodeResult(tokens, first_eot, sum_lp, no_speech_prob)
+
+
+def detect_language(model: Whisper, enc_out: torch.Tensor,
+                    cross_kv: Optional[CrossKV] = None) -> torch.Tensor:
+    """(B, n_langs) language probabilities from the sot logits."""
+    config = model.config
+    layout = token_layout(config.n_vocab)
+    b = enc_out.shape[0]
+    if cross_kv is None:
+        cross_kv = precompute_cross_kv(model.decoder, enc_out)
+    cache = init_kv_cache(config, b, 4, enc_out.dtype, enc_out.device)
+    sot = torch.full((b,), layout.sot, dtype=torch.long, device=enc_out.device)
+    logits = _decoder_step(model.decoder, sot, 0, cache, cross_kv)
+    lang_logits = logits[:, layout.lang_begin : layout.lang_begin + layout.n_langs]
+    return torch.softmax(lang_logits, dim=-1)
+
+
+def build_prompt(
+    config: WhisperConfig,
+    language: Optional[str],
+    task: str = "transcribe",
+    without_timestamps: bool = True,
+) -> list:
+    """SOT sequence: [sot, lang, task, (no_timestamps)]."""
+    layout = token_layout(config.n_vocab)
+    lang = language if language in WHISPER_LANG_CODES else "en"
+    lang_token = layout.lang_begin + WHISPER_LANG_CODES.index(lang)
+    task_token = layout.translate if task == "translate" else layout.transcribe
+    prompt = [layout.sot, lang_token, task_token]
+    if without_timestamps:
+        prompt.append(layout.no_timestamps)
+    return prompt
+
+
+__all__ = [
+    "CrossKV",
+    "DecodeResult",
+    "KVCache",
+    "TokenLayout",
+    "WHISPER_LANG_CODES",
+    "Whisper",
+    "WhisperConfig",
+    "build_model",
+    "build_prompt",
+    "decoder_forward",
+    "detect_language",
+    "get_config",
+    "greedy_decode",
+    "init_kv_cache",
+    "init_params",
+    "precompute_cross_kv",
+    "token_layout",
+]

@@ -1,0 +1,90 @@
+"""Build the port's CUDA sources with ``nvcc`` at first use; load with ctypes.
+
+Each ``<name>.cu`` in this directory exports plain ``extern "C"``
+launchers, so it compiles straight into a shared library with
+
+    nvcc -O3 -std=c++17 -arch=sm_90a -shared -Xcompiler -fPIC
+
+and loads through ``ctypes``: no ninja and no PyTorch headers, which keeps
+a build to seconds. Objects go to ``.torch_kernels_build/`` at the
+repository root (listed in ``.gitignore``), named by a hash of the
+source, the ``nvcc`` version and the flags, so an edited source or
+another toolkit rebuilds and a stale object is never loaded. Each object
+is written under a temporary name and renamed into place, so concurrent
+builds never load a half-written file. A failed build raises with the
+compiler's output; nothing falls back to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+SRC_DIR = Path(__file__).resolve().parent
+BUILD_DIR = SRC_DIR.parents[2] / ".torch_kernels_build"
+ARCH = "sm_90a"
+FLAGS = ("-O3", "-std=c++17", f"-arch={ARCH}", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, then ``/usr/local/cuda/bin/nvcc``, then PATH."""
+    candidates = []
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            candidates.append(Path(os.environ[env]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH); the port's CUDA kernels are built from source at first use"
+    )
+
+
+def _object_path(name: str, nvcc: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    version = subprocess.run(
+        [nvcc, "--version"], capture_output=True, text=True, check=True
+    ).stdout
+    h = hashlib.sha256()
+    h.update(src.read_bytes())
+    h.update(version.encode())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``<name>.cu``, built first if needed."""
+    with _lock:
+        if name not in _loaded:
+            nvcc = find_nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            obj = _object_path(name, nvcc)
+            if not obj.is_file():
+                tmp = obj.with_name(f"{obj.name}.{os.getpid()}.tmp")
+                cmd = [nvcc, *FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+                proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"nvcc failed for {name}.cu "
+                                       f"(exit {proc.returncode}):\n{proc.stdout}")
+                os.replace(tmp, obj)
+            _loaded[name] = ctypes.CDLL(str(obj))
+        return _loaded[name]
+
+
+__all__ = ["BUILD_DIR", "find_nvcc", "load"]

@@ -1,0 +1,216 @@
+"""The port's serving slice as a whole against the JAX package's engine.
+
+Both ``WhisperEngine("test", device="cpu", compute_type="float32")``
+instances draw the same weights from seed 0 and serve the same groups of
+mixed-length requests (some with a fixed language, some auto-detected).
+Token rows, lengths and language indices in the packed result must be
+identical, and so must the text and language of every output; the float
+columns of the packed result (logprob sum, p(no_speech), language
+probability) come out of different softmax implementations and are held
+at rtol 1e-5. The rest checks the port's own contract: it imports no JAX,
+it never falls back to the CPU, it refuses what this slice does not
+serve, and its threads batch, resolve every future and stop.
+"""
+
+import subprocess
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from stt_tpu.engine import engine as JE
+from stt_tpu_torch import device as D
+from stt_tpu_torch.backends.torch_whisper import TorchWhisperBackend
+from stt_tpu_torch.engine import engine as TE
+
+REPO = Path(__file__).resolve().parents[1]
+
+# (seconds, language, seed): groups share an audio bucket, as the engines
+# group them; lengths differ inside a group
+GROUPS = [
+    [(1.2, "en", 1), (1.9, None, 2), (1.5, "de", 3)],  # 2 s bucket, 4 rows
+    [(0.6, None, 4)],                                   # 1 s bucket, 1 row
+]
+
+
+def _audio(seconds, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    sig = 0.2 * np.sin(2 * np.pi * (180 + 30 * seed) * t) + 0.05 * rng.normal(0, 1, t.shape)
+    return sig.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def served():
+    port = TE.WhisperEngine("test", device="cpu", compute_type="float32")
+    ref = JE.WhisperEngine("test", device="cpu", compute_type="float32")
+    results = []
+    for group in GROUPS:
+        t_tasks = [TE._Task(TE.DecodeRequest(_audio(s, seed), language=lang), None)
+                   for s, lang, seed in group]
+        j_tasks = [JE._Task(JE.DecodeRequest(_audio(s, seed), language=lang), None)
+                   for s, lang, seed in group]
+        t_ctx = port._device_phase(t_tasks)
+        j_ctx = ref._device_phase(j_tasks)
+        t_packed = t_ctx["packed"].numpy().copy()
+        j_packed = np.array(j_ctx["packed"])
+        results.append((t_packed, j_packed, port._harvest(t_ctx), ref._harvest(j_ctx)))
+    yield port, results
+    port.close()
+    ref.close()
+
+
+@pytest.mark.parametrize("gi", range(len(GROUPS)))
+def test_packed_token_rows_identical(served, gi):
+    _, results = served
+    t_packed, j_packed, _, _ = results[gi]
+    assert t_packed.dtype == j_packed.dtype == np.int32
+    assert t_packed.shape == j_packed.shape
+    t_max = t_packed.shape[1] - 5
+    int_cols = list(range(t_max + 1)) + [t_max + 3]  # tokens, length, lang idx
+    np.testing.assert_array_equal(t_packed[:, int_cols], j_packed[:, int_cols])
+
+
+@pytest.mark.parametrize("gi", range(len(GROUPS)))
+def test_packed_float_columns_close(served, gi):
+    _, results = served
+    t_packed, j_packed, _, _ = results[gi]
+    t_max = t_packed.shape[1] - 5
+    for col in (t_max + 1, t_max + 2, t_max + 4):
+        np.testing.assert_allclose(t_packed[:, col].view(np.float32),
+                                   j_packed[:, col].view(np.float32), rtol=1e-5)
+
+
+@pytest.mark.parametrize("gi", range(len(GROUPS)))
+def test_outputs_identical(served, gi):
+    _, results = served
+    _, _, t_out, j_out = results[gi]
+    assert len(t_out) == len(j_out) == len(GROUPS[gi])
+    for t, j in zip(t_out, j_out):
+        assert [s.text for s in t.segments] == [s.text for s in j.segments]
+        assert [(s.start, s.end) for s in t.segments] == [(s.start, s.end) for s in j.segments]
+        assert t.info.language == j.info.language
+        assert t.info.language_probability == pytest.approx(j.info.language_probability, rel=1e-5)
+        assert t.avg_logprob == pytest.approx(j.avg_logprob, rel=1e-5)
+        assert t.no_speech_prob == pytest.approx(j.no_speech_prob, rel=1e-5)
+        assert t.batch_rows == j.batch_rows
+        assert t._n_gen == j._n_gen
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import stt_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(stt_tpu_torch.__path__, 'stt_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'stt_tpu.')) or m == 'stt_tpu']\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_chip_smoke_fails_without_cuda():
+    """Without a card the smoke script exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the smoke script would run for real")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        D.resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TE.WhisperEngine("test")
+    assert D.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_unknown_device_name_raises():
+    with pytest.raises(ValueError):
+        D.resolve_device("tpu")
+
+
+@pytest.mark.parametrize("options", [
+    {"beam_size": 5},
+    {"without_timestamps": False},
+    {"temperature": [0.0, 0.2, 0.4]},
+    {"temperature": 0.7},
+    {"word_timestamps": True},
+    {"prefix": "hello"},
+    {"initial_prompt": "context"},
+    {"repetition_penalty": 1.3},
+    {"no_repeat_ngram_size": 3},
+    {"clip_timestamps": "0,1"},
+])
+def test_unsupported_options_raise(served, options):
+    port, _ = served
+    req = TE.DecodeRequest(_audio(0.5, 9), language="en", options=options)
+    name = next(iter(options))
+    with pytest.raises(NotImplementedError, match=name):
+        port.submit(req)
+    with pytest.raises(NotImplementedError, match=name):
+        port.transcribe_sync(req)
+
+
+def test_default_options_are_served(served):
+    port, _ = served
+    out = port.transcribe_sync(TE.DecodeRequest(
+        _audio(0.5, 9), language="en",
+        options={"beam_size": 1, "temperature": 0.0, "without_timestamps": True},
+    ))
+    assert out.info.language == "en" and out.batch_rows == 1
+
+
+def test_long_final_raises(served):
+    port, _ = served
+    req = TE.DecodeRequest(np.zeros(16000 * 31, np.float32), language="en", is_final=True)
+    with pytest.raises(NotImplementedError, match="seek loop"):
+        port.transcribe_sync(req)
+
+
+def test_submit_batches_and_close_stops_threads():
+    eng = TE.WhisperEngine("test", device="cpu", compute_type="float32",
+                           batch_window_ms=200.0, max_decode_tokens=8)
+    barrier = threading.Barrier(4)
+    futures = [None] * 4
+
+    def send(i):
+        barrier.wait(timeout=30)
+        futures[i] = eng.submit(TE.DecodeRequest(_audio(0.8, 20 + i), language="en"))
+
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    outs = [f.result(timeout=120) for f in futures]
+    assert max(o.batch_rows for o in outs) >= 2
+    vocab = eng.config.n_vocab
+    for o in outs:
+        assert o._tokens.min() >= 0 and o._tokens.max() < vocab
+        assert 0 <= o._n_gen <= 8
+    engine_threads = [eng._thread, eng._harvest_thread]
+    eng.close()
+    for t in engine_threads:
+        assert not t.is_alive()
+    assert eng._thread is None and eng._harvest_thread is None
+
+
+def test_backend_transcribe(served):
+    port, _ = served
+    backend = TorchWhisperBackend("test", engine=port)
+    segments, info = backend.transcribe(_audio(1.2, 1), {"language": "en"})
+    ref = port.transcribe_sync(TE.DecodeRequest(_audio(1.2, 1), language="en"))
+    assert [s.text for s in segments] == [s.text for s in ref.segments]
+    assert info.language == "en"
