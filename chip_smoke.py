@@ -6,20 +6,36 @@
 Run from the root of a checkout on a host with one CUDA card, nvcc and
 PyTorch built for CUDA. In order:
 
-1. prints the card's name and power limit, builds every kernel of the path
-   from the sources in the checkout (``nvcc``, no network) and prints the
-   build time;
+1. prints the card's name and power limit, builds every kernel of the
+   paths from the sources in the checkout (one ``nvcc`` per source, all
+   started together, no network) and prints each build time;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it and a few more, with the tolerance
-   stated, and times kernel, plain version and one PyTorch library call;
-3. builds a whisper-small ``WhisperEngine`` in bfloat16 at full width with
-   random weights from seed 0, serves 8 concurrent requests (1, 2, 5 and
-   10 s of synthetic audio) submitted from 8 threads, checks every output,
-   and checks from the launch counts that the path ran through the kernels;
-4. checks the outputs against a reference on a small input: the ``test``
-   model in float32 on the card against the same model on the CPU;
-5. closes the engine, then prints one JSON line describing each kernel and,
-   last, ``{"ok": true, "device": {...}}``.
+   shapes the serving paths give it and a few more, with the tolerance
+   stated, and times kernel, plain version and one PyTorch library call:
+   log-mel (atol 2e-4, rtol 1e-4), cross-attention decode over bf16, fp8,
+   int8 and float32 K/V (atol 1e-3, rtol 1e-2) and encoder flash attention
+   (atol 2e-3, rtol 1e-2), each case printing the share of its limit used;
+3. serves two paths with whisper-small in bfloat16 at full width and
+   random weights from seed 0, each with the launch counts set to 0 just
+   before and read just after:
+   a. the default path (int8 cross K/V, einsum attention): 8 concurrent
+      requests of 1, 2, 5 and 10 s of synthetic audio from 8 threads;
+   b. the 30 s path (fp8 cross K/V, ``xattn_kernel="mm"``,
+      ``flash_attention="auto"``): 4 concurrent requests of 12, 20, 25 and
+      30 s, all in the 30 s bucket, the only one whose 1500 encoder
+      positions reach flash attention's 512;
+   it checks every output, that requests shared a batch, and from the
+   launch counts that each path ran through its kernels (path b: flash
+   once per encoder layer per encode, cross-attention decode once per
+   decoder layer per single-position step);
+4. checks the outputs against references on small inputs: the ``test``
+   model in float32 on the card against the CPU (max abs 1e-3), and in
+   bfloat16 with fp8 cross K/V and both attention kernels on, at a 30 s
+   window, against the same model on the CPU through the plain versions
+   (encoder output within max abs 0.05, three teacher-forced decode steps'
+   logits within 1e-2);
+5. closes the engines, then prints one JSON line describing each kernel
+   and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the final line; so does a host
 without CUDA, and a directory that holds this script but not the package.
@@ -42,8 +58,20 @@ ROOT = Path(__file__).resolve().parent
 WATCHDOG_SEC = 600
 MEL_ATOL, MEL_RTOL = 2e-4, 1e-4          # tests/test_pallas_mel.py:28
 REF_ATOL = 1e-3                          # float32 card vs float32 CPU, test model
+# kernel vs plain, set from the values at the served shapes: outputs there
+# are ~0.03-0.05 (scores of unit variance over 500-1500 keys); both sides
+# round the weights to bf16, so xattn_decode differs only where a weight's
+# float32 value falls on the other side of a bf16 rounding step, and flash
+# by one bf16 step of its output (< 0.8% of |x|) on top of that
+XATTN_ATOL, XATTN_RTOL = 1e-3, 1e-2
+FLASH_ATOL, FLASH_RTOL = 2e-3, 1e-2
+BF16_REF_ATOL = 0.05                     # encoder, tests/test_torch_whisper.py:31
+BF16_LOGITS_ATOL = 1e-2                  # decode-step logits, |logits| < 1 here
 H100_F32_FLOPS = 67e12                   # CUDA-core float32 peak, SXM, 700 W
+H100_BF16_FLOPS = 989e12                 # dense bf16 tensor-core peak, SXM, 700 W
 H100_HBM_BYTES = 3.35e12                 # HBM3 bytes/s
+L2_FLUSH_BYTES = 256 * 1024 * 1024       # > the 50 MB L2: a cold cache per timed call
+KERNELS = ("mel", "xattn_decode", "flash_attention")
 
 
 def log(msg: str) -> None:
@@ -53,6 +81,12 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def limit_used(got, ref, atol: float, rtol: float) -> float:
+    """The largest share of its limit that an element's error takes (1 is
+    the edge of ``torch.testing.assert_close`` at these tolerances)."""
+    return ((got - ref).abs() / (atol + rtol * ref.abs())).max().item()
 
 
 def gpu_name_and_power() -> str:
@@ -80,6 +114,30 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_cold(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` with the L2 cache flushed before each call
+    (CUDA events around each call), as the decode loop meets each layer's
+    cross K/V cold."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def bound(nbytes: float, flops: float, peak_flops: float):
+    """Least time for the work (ms) and what binds it."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / H100_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def synth_audio(seconds: float, seed: int) -> np.ndarray:
     """Speech-like test signal: a gliding harmonic tone with noise."""
     rng = np.random.default_rng(seed)
@@ -89,6 +147,294 @@ def synth_audio(seconds: float, seed: int) -> np.ndarray:
     sig = sum(0.2 / k * np.sin(k * phase) for k in range(1, 6))
     sig = sig * (0.6 + 0.4 * np.sin(2 * np.pi * 3.0 * t))
     return (sig + 0.02 * rng.normal(0, 1, t.shape)).astype(np.float32)
+
+
+def serve_concurrently(engine, requests, timeout: float = 300.0):
+    """Submit every request from its own thread at once; returns the
+    (output, latency) pairs and the wall time. Fails unless all complete."""
+    barrier = threading.Barrier(len(requests))
+    results = [None] * len(requests)
+    errors = []
+
+    def client(i: int) -> None:
+        try:
+            barrier.wait(timeout=60)
+            t_sub = time.monotonic()
+            out = engine.submit(requests[i]).result(timeout=timeout)
+            results[i] = (out, time.monotonic() - t_sub)
+        except Exception as exc:  # reported below; the phase fails
+            errors.append(f"request {i}: {exc!r}")
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(requests))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout + 60)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads) or None in results:
+        fail(f"served requests did not all complete: {errors}")
+    return results, wall
+
+
+def check_served(E, W, engine, requests, results) -> None:
+    """Every output well formed (tokens in the vocabulary and within the
+    bucket's decode bound, a known language, finite scores), and at least
+    two requests in one batch."""
+    cfg = engine.config
+    for i, (out, latency) in enumerate(results):
+        toks = out._tokens
+        gen = toks[out._p_len: out._p_len + out._n_gen]
+        n_audio = len(requests[i].audio)
+        if (toks.min() < 0 or toks.max() >= cfg.n_vocab or out._n_gen > 224
+                or out._n_gen > E.max_new_for(engine._bucket_for(n_audio), 224)):
+            fail(f"request {i}: malformed tokens (n_gen {out._n_gen})")
+        if out.info.language not in W.WHISPER_LANG_CODES or not (
+                0.0 < out.info.language_probability <= 1.0):
+            fail(f"request {i}: bad language {out.info}")
+        if not (np.isfinite(out.avg_logprob) and 0.0 <= out.no_speech_prob <= 1.0):
+            fail(f"request {i}: non-finite scores {out.avg_logprob} {out.no_speech_prob}")
+        log(f"request {i}: {n_audio / 16000:g} s audio, latency {latency:.3f} s, "
+            f"batch_rows {out.batch_rows}, n_gen {out._n_gen}, language "
+            f"{out.info.language} ({out.info.language_probability:.3f}), "
+            f"first tokens {gen[:6].tolist()}")
+    if max(out.batch_rows for out, _ in results) < 2:
+        fail("no two requests shared a batch")
+
+
+def xattn_phase(torch, dev):
+    """Phase 2 for the cross-attention decode kernel; returns the largest
+    error and the numbers of the served path's case (4 rows x 1500 fp8)."""
+    import torch.nn.functional as F
+    from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode, xattn_decode_plain
+
+    def inputs(storage, b, ta, h, dh=64, seed=0):
+        """q and K at whisper's d_head**-0.25 scale; int8 as the model
+        stores it, with its per-(row, head) scales folded into q and
+        returned for the output."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        scale = dh ** -0.25
+        q = (torch.randn((b, h, dh), generator=gen, device=dev) * scale).to(torch.bfloat16)
+        k = torch.randn((b, h, ta, dh), generator=gen, device=dev) * scale
+        v = torch.randn((b, h, ta, dh), generator=gen, device=dev)
+        if storage == "float32":
+            return q, k, v, None
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        if storage == "fp8":
+            return q, k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn), None
+        if storage == "int8":
+            def q8(x):
+                sc = torch.clamp_min(x.float().abs().amax(dim=(2, 3), keepdim=True) / 127.0,
+                                     1e-12)
+                return torch.round(x.float() / sc).to(torch.int8), sc[..., 0]
+            (kq, ks), (vq, vs) = q8(k), q8(v)
+            return (q * ks.to(torch.bfloat16)).contiguous(), kq, vq, vs
+        return q, k, v, None
+
+    cases = [(st, b, ta, 12) for b, ta in [(1, 50), (4, 500), (4, 1500), (16, 1500), (64, 500)]
+             for st in ("bf16", "fp8", "int8")]
+    cases += [("float32", 4, 500, 12), ("bf16", 4, 1500, 20)]
+    worst, headline = 0.0, None
+    for storage, b, ta, h in cases:
+        q, k, v, vs = inputs(storage, b, ta, h)
+        got = xattn_decode(q, k, v)
+        ref = xattn_decode_plain(q, k, v)
+        kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        lib = torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None, :], kb, vb, scale=1.0)[:, :, 0, :].float()
+        if vs is not None:
+            got, ref, lib = got * vs, ref * vs, lib * vs
+        torch.cuda.synchronize()
+        tag = f"xattn_decode B{b} H{h} Ta{ta} {storage}"
+        if got.shape != (b, h, 64) or not torch.isfinite(got).all():
+            fail(f"{tag}: shape {tuple(got.shape)} or non-finite values")
+        err = (got - ref).abs().max().item()
+        worst = max(worst, err)
+        used = limit_used(got, ref, XATTN_ATOL, XATTN_RTOL)
+        try:
+            torch.testing.assert_close(got, ref, atol=XATTN_ATOL, rtol=XATTN_RTOL)
+        except AssertionError as exc:
+            fail(f"{tag}: kernel disagrees with plain: {exc}")
+        k_ms = cuda_ms_cold(torch, lambda: xattn_decode(q, k, v))
+        p_ms = cuda_ms_cold(torch, lambda: xattn_decode_plain(q, k, v))
+        q4 = q[:, :, None, :]
+        l_ms = cuda_ms_cold(torch, lambda: F.scaled_dot_product_attention(q4, kb, vb, scale=1.0))
+        nbytes = (q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+                  + got.numel() * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * b * h * ta * 64, H100_BF16_FLOPS)
+        lib_err = (lib - ref).abs().max().item()
+        log(f"{tag}: max_abs_err {err:.3g} (library {lib_err:.3g}), {used:.3g} of the limit, "
+            f"max |ref| {ref.abs().max().item():.3g}; kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}), "
+            f"{nbytes / 1e6:.2f} MB")
+        if (storage, b, ta, h) == ("fp8", 4, 1500, 12):
+            headline = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+    return worst, headline
+
+
+def flash_phase(torch, dev):
+    """Phase 2 for the encoder flash-attention kernel; returns the largest
+    error and the numbers of the served path's case (4 rows x 1500)."""
+    import torch.nn.functional as F
+    from stt_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    worst, headline = 0.0, None
+    h, dh = 12, 64
+    for b, t in [(1, 512), (1, 1500), (4, 1500), (16, 1500), (2, 600)]:
+        gen = torch.Generator(device=dev).manual_seed(b * 10000 + t)
+        scale = dh ** -0.25
+        q, k, v = ((torch.randn((b, h, t, dh), generator=gen, device=dev) * sc).to(torch.bfloat16)
+                   for sc in (scale, scale, 1.0))
+        got = flash_attention(q, k, v)
+        ref = flash_attention_plain(q, k, v)
+        lib = F.scaled_dot_product_attention(q, k, v, scale=1.0)
+        torch.cuda.synchronize()
+        tag = f"flash_attention B{b} H{h} T{t} bf16"
+        if got.shape != q.shape or got.dtype != torch.bfloat16 or not torch.isfinite(got).all():
+            fail(f"{tag}: shape {tuple(got.shape)}, {got.dtype} or non-finite values")
+        err = (got.float() - ref.float()).abs().max().item()
+        worst = max(worst, err)
+        used = limit_used(got.float(), ref.float(), FLASH_ATOL, FLASH_RTOL)
+        try:
+            torch.testing.assert_close(got.float(), ref.float(), atol=FLASH_ATOL,
+                                       rtol=FLASH_RTOL)
+        except AssertionError as exc:
+            fail(f"{tag}: kernel disagrees with plain: {exc}")
+        k_ms = cuda_ms_cold(torch, lambda: flash_attention(q, k, v))
+        p_ms = cuda_ms_cold(torch, lambda: flash_attention_plain(q, k, v))
+        l_ms = cuda_ms_cold(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+        b_ms, b_by = bound(4 * q.numel() * 2, 4.0 * b * h * t * t * dh, H100_BF16_FLOPS)
+        lib_err = (lib.float() - ref.float()).abs().max().item()
+        log(f"{tag}: max_abs_err {err:.3g} (library {lib_err:.3g}), {used:.3g} of the limit, "
+            f"max |ref| {ref.abs().max().item():.3g}, mean |ref| "
+            f"{ref.float().abs().mean().item():.3g}; kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}), "
+            f"float32 CUDA-core floor {4.0 * b * h * t * t * dh / H100_F32_FLOPS * 1e3:.4g} ms")
+        if (b, t) == (4, 1500):
+            headline = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+    return worst, headline
+
+
+def serve_30s_phase(torch, E, W):
+    """Phase 3b: whisper-small bf16 with fp8 cross K/V and both attention
+    kernels on, 4 concurrent requests in the 30 s bucket. Returns the
+    launch counts of the run."""
+    from stt_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from stt_tpu_torch.ops.kernels.mel import mel_logspec
+    from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode
+
+    t0 = time.monotonic()
+    engine = E.WhisperEngine(
+        "small", device="cuda", compute_type="bfloat16",
+        batch_buckets=(1, 4, 16, 64), batch_window_ms=50.0, max_decode_tokens=224,
+        cross_kv_dtype="fp8", xattn_kernel="mm", flash_attention="auto",
+    )
+    cfg = engine.config
+    log(f"engine (30 s path): whisper-{cfg.name} bf16, policy {engine.policy}; built in "
+        f"{time.monotonic() - t0:.1f} s")
+    step = W._decoder_step
+    steps = [0]
+
+    def counted_step(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    try:
+        t0 = time.monotonic()
+        engine.transcribe_sync(E.DecodeRequest(synth_audio(30.0, 8), language="en"))
+        log(f"warm-up request (30 s): {time.monotonic() - t0:.2f} s")
+        durations = [12.0, 20.0, 25.0, 30.0]
+        requests = [
+            E.DecodeRequest(synth_audio(d, seed=20 + i), language=None if i % 2 else "en",
+                            session_id=f"smoke30-{i}", is_final=True)
+            for i, d in enumerate(durations)
+        ]
+        W._decoder_step = counted_step
+        steps[0] = 0
+        mel_logspec.launches = xattn_decode.launches = flash_attention.launches = 0
+        results, wall = serve_concurrently(engine, requests)
+        counts = {"mel_logspec": mel_logspec.launches, "xattn_decode": xattn_decode.launches,
+                  "flash_attention": flash_attention.launches, "decoder_steps": steps[0]}
+        check_served(E, W, engine, requests, results)
+    finally:
+        W._decoder_step = step
+        engine.close()
+    if engine._thread is not None or engine._harvest_thread is not None:
+        fail("engine threads still running after close()")
+    encodes = counts["mel_logspec"]
+    if encodes <= 0 or counts["flash_attention"] != cfg.n_audio_layer * encodes:
+        fail(f"30 s path: flash_attention launched {counts['flash_attention']} times for "
+             f"{encodes} encodes, not {cfg.n_audio_layer} per encode")
+    if counts["decoder_steps"] <= 0 or (
+            counts["xattn_decode"] != cfg.n_text_layer * counts["decoder_steps"]):
+        fail(f"30 s path: xattn_decode launched {counts['xattn_decode']} times for "
+             f"{counts['decoder_steps']} decoder steps, not {cfg.n_text_layer} per step")
+    log(f"served {len(requests)} requests (30 s bucket) in {wall:.3f} s; launches {counts}")
+    return counts
+
+
+def reference_30s_phase(torch, E, W, dev) -> None:
+    """Phase 4b: the ``test`` model in bfloat16 with fp8 cross K/V and both
+    attention kernels on, at a 30 s window, on the card against the CPU
+    (plain versions): encoder output, then three teacher-forced decode
+    steps' logits after the prefill from the CPU's encoder output."""
+    from stt_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode
+
+    reqs = [E.DecodeRequest(synth_audio(s, seed=30 + i), language=lang)
+            for i, (s, lang) in enumerate([(30.0, "en"), (21.0, None)])]
+    outs = {}
+    for name in ("cuda", "cpu"):
+        f0 = flash_attention.launches
+        eng = E.WhisperEngine("test", device=name, compute_type="bfloat16",
+                              cross_kv_dtype="fp8", xattn_kernel="mm", flash_attention="auto")
+        ctx = eng._device_phase([E._Task(r, None) for r in reqs])
+        with torch.inference_mode():
+            enc = E._mel_encode(eng.model, ctx["rows_dev"], torch.bfloat16)
+        outs[name] = (ctx["packed"].cpu().numpy(), enc.cpu(), eng.model, ctx["p_len"])
+        eng.close()
+        ran = flash_attention.launches - f0
+        if ran != (2 * eng.config.n_audio_layer if name == "cuda" else 0):
+            fail(f"30 s reference on {name}: {ran} flash_attention launches")
+    enc_err = (outs["cuda"][1].float() - outs["cpu"][1].float()).abs().max().item()
+    if outs["cuda"][1].shape[1] != 1500 or enc_err > BF16_REF_ATOL:
+        fail(f"30 s reference: encoder {tuple(outs['cuda'][1].shape)} on the card vs CPU, "
+             f"max abs err {enc_err:.3g}")
+    packed, enc_cpu, _, p_len = outs["cpu"]
+    tokens = torch.from_numpy(packed[:, : p_len + 2]).long()
+
+    def step_logits(model, device):
+        dec = model.decoder
+        enc = enc_cpu.to(device)
+        toks = tokens.to(device)
+        with torch.inference_mode():
+            ckv = W.precompute_cross_kv(dec, enc)
+            cache = W.init_kv_cache(model.config, toks.shape[0], p_len + 2, torch.bfloat16,
+                                    device)
+            W._prefill_parallel(dec, toks, p_len - 1, cache, ckv)
+            return torch.stack([W._decoder_step(dec, toks[:, pos], pos, cache, ckv).cpu()
+                                for pos in range(p_len - 1, p_len + 2)])
+
+    x0, f0 = xattn_decode.launches, flash_attention.launches
+    lg_gpu = step_logits(outs["cuda"][2], dev)
+    if xattn_decode.launches - x0 != 3 * outs["cuda"][2].config.n_text_layer:
+        fail("30 s reference: the card's decode steps did not launch xattn_decode")
+    lg_cpu = step_logits(outs["cpu"][2], torch.device("cpu"))
+    if xattn_decode.launches != x0 + 3 * outs["cuda"][2].config.n_text_layer \
+            or flash_attention.launches != f0:
+        fail("30 s reference: the CPU run launched a kernel")
+    logit_err = (lg_gpu - lg_cpu).abs().max().item()
+    if not torch.isfinite(lg_gpu).all() or logit_err > BF16_LOGITS_ATOL:
+        fail(f"30 s reference: decode-step logits on the card vs CPU, max abs err "
+             f"{logit_err:.3g}")
+    same_tokens = bool((outs["cuda"][0][:, :-5] == outs["cpu"][0][:, :-5]).all())
+    log(f"reference (test model, bf16, fp8 cross K/V, both attention kernels, 30 s): encoder "
+        f"max abs err {enc_err:.3g}, 3 decode steps' logits max abs err {logit_err:.3g} "
+        f"(|logits| up to {lg_cpu.abs().max().item():.3g}), token rows "
+        f"{'identical' if same_tokens else 'differ'} on the card and the CPU")
 
 
 def main() -> None:
@@ -119,9 +465,9 @@ def main() -> None:
         f"{torch.cuda.device_count()} device(s)")
 
     # -- 1. build --------------------------------------------------------------
-    t0 = time.monotonic()
-    build.load("mel")
-    log(f"build: mel.cu with {build.find_nvcc()} in {time.monotonic() - t0:.1f} s")
+    seconds = build.load_many(KERNELS)
+    log(f"build: {', '.join(f'{n}.cu {s:.1f} s' for n, s in seconds.items())} "
+        f"(with {build.find_nvcc()}, in parallel)")
 
     # -- 2. kernel vs plain ----------------------------------------------------
     def rows_for(wire: str, batch: int, seconds: float) -> torch.Tensor:
@@ -204,11 +550,15 @@ def main() -> None:
             headline = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                             bound_by=b_by)
 
-    # -- 3. served requests ----------------------------------------------------
+    xattn_err, xattn_headline = xattn_phase(torch, dev)
+    flash_err, flash_headline = flash_phase(torch, dev)
+
+    # -- 3a. served requests, default path (int8 cross K/V, einsum attention) ---
     t0 = time.monotonic()
     engine = E.WhisperEngine(
         "small", device="cuda", compute_type="bfloat16",
         batch_buckets=(1, 4, 16, 64), batch_window_ms=50.0, max_decode_tokens=224,
+        cross_kv_dtype="int8", xattn_kernel="off", flash_attention="off",
     )
     cfg = engine.config
     log(f"engine: whisper-{cfg.name} bf16 d={cfg.n_text_state} layers "
@@ -226,48 +576,10 @@ def main() -> None:
                             session_id=f"smoke-{i}", is_final=True)
             for i, d in enumerate(durations)
         ]
-        barrier = threading.Barrier(len(requests))
-        results = [None] * len(requests)
-        errors = []
-
-        def client(i: int) -> None:
-            try:
-                barrier.wait(timeout=60)
-                t_sub = time.monotonic()
-                out = engine.submit(requests[i]).result(timeout=300)
-                results[i] = (out, time.monotonic() - t_sub)
-            except Exception as exc:  # reported below; the phase fails
-                errors.append(f"request {i}: {exc!r}")
-
         mel_logspec.launches = 0
-        threads = [threading.Thread(target=client, args=(i,), daemon=True)
-                   for i in range(len(requests))]
-        t0 = time.monotonic()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=360)
-        wall = time.monotonic() - t0
+        results, wall = serve_concurrently(engine, requests)
         launches = mel_logspec.launches
-        if errors or any(t.is_alive() for t in threads) or None in results:
-            fail(f"served requests did not all complete: {errors}")
-        for i, (out, latency) in enumerate(results):
-            toks = out._tokens
-            gen = toks[out._p_len: out._p_len + out._n_gen]
-            if (toks.min() < 0 or toks.max() >= cfg.n_vocab or out._n_gen > 224
-                    or out._n_gen > E.max_new_for(engine._bucket_for(len(requests[i].audio)), 224)):
-                fail(f"request {i}: malformed tokens (n_gen {out._n_gen})")
-            if out.info.language not in W.WHISPER_LANG_CODES or not (
-                    0.0 < out.info.language_probability <= 1.0):
-                fail(f"request {i}: bad language {out.info}")
-            if not (np.isfinite(out.avg_logprob) and 0.0 <= out.no_speech_prob <= 1.0):
-                fail(f"request {i}: non-finite scores {out.avg_logprob} {out.no_speech_prob}")
-            log(f"request {i}: {durations[i]:g} s audio, latency {latency:.3f} s, "
-                f"batch_rows {out.batch_rows}, n_gen {out._n_gen}, language "
-                f"{out.info.language} ({out.info.language_probability:.3f}), "
-                f"first tokens {gen[:6].tolist()}")
-        if max(out.batch_rows for out, _ in results) < 2:
-            fail("no two requests shared a batch")
+        check_served(E, W, engine, requests, results)
         if launches <= 0:
             fail("the served path never launched the mel kernel")
         log(f"served {len(requests)} requests in {wall:.3f} s; mel_logspec launches "
@@ -277,12 +589,16 @@ def main() -> None:
     if engine._thread is not None or engine._harvest_thread is not None:
         fail("engine threads still running after close()")
 
+    # -- 3b. served requests, 30 s path (fp8 cross K/V, both attention kernels) -
+    counts_30s = serve_30s_phase(torch, E, W)
+
     # -- 4. reference on a small input ------------------------------------------
     small = [E.DecodeRequest(synth_audio(s, seed=10 + i), language=lang)
              for i, (s, lang) in enumerate([(1.5, "en"), (0.7, None)])]
     outs = {}
     for name in ("cuda", "cpu"):
-        eng = E.WhisperEngine("test", device=name, compute_type="float32")
+        eng = E.WhisperEngine("test", device=name, compute_type="float32",
+                              cross_kv_dtype="int8", xattn_kernel="off", flash_attention="off")
         ctx = eng._device_phase([E._Task(r, None) for r in small])
         model = eng.model
         with torch.inference_mode():
@@ -305,6 +621,7 @@ def main() -> None:
     log(f"reference (test model, float32): encoder max abs err {enc_err:.3g}, "
         f"teacher-forced logits max abs err {logit_err:.3g}, token rows "
         f"{'identical' if same_tokens else 'differ'} on the card and the CPU")
+    reference_30s_phase(torch, E, W, dev)
 
     # -- 5. result -------------------------------------------------------------
     kernels = [{
@@ -315,6 +632,22 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": mel_err,
         **headline,
+    }, {
+        "name": "xattn_decode",
+        "route": "cuda",
+        "source": "stt_tpu_torch/ops/cuda/xattn_decode.cu",
+        "replaces": "stt_tpu/ops/pallas/xattn_decode.py:186",
+        "launches": counts_30s["xattn_decode"],
+        "max_abs_err": xattn_err,
+        **xattn_headline,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "stt_tpu_torch/ops/cuda/flash_attention.cu",
+        "replaces": "stt_tpu/models/whisper.py:378",
+        "launches": counts_30s["flash_attention"],
+        "max_abs_err": flash_err,
+        **flash_headline,
     }]
     log(card)
     log(json.dumps({"kernels": kernels}))

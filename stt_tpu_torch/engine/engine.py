@@ -11,6 +11,14 @@ without timestamps — what every streaming partial and final takes:
   package, so the shapes a deployment sees stay few.
 - Rows travel to the device as 8-bit mu-law (a quarter of float32); the
   hand-written log-mel kernel expands them while it loads them.
+- Three attention options (``cross_kv_dtype``, ``xattn_kernel``,
+  ``flash_attention``; :class:`~stt_tpu_torch.models.whisper.AttentionPolicy`)
+  pick the cross K/V storage and the cross-attention decode and encoder
+  flash kernels. Each one left None is read once, when the engine is
+  built, from the JAX package's environment variable of the same meaning
+  (``STT_CROSS_KV_DTYPE``, ``STT_XATTN_KERNEL``, ``STT_FLASH_ATTENTION``),
+  with its defaults (int8, off, off). The flash kernel takes bf16 only, so
+  a float32 engine on the card with flash on is refused when it is built.
 - The device phase returns one packed int32 array per group (tokens,
   lengths, logprob sum, p(no_speech), language index and probability);
   a harvester thread reads it back, detokenizes and resolves the futures,
@@ -241,6 +249,9 @@ class WhisperEngine:
         batch_window_ms: float = 5.0,
         max_batch: int = 16,
         seed: int = 0,
+        cross_kv_dtype: Optional[str] = None,
+        xattn_kernel: Optional[str] = None,
+        flash_attention: Optional[str] = None,
     ) -> None:
         if compute_type not in _DTYPES:
             raise ValueError(f"compute_type must be one of {sorted(_DTYPES)}, "
@@ -250,8 +261,18 @@ class WhisperEngine:
         self._dtype = _DTYPES[compute_type]
         config = W.get_config(model_size)
         self.config = config
+        self.policy = W.AttentionPolicy.from_env(
+            cross_kv_dtype=cross_kv_dtype, xattn_kernel=xattn_kernel,
+            flash_attention=flash_attention,
+        )
+        if (self.device.type == "cuda" and self._dtype == torch.float32
+                and self.policy.flash_attention != "off"):
+            raise NotImplementedError(
+                "flash_attention on the card needs compute_type='bfloat16' (the kernel "
+                "takes bf16 only); pass flash_attention='off' for float32")
         self.model = W.build_model(
-            config, W.init_params(config, seed=seed), self.device, self._dtype
+            config, W.init_params(config, seed=seed), self.device, self._dtype,
+            self.policy,
         )
         self.tokenizer = load_tokenizer(tokenizer_path, config.n_vocab)
         self.layout = W.token_layout(config.n_vocab)

@@ -14,9 +14,21 @@ that the two can be held against each other on identical weights:
   float32, with the softmax weights rounded to the compute type first,
   as the JAX package's ``preferred_element_type=float32`` einsums do.
 - The KV caches are head-split with k pre-scaled by ``d_head**-0.25``.
-  The cross K/V is stored int8 with per-(layer, row, head) scales under
-  bfloat16 compute (the JAX default ``STT_CROSS_KV_DTYPE=int8``), folded
-  into q and the output as in ``_cross_layer_attn``.
+  Under bfloat16 compute the cross K/V is stored int8 with per-(layer,
+  row, head) scales (the default, folded into q and the output as in
+  ``_cross_layer_attn``), fp8 e4m3 or bf16, as :class:`AttentionPolicy`
+  says.
+- :class:`AttentionPolicy` holds the three attention options the JAX
+  package reads from its environment at import (``STT_CROSS_KV_DTYPE``,
+  ``STT_XATTN_KERNEL``, ``STT_FLASH_ATTENTION``); :func:`build_model`
+  gives it to the model. With the cross-attention kernel on, every
+  single-position decode step's cross-attention goes through
+  :func:`~stt_tpu_torch.ops.kernels.xattn_decode.xattn_decode`; with flash
+  on, unmasked self-attention of 512 positions or more (the encoder at the
+  30 s bucket) goes through
+  :func:`~stt_tpu_torch.ops.kernels.flash_attention.flash_attention`. Both
+  wrappers launch their CUDA kernel on the card and take their plain
+  version on the CPU.
 
 Unlike the JAX package, caches are updated in place, and the greedy loop
 is a Python loop that checks for all-rows-finished every
@@ -27,6 +39,8 @@ only rewrite end-of-text tokens, so the result is the same.
 from __future__ import annotations
 
 import math
+import os
+from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -35,6 +49,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..convert import from_jax_params
+from ..ops.kernels.flash_attention import flash_attention
+from ..ops.kernels.xattn_decode import xattn_decode
 from .presets import (  # noqa: F401
     WHISPER_LANG_CODES,
     TokenLayout,
@@ -42,6 +58,82 @@ from .presets import (  # noqa: F401
     get_config,
     token_layout,
 )
+
+# ---------------------------------------------------------------------------
+# Attention policy
+# ---------------------------------------------------------------------------
+
+# self-attention of at least this many positions can take the flash kernel
+# (stt_tpu/models/whisper.py:_FLASH_MIN_SEQ); of the audio buckets only 30 s
+# (1500 encoder positions) reaches it
+FLASH_MIN_SEQ = 512
+
+_FP8_NAMES = ("fp8", "f8", "float8", "fp8_e4m3")
+_INT8_NAMES = ("int8", "i8")
+_OFF_NAMES = ("off", "0", "false")
+# option -> (environment variable, default): the JAX package's names
+POLICY_ENV = {
+    "cross_kv_dtype": ("STT_CROSS_KV_DTYPE", "int8"),
+    "xattn_kernel": ("STT_XATTN_KERNEL", "off"),
+    "flash_attention": ("STT_FLASH_ATTENTION", "off"),
+}
+
+
+@dataclass(frozen=True)
+class AttentionPolicy:
+    """The attention options, each meaning what it means in the JAX package:
+
+    - ``cross_kv_dtype``: cross K/V storage under bfloat16 compute —
+      ``fp8``/``f8``/``float8``/``fp8_e4m3`` store fp8 e4m3,
+      ``int8``/``i8`` int8 with per-(row, head) scales, anything else the
+      compute type; under float32 compute storage is always float32;
+    - ``xattn_kernel``: ``off``/``0``/``false`` keep the einsum; any other
+      value sends single-position cross-attention to the kernel;
+    - ``flash_attention``: ``off`` keeps the einsum; any other value sends
+      unmasked self-attention of ``FLASH_MIN_SEQ`` positions or more to the
+      flash kernel.
+
+    Values are compared stripped and lower-cased.
+    """
+
+    cross_kv_dtype: str = "int8"
+    xattn_kernel: str = "off"
+    flash_attention: str = "off"
+
+    def __post_init__(self) -> None:
+        for name in POLICY_ENV:
+            object.__setattr__(self, name, str(getattr(self, name)).strip().lower())
+
+    @classmethod
+    def from_env(cls, **given: Optional[str]) -> "AttentionPolicy":
+        """The policy from explicit values; each one left None is read from
+        its environment variable (``POLICY_ENV``), with the JAX default."""
+        values = {}
+        for name, (var, default) in POLICY_ENV.items():
+            value = given.pop(name, None)
+            values[name] = os.environ.get(var, default) if value is None else value
+        if given:
+            raise TypeError(f"unknown attention options {sorted(given)}")
+        return cls(**values)
+
+    def cross_store_dtype(self, compute_dtype: torch.dtype) -> Optional[torch.dtype]:
+        """Storage type of the cross K/V, or None for the compute type
+        (``stt_tpu/models/whisper.py:_cross_store_dtype``)."""
+        if compute_dtype != torch.bfloat16:
+            return None
+        if self.cross_kv_dtype in _FP8_NAMES:
+            return torch.float8_e4m3fn
+        if self.cross_kv_dtype in _INT8_NAMES:
+            return torch.int8
+        return None
+
+    @property
+    def xattn_on(self) -> bool:
+        return self.xattn_kernel not in _OFF_NAMES
+
+    def flash_on(self, seq_len: int) -> bool:
+        return self.flash_attention != "off" and seq_len >= FLASH_MIN_SEQ
+
 
 # ---------------------------------------------------------------------------
 # Parameter init (numpy, bit-identical to the JAX package)
@@ -197,10 +289,12 @@ class Block(nn.Module):
 
 
 class AudioEncoder(nn.Module):
-    def __init__(self, config: WhisperConfig) -> None:
+    def __init__(self, config: WhisperConfig,
+                 policy: AttentionPolicy = AttentionPolicy()) -> None:
         super().__init__()
         d = config.n_audio_state
         self.n_head = config.n_audio_head
+        self.policy = policy
         self.conv1 = Conv(config.n_mels, d)
         self.conv2 = Conv(d, d)
         self.pos = _param(config.n_audio_ctx, d)
@@ -216,16 +310,19 @@ class AudioEncoder(nn.Module):
         x = F.gelu(_conv1d(x, self.conv2, 2))
         x = x + self.pos[: x.shape[1]].to(x.dtype)
         for block in self.blocks:
-            x = x + _self_attn(block.ln1(x), block.attn, self.n_head)
+            x = x + _self_attn(block.ln1(x), block.attn, self.n_head,
+                               flash=self.policy.flash_on(x.shape[1]))
             x = x + block.mlp(block.ln2(x))
         return self.ln_post(x)
 
 
 class TextDecoder(nn.Module):
-    def __init__(self, config: WhisperConfig) -> None:
+    def __init__(self, config: WhisperConfig,
+                 policy: AttentionPolicy = AttentionPolicy()) -> None:
         super().__init__()
         d = config.n_text_state
         self.n_head = config.n_text_head
+        self.policy = policy
         self.tok = _param(config.n_vocab, d)
         self.pos = _param(config.n_text_ctx, d)
         self.blocks = nn.ModuleList(
@@ -247,11 +344,12 @@ class TextDecoder(nn.Module):
 
 
 class Whisper(nn.Module):
-    def __init__(self, config: WhisperConfig) -> None:
+    def __init__(self, config: WhisperConfig,
+                 policy: AttentionPolicy = AttentionPolicy()) -> None:
         super().__init__()
         self.config = config
-        self.encoder = AudioEncoder(config)
-        self.decoder = TextDecoder(config)
+        self.encoder = AudioEncoder(config, policy)
+        self.decoder = TextDecoder(config, policy)
 
 
 def build_model(
@@ -259,11 +357,13 @@ def build_model(
     params: Dict[str, Any],
     device: torch.device,
     dtype: torch.dtype = torch.float32,
+    policy: AttentionPolicy = AttentionPolicy(),
 ) -> Whisper:
     """Whisper module on ``device`` in ``dtype`` from a JAX-layout tree
-    (e.g. :func:`init_params`); no float32 copy is made on the host."""
+    (e.g. :func:`init_params`) under the attention ``policy``; no float32
+    copy is made on the host."""
     with torch.device("meta"):
-        model = Whisper(config)
+        model = Whisper(config, policy)
     model.load_state_dict(from_jax_params(params), strict=True, assign=True)
     model = model.to(device=device, dtype=dtype)
     model.requires_grad_(False)
@@ -310,18 +410,23 @@ def _attn_cached(qh, kh, vh, mask=None) -> torch.Tensor:
     return torch.matmul(weights.float(), vh.to(qh.dtype).float())
 
 
-def _attention(q, k, v, n_head: int, mask=None) -> torch.Tensor:
+def _attention(q, k, v, n_head: int, mask=None, flash: bool = False) -> torch.Tensor:
     """q: (B, Tq, d); k/v: (B, Tk, d). q and k each scaled by
-    d_head**-0.25, as whisper."""
+    d_head**-0.25, as whisper. With ``flash`` (the policy's choice at this
+    length), unmasked self-attention goes through the flash wrapper: its
+    kernel on the card, its plain version on the CPU."""
     scale = (q.shape[-1] // n_head) ** -0.25
     qh = _split_heads(q, n_head) * scale
     kh = _split_heads(k, n_head) * scale
     vh = _split_heads(v, n_head)
+    if flash and mask is None and q.shape[1] == k.shape[1]:
+        return _merge_heads(flash_attention(qh.contiguous(), kh.contiguous(),
+                                            vh.contiguous()))
     return _merge_heads(_attn_cached(qh, kh, vh, mask).to(q.dtype))
 
 
-def _self_attn(x, p: Attention, n_head: int, mask=None) -> torch.Tensor:
-    return p.o(_attention(p.q(x), p.k(x), p.v(x), n_head, mask))
+def _self_attn(x, p: Attention, n_head: int, mask=None, flash: bool = False) -> torch.Tensor:
+    return p.o(_attention(p.q(x), p.k(x), p.v(x), n_head, mask, flash))
 
 
 def _conv1d(x: torch.Tensor, p: Conv, stride: int) -> torch.Tensor:
@@ -354,9 +459,10 @@ def init_kv_cache(config: WhisperConfig, batch: int, max_len: int,
 
 class CrossKV(NamedTuple):
     """Cross-attention K/V for all layers, head-split, k pre-scaled:
-    (L, B, H, T_audio, Dh). ``k_scale``/``v_scale`` are the per-(layer,
-    row, head) dequant scales (L, B, H, 1, 1) float32 when storage is
-    int8, else None."""
+    (L, B, H, T_audio, Dh) in the storage type (int8, fp8 e4m3, or the
+    compute type). ``k_scale``/``v_scale`` are the per-(layer, row, head)
+    dequant scales (L, B, H, 1, 1) float32 when storage is int8, else
+    None."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -372,12 +478,16 @@ def _q8(x: torch.Tensor):
 
 
 def precompute_cross_kv(dec: TextDecoder, enc_out: torch.Tensor) -> CrossKV:
-    """Cross-attention K/V for all layers, computed once per window. Stored
-    int8 with per-(layer, row, head) scales under bfloat16 compute, else
-    in the compute type."""
+    """Cross-attention K/V for all layers, computed once per window, stored
+    as the decoder's policy says: int8 with per-(layer, row, head) scales
+    or fp8 e4m3 (both only under bfloat16 compute), else the compute type.
+    fp8 is cast from the bf16 k·Dh^-0.25 and v, as the JAX package casts
+    it; beyond ±464 torch's cast saturates to ±448 where JAX's gives NaN,
+    and the port keeps torch's."""
     n_head = dec.n_head
     scale = (enc_out.shape[-1] // n_head) ** -0.25
-    int8 = enc_out.dtype == torch.bfloat16
+    store = dec.policy.cross_store_dtype(enc_out.dtype)
+    int8 = store == torch.int8
     ks, vs, kss, vss = [], [], [], []
     for block in dec.blocks:
         k = _split_heads(block.xattn.k(enc_out), n_head) * scale
@@ -386,6 +496,8 @@ def precompute_cross_kv(dec: TextDecoder, enc_out: torch.Tensor) -> CrossKV:
             (k, k_s), (v, v_s) = _q8(k), _q8(v)
             kss.append(k_s)
             vss.append(v_s)
+        elif store is not None:
+            k, v = k.to(store), v.to(store)
         ks.append(k)
         vs.append(v)
     return CrossKV(
@@ -405,16 +517,23 @@ def _cross_dequant(ckv: CrossKV):
     return k, v
 
 
-def _cross_layer_attn(qx: torch.Tensor, ckv: CrossKV, li: int) -> torch.Tensor:
+def _cross_layer_attn(qx: torch.Tensor, ckv: CrossKV, li: int,
+                      kernel: bool = False) -> torch.Tensor:
     """Cross-attention for one layer against the stored K/V. int8 storage
     folds the per-(row, head) scales into q and the output — logits =
     (q*ks)·kq and out = (w·vq)*vs are exact since each scale is one
-    number per (row, head) — so the large K/V are only converted."""
+    number per (row, head) — so the large K/V are only converted. With
+    ``kernel`` a single-position query (Tq == 1) goes through the
+    cross-attention decode wrapper for every storage: its kernel on the
+    card, its plain version on the CPU."""
     ck, cv = ckv.k[li], ckv.v[li]
     if ckv.k_scale is not None:
         qx = qx * ckv.k_scale[li].to(qx.dtype)
-        return _attn_cached(qx, ck, cv) * ckv.v_scale[li]
-    return _attn_cached(qx, ck, cv)
+    if kernel and qx.shape[2] == 1:
+        out = xattn_decode(qx[:, :, 0, :].contiguous(), ck, cv)[:, :, None, :]
+    else:
+        out = _attn_cached(qx, ck, cv)
+    return out if ckv.v_scale is None else out * ckv.v_scale[li]
 
 
 def _tok_logits(dec: TextDecoder, x: torch.Tensor) -> torch.Tensor:
@@ -442,7 +561,7 @@ def _decoder_step(dec: TextDecoder, tokens: torch.Tensor, pos: int,
         ).to(h.dtype)
         h = h + block.attn.o(_merge_heads(attn_out))
         qx = _split_heads(block.xattn.q(block.ln_x(h)), n_head) * scale
-        x_out = _cross_layer_attn(qx, cross_kv, li).to(h.dtype)
+        x_out = _cross_layer_attn(qx, cross_kv, li, dec.policy.xattn_on).to(h.dtype)
         h = h + block.xattn.o(_merge_heads(x_out))
         h = h + block.mlp(block.ln2(h))
     return _tok_logits(dec, dec.ln(h)[:, 0, :])
@@ -649,6 +768,7 @@ def build_prompt(
 
 
 __all__ = [
+    "AttentionPolicy",
     "CrossKV",
     "DecodeResult",
     "KVCache",

@@ -12,7 +12,8 @@ source, the ``nvcc`` version and the flags, so an edited source or
 another toolkit rebuilds and a stale object is never loaded. Each object
 is written under a temporary name and renamed into place, so concurrent
 builds never load a half-written file. A failed build raises with the
-compiler's output; nothing falls back to a plain version.
+compiler's output; nothing falls back to a plain version. Several sources
+build in parallel, one ``nvcc`` process each (:func:`load_many`).
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from functools import lru_cache
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parents[2] / ".torch_kernels_build"
@@ -54,37 +57,67 @@ def find_nvcc() -> str:
     )
 
 
-def _object_path(name: str, nvcc: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    version = subprocess.run(
+@lru_cache(maxsize=None)
+def _nvcc_version(nvcc: str) -> str:
+    return subprocess.run(
         [nvcc, "--version"], capture_output=True, text=True, check=True
     ).stdout
+
+
+def _object_path(name: str, nvcc: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
     h = hashlib.sha256()
     h.update(src.read_bytes())
-    h.update(version.encode())
+    h.update(_nvcc_version(nvcc).encode())
     h.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``<name>.cu``, built first if needed."""
+def load_many(names: Sequence[str]) -> Dict[str, float]:
+    """Build (one ``nvcc`` per source, all started together) and load each
+    ``<name>.cu`` not loaded yet. Returns the seconds from the start of the
+    builds to each one's end (0.0 where the object was already built or
+    loaded). Raises on the first failed build, with the compiler's output."""
+    seconds: Dict[str, float] = {}
     with _lock:
-        if name not in _loaded:
-            nvcc = find_nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        todo = [n for n in dict.fromkeys(names) if n not in _loaded]
+        if not todo:
+            return {n: 0.0 for n in names}
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.monotonic()
+        jobs = []
+        for name in todo:
             obj = _object_path(name, nvcc)
+            proc = tmp = None
             if not obj.is_file():
                 tmp = obj.with_name(f"{obj.name}.{os.getpid()}.tmp")
                 cmd = [nvcc, *FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-                proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, obj, tmp, proc))
+        failure = None
+        for name, obj, tmp, proc in jobs:
+            if proc is not None:
+                output, _ = proc.communicate()
+                seconds[name] = time.monotonic() - t0
                 if proc.returncode != 0:
                     tmp.unlink(missing_ok=True)
-                    raise RuntimeError(f"nvcc failed for {name}.cu "
-                                       f"(exit {proc.returncode}):\n{proc.stdout}")
+                    failure = failure or (f"nvcc failed for {name}.cu "
+                                          f"(exit {proc.returncode}):\n{output}")
+                    continue
                 os.replace(tmp, obj)
-            _loaded[name] = ctypes.CDLL(str(obj))
-        return _loaded[name]
+            if failure is None:
+                _loaded[name] = ctypes.CDLL(str(obj))
+        if failure is not None:
+            raise RuntimeError(failure)
+    return {n: seconds.get(n, 0.0) for n in names}
 
 
-__all__ = ["BUILD_DIR", "find_nvcc", "load"]
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``<name>.cu``, built first if needed."""
+    load_many([name])
+    return _loaded[name]
+
+
+__all__ = ["BUILD_DIR", "find_nvcc", "load", "load_many"]

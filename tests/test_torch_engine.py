@@ -105,6 +105,8 @@ def test_every_module_imports_without_jax():
         "import importlib, pkgutil, sys\n"
         "import stt_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(stt_tpu_torch.__path__, 'stt_tpu_torch.')]\n"
+        "assert {'stt_tpu_torch.ops.kernels.xattn_decode',\n"
+        "        'stt_tpu_torch.ops.kernels.flash_attention'} <= set(names), names\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'stt_tpu.')) or m == 'stt_tpu']\n"
         "assert not bad, bad\n"
@@ -113,7 +115,7 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 19
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -214,3 +216,33 @@ def test_backend_transcribe(served):
     ref = port.transcribe_sync(TE.DecodeRequest(_audio(1.2, 1), language="en"))
     assert [s.text for s in segments] == [s.text for s in ref.segments]
     assert info.language == "en"
+
+
+def test_engine_serves_30s_with_attention_options(monkeypatch):
+    """A CPU engine with all three options set serves a 30 s request through
+    both kernel routes (their plain versions here): flash once per encoder
+    layer, cross-attention decode once per decoder layer and step."""
+    from stt_tpu_torch.models import whisper as TW
+
+    calls = {"flash_attention": 0, "xattn_decode": 0}
+    for name in calls:
+        real = getattr(TW, name)
+
+        def spy(*args, _real=real, _name=name):
+            calls[_name] += 1
+            return _real(*args)
+
+        monkeypatch.setattr(TW, name, spy)
+    eng = TE.WhisperEngine("test", device="cpu", compute_type="bfloat16",
+                           cross_kv_dtype="fp8", xattn_kernel="mm", flash_attention="auto",
+                           max_decode_tokens=16)
+    out = eng.transcribe_sync(TE.DecodeRequest(_audio(30.0, 5), language=None, is_final=True))
+    cfg = eng.config
+    max_new = TE.max_new_for(30.0, 16)
+    assert calls["flash_attention"] == cfg.n_audio_layer
+    # language detection + one step per generated position
+    assert calls["xattn_decode"] == cfg.n_text_layer * (1 + max_new)
+    assert out.batch_rows == 1 and 0 <= out._n_gen <= max_new
+    assert out._tokens.min() >= 0 and out._tokens.max() < cfg.n_vocab
+    assert out.info.language in TW.WHISPER_LANG_CODES
+    assert np.isfinite(out.avg_logprob) and 0.0 <= out.no_speech_prob <= 1.0

@@ -7,7 +7,17 @@ device. This file imports no JAX, so it also runs on the GPU host:
 
 The log-mel kernel is held at the tolerance of ``tests/test_pallas_mel.py``
 (atol 2e-4, rtol 1e-4) after the shared epilogue: kernel and plain
-version are both float32 and differ only in summation order.
+version are both float32 and differ only in summation order. The
+cross-attention decode kernel is held at atol 1e-3, rtol 1e-2 and the flash
+kernel at atol 2e-3, rtol 1e-2, at the shapes the serving path gives them
+and a few more. Those limits are set from the size of the values: the
+flash inputs have q and k at whisper's d_head**-0.25 scale, whose outputs
+are ~0.03-0.05 at 500 to 1500 keys; the decode inputs have unit-variance q
+and K, a sharper softmax with outputs of ~1. Both sides round the weights to bf16, so the decode kernel
+differs only where a weight's float32 value lands on the other side of a
+bf16 rounding step; the flash kernel rounds the unnormalised weights where
+the plain version rounds normalised ones, and its bf16 output may differ
+by one bf16 step (< 0.8% of |x|).
 """
 
 import numpy as np
@@ -15,10 +25,14 @@ import pytest
 import torch
 
 from stt_tpu_torch.engine.engine import _encode_wire_rows
+from stt_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
 from stt_tpu_torch.ops.kernels.mel import log_mel_spectrogram_plain, mel_logspec
+from stt_tpu_torch.ops.kernels.xattn_decode import max_ta, xattn_decode, xattn_decode_plain
 from stt_tpu_torch.ops.mel import normalize_log_mel
 
 ATOL, RTOL = 2e-4, 1e-4
+XATTN_ATOL, XATTN_RTOL = 1e-3, 1e-2
+FLASH_ATOL, FLASH_RTOL = 2e-3, 1e-2
 
 
 @pytest.fixture
@@ -70,3 +84,136 @@ def test_mel_kernel_rejects_bad_input(cuda_device):
         mel_logspec(torch.zeros((1, 16000), dtype=torch.float64, device=cuda_device))
     with pytest.raises(ValueError):
         mel_logspec(torch.zeros((16000, 2), device=cuda_device).t())
+
+
+def _xattn_inputs(storage, b, ta, h=12, dh=64, seed=0):
+    """q bf16 (B, H, Dh) and k/v in ``storage``, as precompute_cross_kv
+    stores them; for int8 also the per-(row, head) scales."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(0, 1, (b, h, dh)).astype(np.float32)).to(torch.bfloat16)
+    k = torch.from_numpy(rng.normal(0, 1, (b, h, ta, dh)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(0, 1, (b, h, ta, dh)).astype(np.float32))
+    if storage == "float32":
+        return q, k, v, None
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    if storage == "fp8":
+        return q, k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn), None
+    if storage == "int8":
+        def q8(x):
+            s = torch.clamp_min(x.float().abs().amax(dim=(2, 3), keepdim=True) / 127.0, 1e-12)
+            return torch.round(x.float() / s).to(torch.int8), s
+        (kq, ks), (vq, vs) = q8(k), q8(v)
+        return (q * ks[..., 0].to(torch.bfloat16)).contiguous(), kq, vq, vs[..., 0]
+    return q, k, v, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "fp8", "int8"])
+@pytest.mark.parametrize("b,ta", [(1, 50), (4, 500), (4, 1500), (16, 1500), (64, 500)])
+def test_xattn_kernel_matches_plain(cuda_device, storage, b, ta):
+    q, k, v, v_scale = _xattn_inputs(storage, b, ta)
+    q, k, v = q.to(cuda_device), k.to(cuda_device), v.to(cuda_device)
+    before = xattn_decode.launches
+    got = xattn_decode(q, k, v)
+    torch.cuda.synchronize()
+    assert xattn_decode.launches == before + 1
+    assert got.shape == (b, 12, 64) and got.dtype == torch.float32
+    ref = xattn_decode_plain(q, k, v)
+    if v_scale is not None:
+        got, ref = got * v_scale.to(cuda_device), ref * v_scale.to(cuda_device)
+    torch.testing.assert_close(got, ref, atol=XATTN_ATOL, rtol=XATTN_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage,h,dh,ta", [("float32", 12, 64, 500), ("bf16", 20, 64, 250),
+                                             ("fp8", 2, 32, 1500), ("bf16", 4, 16, 40)])
+def test_xattn_kernel_other_shapes(cuda_device, storage, h, dh, ta):
+    q, k, v, _ = _xattn_inputs(storage, 3, ta, h=h, dh=dh, seed=1)
+    q, k, v = q.to(cuda_device), k.to(cuda_device), v.to(cuda_device)
+    got = xattn_decode(q, k, v)
+    torch.testing.assert_close(got, xattn_decode_plain(q, k, v), atol=XATTN_ATOL,
+                               rtol=XATTN_RTOL)
+    got32 = xattn_decode(q.float(), k, v)  # a float32 q is rounded to bf16 on load
+    torch.testing.assert_close(got32, got, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_xattn_kernel_rejects_bad_input(cuda_device):
+    q, k, v, _ = _xattn_inputs("bf16", 2, 50)
+    q, k, v = q.to(cuda_device), k.to(cuda_device), v.to(cuda_device)
+    with pytest.raises(TypeError):
+        xattn_decode(q.half(), k, v)
+    with pytest.raises(TypeError):
+        xattn_decode(q, k.half(), v.half())
+    with pytest.raises(TypeError):
+        xattn_decode(q, k, v.float())
+    with pytest.raises(ValueError):
+        xattn_decode(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
+    with pytest.raises(ValueError, match="head dim"):
+        xattn_decode(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                     v[..., :48].contiguous())
+    long_ta = max_ta(64, torch.bfloat16) + 1
+    big = torch.zeros((1, 12, long_ta, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="shared-memory"):
+        xattn_decode(q[:1], big, big)
+    with pytest.raises(ValueError):
+        xattn_decode(q.cpu(), k, v)
+
+
+def _flash_inputs(b, t, h=12, dh=64, seed=0):
+    rng = np.random.default_rng(seed)
+    scale = dh ** -0.25
+    qkv = [torch.from_numpy(rng.normal(0, 1, (b, h, t, dh)).astype(np.float32))
+           for _ in range(3)]
+    bf = torch.bfloat16
+    return (qkv[0] * scale).to(bf), (qkv[1] * scale).to(bf), qkv[2].to(bf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t", [(1, 512), (1, 1500), (4, 1500), (16, 1500), (2, 600)])
+def test_flash_kernel_matches_plain(cuda_device, b, t):
+    q, k, v = (x.to(cuda_device) for x in _flash_inputs(b, t))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    ref = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), ref.float(), atol=FLASH_ATOL, rtol=FLASH_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,t", [(32, 1500), (16, 77), (64, 700)])
+def test_flash_kernel_other_shapes(cuda_device, dh, t):
+    q, k, v = (x.to(cuda_device) for x in _flash_inputs(2, t, h=3, dh=dh))
+    got = flash_attention(q, k, v)
+    ref = flash_attention_plain(q, k, v)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.float(), atol=FLASH_ATOL, rtol=FLASH_RTOL)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_bad_input(cuda_device):
+    q, k, v = (x.to(cuda_device) for x in _flash_inputs(1, 600, h=2))
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention(q, k, v.float())
+    with pytest.raises(NotImplementedError, match="bfloat16 only"):
+        flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous())
+    with pytest.raises(ValueError):
+        flash_attention(q, k[:, :, :500], v[:, :, :500])
+
+
+@pytest.mark.cuda
+def test_float32_engine_with_flash_is_refused_on_the_card(cuda_device):
+    from stt_tpu_torch.engine.engine import WhisperEngine
+
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        WhisperEngine("test", device=cuda_device, compute_type="float32",
+                      flash_attention="auto")

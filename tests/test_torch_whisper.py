@@ -146,3 +146,60 @@ def test_bf16_int8_cross_kv_decoder_step(pair):
     assert got.dtype == torch.float32
     ref = np.asarray(ref, np.float32)
     assert np.abs(got.numpy() - ref).max() < BF16_LOGITS_ATOL
+
+
+@pytest.mark.parametrize("mode", ["fp8", "bf16"])
+def test_bf16_cross_kv_storage_decoder_step(pair, monkeypatch, mode):
+    """fp8 and bf16 cross K/V storage with the cross-attention kernel route
+    on (its plain version on the CPU): one decoder step's logits against the
+    JAX package under the same ``STT_CROSS_KV_DTYPE``, within the bf16 bound."""
+    _, config, params, _, _, _, enc = pair
+    jparams = JW.init_params(JW.get_config(config.name), seed=0, dtype=jnp.bfloat16)
+    monkeypatch.setattr(JW, "CROSS_KV_DTYPE", mode)
+    calls = []
+    real = TW.xattn_decode
+    monkeypatch.setattr(TW, "xattn_decode", lambda *a: calls.append(1) or real(*a))
+    policy = TW.AttentionPolicy(cross_kv_dtype=mode, xattn_kernel="mm")
+    model = TW.build_model(config, params, torch.device("cpu"), torch.bfloat16, policy)
+    enc_j = jnp.asarray(enc).astype(jnp.bfloat16)
+    enc_t = torch.from_numpy(enc).to(torch.bfloat16)
+
+    ckv_j = JW.precompute_cross_kv(jparams, enc_j, config.n_text_head)
+    ckv_t = TW.precompute_cross_kv(model.decoder, enc_t)
+    store = {"fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn),
+             "bf16": (jnp.bfloat16, torch.bfloat16)}[mode]
+    assert (ckv_j.k.dtype, ckv_t.k.dtype) == store and ckv_t.k_scale is None
+    # stored values may differ by one storage step (e4m3: 1/8 relative) where
+    # the two frameworks' bf16 projections round differently
+    np.testing.assert_allclose(ckv_t.k.float().numpy(), np.asarray(ckv_j.k, np.float32),
+                               atol=0.05, rtol=0.125)
+
+    b = enc.shape[0]
+    tok = TW.token_layout(config.n_vocab).sot
+    cache_j = JW.init_kv_cache(JW.get_config(config.name), b, 4, dtype=jnp.bfloat16)
+    ref, _ = JW._decoder_step(jparams, jnp.full((b,), tok, jnp.int32), 0, cache_j,
+                              ckv_j, config.n_text_head, 0)
+    cache_t = TW.init_kv_cache(config, b, 4, torch.bfloat16, torch.device("cpu"))
+    got = TW._decoder_step(model.decoder, torch.full((b,), tok), 0, cache_t, ckv_t)
+    assert len(calls) == config.n_text_layer
+    assert np.abs(got.numpy() - np.asarray(ref, np.float32)).max() < BF16_LOGITS_ATOL
+
+
+@pytest.mark.parametrize("xattn_kernel", ["off", "mm"])
+def test_cross_kv_storages_token_identical(xattn_kernel):
+    """bf16, fp8 and int8 cross K/V give the same greedy tokens on the test
+    model, as tests/test_engine.py::test_quantized_cross_kv_transcript_parity
+    asserts for the JAX package; with the kernel route on and off."""
+    config = TW.get_config("test")
+    params = TW.init_params(config, seed=0)
+    mel = np.random.default_rng(3).normal(0, 1, (2, config.n_mels, 100)).astype(np.float32)
+    prompt = torch.tensor(np.tile(TW.build_prompt(config, "en"), (2, 1)))
+    plen = torch.full((2,), prompt.shape[1])
+    outs = {}
+    for mode in ("bf16", "fp8", "int8"):
+        policy = TW.AttentionPolicy(cross_kv_dtype=mode, xattn_kernel=xattn_kernel)
+        model = TW.build_model(config, params, torch.device("cpu"), torch.bfloat16, policy)
+        enc = model.encoder(torch.from_numpy(mel).to(torch.bfloat16))
+        outs[mode] = TW.greedy_decode(model, enc, prompt, plen, 16).tokens
+    assert torch.equal(outs["bf16"], outs["fp8"])
+    assert torch.equal(outs["bf16"], outs["int8"])
