@@ -8,18 +8,24 @@ PyTorch built for CUDA. In order:
 
 1. prints the card's name and power limit, builds every kernel of the
    paths from the sources in the checkout (one ``nvcc`` per source, all
-   started together, no network) and prints each build time;
+   started together, no network) and prints each build time and each
+   kernel's registers, shared memory and spills as ``ptxas -v`` gives them;
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving paths give it and a few more, with the tolerance
    stated, and times kernel, plain version and one PyTorch library call:
    log-mel (atol 2e-4, rtol 1e-4), cross-attention decode over bf16, fp8,
    int8 and float32 K/V (atol 1e-3, rtol 1e-2) and encoder flash attention
-   (atol 2e-3, rtol 1e-2), each case printing the share of its limit used;
+   (atol 2e-3, rtol 1e-2), each case printing the share of its limit used
+   and the kernel's share of its bound; the cross-attention decode cases
+   cover every cluster size the split planner picks (1, 2, 4, 8 and 16
+   blocks) and Ta above the one-block cap of earlier versions;
 3. serves two paths with whisper-small in bfloat16 at full width and
    random weights from seed 0, each with the launch counts set to 0 just
    before and read just after:
    a. the default path (int8 cross K/V, einsum attention): 8 concurrent
-      requests of 1, 2, 5 and 10 s of synthetic audio from 8 threads;
+      requests of 1, 2, 5 and 10 s of synthetic audio from 8 threads, on
+      the default mu-law wire and again with ``audio_wire="int16"``, each
+      checking the row type every log-mel launch received;
    b. the 30 s path (fp8 cross K/V, ``xattn_kernel="mm"``,
       ``flash_attention="auto"``): 4 concurrent requests of 12, 20, 25 and
       30 s, all in the 30 s bucket, the only one whose 1500 encoder
@@ -71,6 +77,7 @@ H100_F32_FLOPS = 67e12                   # CUDA-core float32 peak, SXM, 700 W
 H100_BF16_FLOPS = 989e12                 # dense bf16 tensor-core peak, SXM, 700 W
 H100_HBM_BYTES = 3.35e12                 # HBM3 bytes/s
 L2_FLUSH_BYTES = 256 * 1024 * 1024       # > the 50 MB L2: a cold cache per timed call
+SPIN_CYCLES = 1_000_000                  # device spin after each flush, ~0.5 ms
 KERNELS = ("mel", "xattn_decode", "flash_attention")
 
 
@@ -117,7 +124,10 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 def cuda_ms_cold(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` with the L2 cache flushed before each call
     (CUDA events around each call), as the decode loop meets each layer's
-    cross K/V cold."""
+    cross K/V cold. After the flush the device also spins for ~0.5 ms, so
+    the host has enqueued the timed call before the device reaches its
+    start event: the events then time the device alone, however slow the
+    host (a call of ~10 us otherwise read up to 4x high on a busy host)."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -125,6 +135,7 @@ def cuda_ms_cold(torch, fn, iters: int = 20, warmup: int = 3) -> float:
               for _ in range(iters)]
     for start, end in events:
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -207,7 +218,9 @@ def xattn_phase(torch, dev):
     """Phase 2 for the cross-attention decode kernel; returns the largest
     error and the numbers of the served path's case (4 rows x 1500 fp8)."""
     import torch.nn.functional as F
-    from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode, xattn_decode_plain
+    from stt_tpu_torch.ops.kernels.xattn_decode import (
+        plan_split, xattn_decode, xattn_decode_plain,
+    )
 
     def inputs(storage, b, ta, h, dh=64, seed=0):
         """q and K at whisper's d_head**-0.25 scale; int8 as the model
@@ -235,7 +248,11 @@ def xattn_phase(torch, dev):
     cases = [(st, b, ta, 12) for b, ta in [(1, 50), (4, 500), (4, 1500), (16, 1500), (64, 500)]
              for st in ("bf16", "fp8", "int8")]
     cases += [("float32", 4, 500, 12), ("bf16", 4, 1500, 20)]
-    worst, headline = 0.0, None
+    # Ta above the one-block cap of the earlier kernel (8,128 fp8 keys), then
+    # above 8 x CHUNK_MAX, which takes a non-portable cluster of 16
+    cases += [("fp8", 1, 20000, 12), ("bf16", 1, 70000, 2)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, headline, sizes = 0.0, None, set()
     for storage, b, ta, h in cases:
         q, k, v, vs = inputs(storage, b, ta, h)
         got = xattn_decode(q, k, v)
@@ -246,7 +263,9 @@ def xattn_phase(torch, dev):
         if vs is not None:
             got, ref, lib = got * vs, ref * vs, lib * vs
         torch.cuda.synchronize()
-        tag = f"xattn_decode B{b} H{h} Ta{ta} {storage}"
+        clusters, chunk = plan_split(b * h, ta, 64, k.element_size(), sms)
+        sizes.add(clusters)
+        tag = f"xattn_decode B{b} H{h} Ta{ta} {storage} (cluster {clusters} x {chunk} keys)"
         if got.shape != (b, h, 64) or not torch.isfinite(got).all():
             fail(f"{tag}: shape {tuple(got.shape)} or non-finite values")
         err = (got - ref).abs().max().item()
@@ -267,10 +286,12 @@ def xattn_phase(torch, dev):
         log(f"{tag}: max_abs_err {err:.3g} (library {lib_err:.3g}), {used:.3g} of the limit, "
             f"max |ref| {ref.abs().max().item():.3g}; kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}), "
-            f"{nbytes / 1e6:.2f} MB")
+            f"{b_ms / k_ms:.1%} of the bound, {nbytes / 1e6:.2f} MB")
         if (storage, b, ta, h) == ("fp8", 4, 1500, 12):
             headline = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                             bound_by=b_by)
+    if sizes != {1, 2, 4, 8, 16}:
+        fail(f"xattn_decode cases ran cluster sizes {sorted(sizes)}, not 1, 2, 4, 8 and 16")
     return worst, headline
 
 
@@ -311,11 +332,72 @@ def flash_phase(torch, dev):
             f"max |ref| {ref.abs().max().item():.3g}, mean |ref| "
             f"{ref.float().abs().mean().item():.3g}; kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}), "
-            f"float32 CUDA-core floor {4.0 * b * h * t * t * dh / H100_F32_FLOPS * 1e3:.4g} ms")
+            f"{b_ms / k_ms:.1%} of the bound, "
+            f"{4.0 * b * h * t * t * dh / k_ms / 1e9:.0f} TFLOP/s")
         if (b, t) == (4, 1500):
             headline = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                             bound_by=b_by)
     return worst, headline
+
+
+def serve_default_phase(torch, E, W, audio_wire: str) -> int:
+    """Phase 3a: whisper-small bf16 on the default attention path (int8
+    cross K/V, einsum attention), 8 concurrent requests of 1-10 s on the
+    given audio wire. Checks that every log-mel launch of the run received
+    rows of the wire's type; returns the log-mel launch count."""
+    from stt_tpu_torch.ops.kernels.mel import mel_logspec
+
+    t0 = time.monotonic()
+    engine = E.WhisperEngine(
+        "small", device="cuda", compute_type="bfloat16",
+        batch_buckets=(1, 4, 16, 64), batch_window_ms=50.0, max_decode_tokens=224,
+        cross_kv_dtype="int8", xattn_kernel="off", flash_attention="off",
+        audio_wire=audio_wire,
+    )
+    cfg = engine.config
+    if engine.audio_wire != audio_wire:
+        fail(f"engine built with audio_wire={audio_wire!r} serves {engine.audio_wire!r}")
+    log(f"engine ({audio_wire} wire): whisper-{cfg.name} bf16 d={cfg.n_text_state} layers "
+        f"{cfg.n_audio_layer}+{cfg.n_text_layer} heads {cfg.n_text_head} vocab "
+        f"{cfg.n_vocab}; built in {time.monotonic() - t0:.1f} s")
+    wire_dtype = {"mulaw": torch.uint8, "int16": torch.int16}[audio_wire]
+    real = E.mel_logspec
+    row_dtypes = []
+
+    def recorded(rows, *args, **kwargs):
+        row_dtypes.append(rows.dtype)
+        return real(rows, *args, **kwargs)
+
+    try:
+        # first call pays cuBLAS/cuDNN set-up; not part of the measured run
+        t0 = time.monotonic()
+        engine.transcribe_sync(E.DecodeRequest(synth_audio(1.0, 9), language="en"))
+        log(f"warm-up request: {time.monotonic() - t0:.2f} s")
+
+        durations = [1.0, 2.0, 5.0, 10.0] * 2
+        requests = [
+            E.DecodeRequest(synth_audio(d, seed=i), language=None if i % 2 else "en",
+                            session_id=f"smoke-{audio_wire}-{i}", is_final=True)
+            for i, d in enumerate(durations)
+        ]
+        E.mel_logspec = recorded
+        mel_logspec.launches = 0
+        results, wall = serve_concurrently(engine, requests)
+        launches = mel_logspec.launches
+        check_served(E, W, engine, requests, results)
+    finally:
+        E.mel_logspec = real
+        engine.close()
+    if engine._thread is not None or engine._harvest_thread is not None:
+        fail("engine threads still running after close()")
+    if launches <= 0:
+        fail("the served path never launched the mel kernel")
+    if len(row_dtypes) != launches or set(row_dtypes) != {wire_dtype}:
+        fail(f"{audio_wire} wire: the log-mel kernel got rows {row_dtypes} in {launches} "
+             f"launches, not {wire_dtype}")
+    log(f"served {len(requests)} requests on the {audio_wire} wire in {wall:.3f} s; "
+        f"mel_logspec launches {launches}, each on {wire_dtype} rows")
+    return launches
 
 
 def serve_30s_phase(torch, E, W):
@@ -468,6 +550,14 @@ def main() -> None:
     seconds = build.load_many(KERNELS)
     log(f"build: {', '.join(f'{n}.cu {s:.1f} s' for n, s in seconds.items())} "
         f"(with {build.find_nvcc()}, in parallel)")
+    for name, report in build.REPORTS.items():
+        lines = report.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+                usage = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 5]
+                         if "Used" in x or "stack frame" in x]
+                log(f"ptxas {name}.cu {entry}: {'; '.join(usage)}")
 
     # -- 2. kernel vs plain ----------------------------------------------------
     def rows_for(wire: str, batch: int, seconds: float) -> torch.Tensor:
@@ -477,7 +567,7 @@ def main() -> None:
         pcm = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
         host = {"float32": audio, "int16": pcm}.get(wire)
         if host is None:  # mu-law, as the engine sends it (silence included)
-            host = E._encode_wire_rows(pcm)
+            host = E._encode_wire_rows(pcm, "mulaw")
         return torch.from_numpy(np.ascontiguousarray(host)).to(dev)
 
     def library_logmel(rows: torch.Tensor) -> torch.Tensor:
@@ -554,40 +644,8 @@ def main() -> None:
     flash_err, flash_headline = flash_phase(torch, dev)
 
     # -- 3a. served requests, default path (int8 cross K/V, einsum attention) ---
-    t0 = time.monotonic()
-    engine = E.WhisperEngine(
-        "small", device="cuda", compute_type="bfloat16",
-        batch_buckets=(1, 4, 16, 64), batch_window_ms=50.0, max_decode_tokens=224,
-        cross_kv_dtype="int8", xattn_kernel="off", flash_attention="off",
-    )
-    cfg = engine.config
-    log(f"engine: whisper-{cfg.name} bf16 d={cfg.n_text_state} layers "
-        f"{cfg.n_audio_layer}+{cfg.n_text_layer} heads {cfg.n_text_head} vocab "
-        f"{cfg.n_vocab}; built in {time.monotonic() - t0:.1f} s")
-    try:
-        # first call pays cuBLAS/cuDNN set-up; not part of the measured run
-        t0 = time.monotonic()
-        engine.transcribe_sync(E.DecodeRequest(synth_audio(1.0, 9), language="en"))
-        log(f"warm-up request: {time.monotonic() - t0:.2f} s")
-
-        durations = [1.0, 2.0, 5.0, 10.0] * 2
-        requests = [
-            E.DecodeRequest(synth_audio(d, seed=i), language=None if i % 2 else "en",
-                            session_id=f"smoke-{i}", is_final=True)
-            for i, d in enumerate(durations)
-        ]
-        mel_logspec.launches = 0
-        results, wall = serve_concurrently(engine, requests)
-        launches = mel_logspec.launches
-        check_served(E, W, engine, requests, results)
-        if launches <= 0:
-            fail("the served path never launched the mel kernel")
-        log(f"served {len(requests)} requests in {wall:.3f} s; mel_logspec launches "
-            f"{launches}")
-    finally:
-        engine.close()
-    if engine._thread is not None or engine._harvest_thread is not None:
-        fail("engine threads still running after close()")
+    launches = serve_default_phase(torch, E, W, "mulaw")
+    serve_default_phase(torch, E, W, "int16")
 
     # -- 3b. served requests, 30 s path (fp8 cross K/V, both attention kernels) -
     counts_30s = serve_30s_phase(torch, E, W)

@@ -9,8 +9,10 @@ without timestamps — what every streaming partial and final takes:
   mel -> encode -> detect -> greedy-decode step per group.
 - Audio pads to second buckets and rows to batch buckets, as in the JAX
   package, so the shapes a deployment sees stay few.
-- Rows travel to the device as 8-bit mu-law (a quarter of float32); the
-  hand-written log-mel kernel expands them while it loads them.
+- Rows travel to the device on the audio wire (``audio_wire``): 8-bit
+  mu-law by default (a quarter of float32), or the lossless int16 PCM
+  rows for any other value; the hand-written log-mel kernel expands
+  either while it loads them.
 - Three attention options (``cross_kv_dtype``, ``xattn_kernel``,
   ``flash_attention``; :class:`~stt_tpu_torch.models.whisper.AttentionPolicy`)
   pick the cross K/V storage and the cross-attention decode and encoder
@@ -19,11 +21,14 @@ without timestamps — what every streaming partial and final takes:
   (``STT_CROSS_KV_DTYPE``, ``STT_XATTN_KERNEL``, ``STT_FLASH_ATTENTION``),
   with its defaults (int8, off, off). The flash kernel takes bf16 only, so
   a float32 engine on the card with flash on is refused when it is built.
+  ``audio_wire`` and ``pipeline_depth`` are read the same way from
+  ``STT_AUDIO_WIRE`` (default mulaw) and ``STT_PIPELINE_DEPTH`` (default 2),
+  parsed as the JAX package parses them.
 - The device phase returns one packed int32 array per group (tokens,
   lengths, logprob sum, p(no_speech), language index and probability);
   a harvester thread reads it back, detokenizes and resolves the futures,
   so the engine thread can form the next batch meanwhile. At most
-  ``PIPELINE_DEPTH`` groups are in flight.
+  ``pipeline_depth`` groups are in flight.
 
 Both threads are daemon threads, and :meth:`WhisperEngine.close` joins
 them with timeouts and fails any request still queued, so no future is
@@ -39,6 +44,7 @@ drafted partials and the long-audio seek loop.
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -60,7 +66,8 @@ LOGGER = logging.getLogger("stt_tpu_torch")
 
 DEFAULT_AUDIO_BUCKETS_SEC = (1.0, 2.0, 5.0, 10.0, 30.0)
 DEFAULT_BATCH_BUCKETS = (1, 4, 16)
-# groups whose device work is issued but not yet harvested
+# groups whose device work is enqueued but not yet harvested, unless
+# STT_PIPELINE_DEPTH or the engine's pipeline_depth says otherwise
 PIPELINE_DEPTH = 2
 # how long close() waits for each thread to stop
 CLOSE_JOIN_TIMEOUT_SEC = 120.0
@@ -79,9 +86,32 @@ def _build_mulaw_lut() -> np.ndarray:
 _MULAW_LUT = _build_mulaw_lut()
 
 
-def _encode_wire_rows(rows: np.ndarray) -> np.ndarray:
-    """Packed int16 PCM rows -> the 8-bit mu-law wire."""
-    return _MULAW_LUT[rows.view(np.uint16)]
+def _encode_wire_rows(rows: np.ndarray, wire: str = "mulaw") -> np.ndarray:
+    """Packed int16 PCM rows -> the ``wire`` format: the 8-bit mu-law codes
+    for ``"mulaw"``, the int16 rows unchanged for any other wire."""
+    if wire == "mulaw":
+        return _MULAW_LUT[rows.view(np.uint16)]
+    return rows
+
+
+def _audio_wire(given: Optional[str]) -> str:
+    """The engine's audio wire: ``given``, else ``STT_AUDIO_WIRE``, stripped
+    and lower-cased, empty meaning mulaw (``stt_tpu/engine/engine.py:68``).
+    Every wire but mulaw ships the int16 rows, so it is named ``int16``."""
+    raw = os.getenv("STT_AUDIO_WIRE", "mulaw") if given is None else given
+    return "mulaw" if (raw.strip().lower() or "mulaw") == "mulaw" else "int16"
+
+
+def _pipeline_depth(given: Optional[int]) -> int:
+    """Groups in flight: ``given``, else ``STT_PIPELINE_DEPTH`` (default 2, an
+    unparsable value also 2), at least 1 (``stt_tpu/engine/engine.py:1143``)."""
+    if given is None:
+        try:
+            given = int(os.getenv("STT_PIPELINE_DEPTH", str(PIPELINE_DEPTH))
+                        or PIPELINE_DEPTH)
+        except ValueError:
+            given = PIPELINE_DEPTH
+    return max(1, int(given))
 
 
 def max_new_for(bucket_sec: float, max_decode_tokens: int) -> int:
@@ -252,6 +282,8 @@ class WhisperEngine:
         cross_kv_dtype: Optional[str] = None,
         xattn_kernel: Optional[str] = None,
         flash_attention: Optional[str] = None,
+        audio_wire: Optional[str] = None,
+        pipeline_depth: Optional[int] = None,
     ) -> None:
         if compute_type not in _DTYPES:
             raise ValueError(f"compute_type must be one of {sorted(_DTYPES)}, "
@@ -274,6 +306,8 @@ class WhisperEngine:
             config, W.init_params(config, seed=seed), self.device, self._dtype,
             self.policy,
         )
+        self.audio_wire = _audio_wire(audio_wire)
+        self.pipeline_depth = _pipeline_depth(pipeline_depth)
         self.tokenizer = load_tokenizer(tokenizer_path, config.n_vocab)
         self.layout = W.token_layout(config.n_vocab)
 
@@ -287,7 +321,7 @@ class WhisperEngine:
         self._harvest_q: "queue.Queue[Optional[Tuple[List[_Task], Dict[str, Any]]]]" = (
             queue.Queue()
         )
-        self._dispatch_sem = threading.Semaphore(PIPELINE_DEPTH)
+        self._dispatch_sem = threading.Semaphore(self.pipeline_depth)
         self._thread: Optional[threading.Thread] = None
         self._harvest_thread: Optional[threading.Thread] = None
         self._running = False
@@ -503,8 +537,9 @@ class WhisperEngine:
         bucket_samples -= bucket_samples % HOP_LENGTH
         batch_n = self._batch_bucket(n)
 
-        # rows pack to int16 PCM, then compress to mu-law for the
-        # host->device hop; the log-mel kernel expands them on load
+        # rows pack to int16 PCM, then go to the engine's audio wire (mu-law
+        # or the int16 rows) for the host->device hop; the log-mel kernel
+        # expands either on load
         rows = np.zeros((batch_n, bucket_samples), np.int16)
         durations = []
         for i, task in enumerate(group):
@@ -534,7 +569,7 @@ class WhisperEngine:
 
         dev = self.device
         with torch.inference_mode():
-            rows_dev = torch.from_numpy(_encode_wire_rows(rows)).to(dev)
+            rows_dev = torch.from_numpy(_encode_wire_rows(rows, self.audio_wire)).to(dev)
             packed = _serve_step(
                 self.model, rows_dev,
                 torch.from_numpy(prompt_arr).to(dev),

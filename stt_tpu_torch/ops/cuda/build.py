@@ -3,7 +3,8 @@
 Each ``<name>.cu`` in this directory exports plain ``extern "C"``
 launchers, so it compiles straight into a shared library with
 
-    nvcc -O3 -std=c++17 -arch=sm_90a -shared -Xcompiler -fPIC
+    nvcc -O3 -std=c++17 -gencode arch=compute_90a,code=sm_90a -shared \
+         -Xcompiler -fPIC -Xptxas -v
 
 and loads through ``ctypes``: no ninja and no PyTorch headers, which keeps
 a build to seconds. Objects go to ``.torch_kernels_build/`` at the
@@ -13,7 +14,9 @@ another toolkit rebuilds and a stale object is never loaded. Each object
 is written under a temporary name and renamed into place, so concurrent
 builds never load a half-written file. A failed build raises with the
 compiler's output; nothing falls back to a plain version. Several sources
-build in parallel, one ``nvcc`` process each (:func:`load_many`).
+build in parallel, one ``nvcc`` process each (:func:`load_many`), and
+``ptxas``'s report of each kernel's registers, shared memory and spills is
+kept in :data:`REPORTS` for the sources built by this process.
 """
 
 from __future__ import annotations
@@ -32,10 +35,14 @@ from typing import Dict, Sequence
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parents[2] / ".torch_kernels_build"
 ARCH = "sm_90a"
-FLAGS = ("-O3", "-std=c++17", f"-arch={ARCH}", "-shared", "-Xcompiler", "-fPIC")
+# -gencode names the arch-specific virtual target too: "-arch=sm_90a" alone
+# lowers through compute_90 PTX, which has no wgmma
+FLAGS = ("-O3", "-std=c++17", "-gencode", f"arch=compute_90a,code={ARCH}", "-shared",
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+REPORTS: Dict[str, str] = {}  # source name -> ptxas lines of its last build here
 
 
 def find_nvcc() -> str:
@@ -107,6 +114,9 @@ def load_many(names: Sequence[str]) -> Dict[str, float]:
                                           f"(exit {proc.returncode}):\n{output}")
                     continue
                 os.replace(tmp, obj)
+                REPORTS[name] = "\n".join(
+                    line for line in output.splitlines()
+                    if "ptxas" in line or "stack frame" in line)
             if failure is None:
                 _loaded[name] = ctypes.CDLL(str(obj))
         if failure is not None:
@@ -120,4 +130,4 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
-__all__ = ["BUILD_DIR", "find_nvcc", "load", "load_many"]
+__all__ = ["BUILD_DIR", "REPORTS", "find_nvcc", "load", "load_many"]

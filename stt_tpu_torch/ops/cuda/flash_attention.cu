@@ -12,26 +12,42 @@
 // with float32 scores, a float32 online softmax, the unnormalised p rounded
 // to bf16 before the P.V product (the TPU kernel's p.astype(v.dtype)), and
 // one division by l at the end. Inputs and output are bf16, the serving
-// path's type; the kernel takes no float32.
+// path's type; the kernel takes no float32. Head dims 16, 32 and 64.
 //
 // What bounds it on the H100: 4*T^2*Dh flops per (b, h) against ~8*T*Dh bytes
 // moved, ~375 flops a byte at T 1500, so the work is bound by arithmetic on
-// the tensor cores (989 TFLOP/s bf16). The kernel runs on them through
-// mma.sync m16n8k16 (bf16 in, float32 accumulate), so the products are exact
-// and the sums float32, as on the TPU's MXU.
-//   - one block of four warps per (b, h, 64-query tile); each warp owns 16
-//     query rows, whose q fragments stay in registers for the whole pass;
-//   - 64-key tiles of K (row-major) and V (transposed, so both are the
-//     mma's column-major B operand) go through shared memory with rows
-//     padded by 8 elements, so the fragment loads have no bank conflicts;
-//   - S = q K^T lands in the mma's accumulator layout; each row's max and
-//     sum need only two shuffles among the four lanes that hold the row;
-//     p is rounded to bf16 and repacked in registers as the A operand of
-//     P.V, so the 64 x 64 weight tile never touches shared memory;
-//   - keys >= T in the last tile are masked to -inf (1500 = 23*64 + 28) and
-//     their V rows zero-filled; query rows >= T compute but never store.
-//   There is no copy pipeline (cp.async/TMA) and no wgmma yet: later work.
+// the tensor cores (989 TFLOP/s bf16). The design is Hopper's:
+//   - warp specialisation: each block has three consumer warpgroups of 64
+//     query rows (192 rows a block, so each K/V tile serves 192 queries, and
+//     while one warpgroup runs its softmax the others keep the tensor cores
+//     busy) and one producer warp; at 4 x 12 x 1500 that is 384 blocks, 2.9
+//     waves of one block per SM;
+//   - TMA: the producer loads the block's Q tile once, then K and V tiles of
+//     128 keys x Dh into a 3-stage ring in shared memory, each stage with a
+//     full barrier per tensor (mbarrier with the TMA's byte count) and one
+//     empty barrier the consumers' warps arrive on when the stage is used.
+//     Rows are Dh*2 bytes (128/64/32) and the tiles use the swizzle of that
+//     width (128B/64B/32B), which is the layout wgmma reads;
+//   - S = Q K^T on wgmma m64n128k16 (bf16 in, float32 accumulate), with Q
+//     and K both K-major operands straight from the swizzled tiles;
+//   - the online softmax runs in registers: each accumulator row sits in
+//     four lanes, so its max and sum take two shuffles. At Dh 64 the
+//     exponentials (one per score, on the special-function unit at 16 a
+//     clock per SM) cost about as much time as the tensor-core work, so
+//     each is one ex2.approx.ftz of s*log2(e) - m. p is rounded to bf16
+//     and repacked in registers as the A operand of O += P V on wgmma
+//     m64nDhk16, whose B operand V is read MN-major through wgmma's
+//     transpose bit, so no transposed copy of V exists anywhere;
+//   - the ragged tail (1500 = 11*128 + 92): the tensors are described to TMA
+//     as 3-D (Dh, T, B*H), so the T bound clips per head and the rows past T
+//     arrive as zeros (a 2-D (B*H*T, Dh) view would fetch the next head's
+//     first keys); keys >= T get a score of -inf, query rows >= T are not
+//     stored.
+// Tensor maps are encoded on the host by cuTensorMapEncodeTiled, fetched
+// through cudaGetDriverEntryPoint so the library needs no -lcuda, and passed
+// as __grid_constant__ parameters.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -39,18 +55,197 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per block
-constexpr int kBlockK = 64;   // keys per shared-memory tile
-constexpr int kPad = 8;       // bf16 elements of padding per shared row
-constexpr int kWarps = kBlockQ / 16;
+constexpr int kConsumers = 3;                      // warpgroups of 64 query rows
+constexpr int kBlockM = 64 * kConsumers;           // query rows per block
+constexpr int kBlockN = 128;                       // keys per K/V tile
+constexpr int kStages = 3;                         // K/V ring depth
+constexpr int kThreads = 128 * kConsumers + 32;    // consumers, then the producer warp
+constexpr int kConsumerWarps = 4 * kConsumers;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
+template <int kDh>
+struct Layout {
+  static constexpr int kRowBytes = kDh * 2;
+  static constexpr int kQBytes = kBlockM * kRowBytes;
+  static constexpr int kTileBytes = kBlockN * kRowBytes;
+  static constexpr int kBytes = kQBytes + 2 * kStages * kTileBytes;
+  // 8 rows of one swizzle atom: the descriptors' stride between row groups
+  static constexpr uint32_t kGroupBytes = 8 * kRowBytes;
+  // wgmma descriptor layout code (1 = 128B, 2 = 64B, 3 = 32B swizzle)
+  static constexpr uint64_t kSwizzle = kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that lasts
+// ~4e9 clocks (seconds) can only be a fault: it traps, so the launch fails
+// with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  const long long start = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (!done && clock64() - start > 4000000000LL) __trap();
+  } while (!done);
+}
+
+// One TMA tile copy, coordinates (dh 0, row, head); completion counts bytes
+// on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int row, int head) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(0), "r"(row), "r"(head)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout. The tiles start on
+// 1024-byte boundaries, so the base offset field stays 0.
+template <uint64_t kSwizzle>
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (kSwizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from touching accumulator registers across the async
+// product: ties each one to a point after the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d (+)= A B for one m64n128k16 step, A and B read from shared memory
+// through descriptors, both K-major; accumulate 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B for one m64n16k16 step, A (bf16 pairs) from registers, B read
+// from shared memory MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for one m64n32k16 step, A (bf16 pairs) from registers, B read
+// from shared memory MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for one m64n64k16 step, A (bf16 pairs) from registers, B read
+// from shared memory MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int kDh>
+__device__ __forceinline__ void wgmma_pv(float (&d)[kDh / 2], const uint32_t (&a)[4],
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_pv<16>(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n16(d, a, db);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<32>(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n32(d, a, db);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n64(d, a, db);
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero
+// (weights under 2^-126 of the row's largest weight, which is 1).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -59,121 +254,160 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 template <int kDh>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_attention_mma_kernel(const uint32_t* __restrict__ q,   // (B*H, T, Dh) bf16 pairs
-                           const uint32_t* __restrict__ k,
-                           const uint32_t* __restrict__ v,
-                           uint32_t* __restrict__ o,
-                           int t) {
-  constexpr int kW = kDh / 2;              // 32-bit words per row
-  constexpr int kKc = kDh / 16;            // k-chunks of the q.k product
-  constexpr int kDn = kDh / 8;             // n-tiles of the output
-  constexpr int kKs = (kDh + kPad) / 2;    // words per K row in shared memory
-  constexpr int kVs = (kBlockK + kPad) / 2;  // words per V^T row
-  __shared__ __align__(16) uint32_t ks[kBlockK * kKs];
-  __shared__ __align__(16) uint32_t vt[kDh * kVs];
-  __nv_bfloat16* vt16 = reinterpret_cast<__nv_bfloat16*>(vt);
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             uint32_t* __restrict__ o,   // (B*H, T, Dh) bf16 pairs
+                             int t) {
+  using L = Layout<kDh>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t k_full[kStages];
+  __shared__ __align__(8) uint64_t v_full[kStages];
+  __shared__ __align__(8) uint64_t empty[kStages];
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // row within the 8-row half of the fragment
-  const int tq = lane % 4;  // column pair within the fragment
-  const size_t base = static_cast<size_t>(blockIdx.y) * t * kW;
-  const int row0 = blockIdx.x * kBlockQ + warp * 16 + g;
-  const int row1 = row0 + 8;
+  // the swizzled tiles need 1024-byte alignment (the launch asks 1 KB extra)
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* q_s = smem;
+  uint8_t* k_s = q_s + L::kQBytes;
+  uint8_t* v_s = k_s + kStages * L::kTileBytes;
 
-  uint32_t qa[kKc][4];
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBlockM;
+  const int n_tiles = (t + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
 #pragma unroll
-  for (int kc = 0; kc < kKc; ++kc) {
-    const int w = kc * 8 + tq;
-    qa[kc][0] = row0 < t ? q[base + static_cast<size_t>(row0) * kW + w] : 0u;
-    qa[kc][1] = row1 < t ? q[base + static_cast<size_t>(row1) * kW + w] : 0u;
-    qa[kc][2] = row0 < t ? q[base + static_cast<size_t>(row0) * kW + w + 4] : 0u;
-    qa[kc][3] = row1 < t ? q[base + static_cast<size_t>(row1) * kW + w + 4] : 0u;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float acc[kDn][4];
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * kConsumers) {
+    // ---- producer warp: one lane starts every TMA copy ----
+    if (threadIdx.x == 128 * kConsumers) {
+      mbar_expect_tx(&q_full, L::kQBytes);
+      tma_load(q_s, &map_q, &q_full, q0, bh);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        mbar_expect_tx(&k_full[s], L::kTileBytes);
+        tma_load(k_s + s * L::kTileBytes, &map_k, &k_full[s], i * kBlockN, bh);
+        mbar_expect_tx(&v_full[s], L::kTileBytes);
+        tma_load(v_s + s * L::kTileBytes, &map_v, &v_full[s], i * kBlockN, bh);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: query rows q0 + 64*wg .. +63 ----
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;   // row within the warp's 8-row half
+  const int tq = lane % 4;  // column pair within each 8-column block
+  const uint32_t q_addr = smem_u32(q_s) + wg * 64 * L::kRowBytes;
+  const uint32_t k_addr = smem_u32(k_s);
+  const uint32_t v_addr = smem_u32(v_s);
+
+  float acc[kDh / 2];
 #pragma unroll
-  for (int dn = 0; dn < kDn; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.0f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows row0, row1
+  for (int i = 0; i < kDh / 2; ++i) acc[i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8 (log2 units)
   float l0 = 0.0f, l1 = 0.0f;            // this lane's share of the running sums
 
-  for (int k0 = 0; k0 < t; k0 += kBlockK) {
-    const int nk = min(kBlockK, t - k0);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kBlockK * kW; i += kWarps * 32) {
-      const int c = i / kW;
-      const int w = i % kW;
-      uint32_t kv = 0u, vv = 0u;
-      if (c < nk) {
-        const size_t idx = base + static_cast<size_t>(k0 + c) * kW + w;
-        kv = k[idx];
-        vv = v[idx];
-      }
-      ks[c * kKs + w] = kv;
-      const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(&vv);
-      vt16[(2 * w) * (2 * kVs) + c] = pair.x;
-      vt16[(2 * w + 1) * (2 * kVs) + c] = pair.y;
-    }
-    __syncthreads();
+  mbar_wait(&q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    const uint32_t parity = (i / kStages) & 1;
+    const uint32_t ks = k_addr + s * L::kTileBytes;
+    const uint32_t vs = v_addr + s * L::kTileBytes;
 
-    // S = q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kBlockK / 8][4];
+    // S = Q K^T: 64 rows x 128 keys, Dh/16 steps of 16 along the head dim
+    float sc[kBlockN / 2];
+    mbar_wait(&k_full[s], parity);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-      const uint32_t* kr = ks + (nt * 8 + g) * kKs + tq;
+    for (int kc = 0; kc < kDh / 16; ++kc) {
+      wgmma_ss_n128(sc,
+                    wgmma_desc<L::kSwizzle>(q_addr + kc * 32, 16, L::kGroupBytes),
+                    wgmma_desc<L::kSwizzle>(ks + kc * 32, 16, L::kGroupBytes), kc > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // sc[4j + e]: row g + 8*(e/2), key 8j + 2*tq + (e%2); keys >= t masked
+    const int k0 = i * kBlockN;
+    if (k0 + kBlockN > t) {
 #pragma unroll
-      for (int kc = 0; kc < kKc; ++kc) mma_bf16(s[nt], qa[kc], kr[kc * 8], kr[kc * 8 + 4]);
+      for (int j = 0; j < kBlockN / 8; ++j) {
+        const int c = k0 + 8 * j + 2 * tq;
+        if (c >= t) sc[4 * j] = sc[4 * j + 2] = -INFINITY;
+        if (c + 1 >= t) sc[4 * j + 1] = sc[4 * j + 3] = -INFINITY;
+      }
     }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      const int c = nt * 8 + 2 * tq;
-      if (c >= nk) s[nt][0] = s[nt][2] = -INFINITY;
-      if (c + 1 >= nk) s[nt][1] = s[nt][3] = -INFINITY;
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    for (int j = 0; j < kBlockN / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    // key 0 of every tile is real, so the new max is finite; exp(-inf) = 0
+    // key 0 of every tile is real, so the new max is finite; exp2(-inf) = 0
     // clears the empty start state
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    const float mn0 = fmaxf(m0, mx0 * kLog2e), mn1 = fmaxf(m1, mx1 * kLog2e);
+    const float a0 = exp2_ftz(m0 - mn0), a1 = exp2_ftz(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     l0 *= a0;
     l1 *= a1;
 #pragma unroll
-    for (int dn = 0; dn < kDn; ++dn) {
-      acc[dn][0] *= a0;
-      acc[dn][1] *= a0;
-      acc[dn][2] *= a1;
-      acc[dn][3] *= a1;
+    for (int j = 0; j < kDh / 8; ++j) {
+      acc[4 * j] *= a0;
+      acc[4 * j + 1] *= a0;
+      acc[4 * j + 2] *= a1;
+      acc[4 * j + 3] *= a1;
     }
-    // p = exp(s - m), summed unrounded, rounded to bf16 into A fragments
-    uint32_t pa[kBlockK / 16][4];
+    // p = exp(s - m), summed unrounded, rounded to bf16 into the A fragments
+    // of P V: step kk covers keys 16kk..16kk+15 = accumulator blocks 2kk, 2kk+1
+    uint32_t pa[kBlockN / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      const float p0 = expf(s[nt][0] - m0), p1 = expf(s[nt][1] - m0);
-      const float p2 = expf(s[nt][2] - m1), p3 = expf(s[nt][3] - m1);
+    for (int j = 0; j < kBlockN / 8; ++j) {
+      const float p0 = exp2_ftz(fmaf(sc[4 * j], kLog2e, -m0));
+      const float p1 = exp2_ftz(fmaf(sc[4 * j + 1], kLog2e, -m0));
+      const float p2 = exp2_ftz(fmaf(sc[4 * j + 2], kLog2e, -m1));
+      const float p3 = exp2_ftz(fmaf(sc[4 * j + 3], kLog2e, -m1));
       l0 += p0 + p1;
       l1 += p2 + p3;
-      pa[nt / 2][(nt % 2) * 2] = pack_bf16(p0, p1);
-      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
+      pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
     }
-    // acc += P V
+
+    // O += P V: Dh columns, 8 steps of 16 keys; V's rows advance the K dim
+    mbar_wait(&v_full[s], parity);
+    wgmma_fence();
 #pragma unroll
-    for (int dn = 0; dn < kDn; ++dn) {
-      const uint32_t* vr = vt + (dn * 8 + g) * kVs + tq;
-#pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        mma_bf16(acc[dn], pa[kk], vr[kk * 8], vr[kk * 8 + 4]);
-      }
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      wgmma_pv<kDh>(acc, pa[kk],
+                    wgmma_desc<L::kSwizzle>(vs + kk * 16 * L::kRowBytes, L::kGroupBytes,
+                                            L::kGroupBytes));
     }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
 #pragma unroll
@@ -182,31 +416,90 @@ flash_attention_mma_kernel(const uint32_t* __restrict__ q,   // (B*H, T, Dh) bf1
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  const int row0 = q0 + wg * 64 + warp * 16 + g;
+  const int row1 = row0 + 8;
+  const size_t base = static_cast<size_t>(bh) * t * (kDh / 2);
 #pragma unroll
-  for (int dn = 0; dn < kDn; ++dn) {
-    const int w = dn * 4 + tq;
-    if (row0 < t) o[base + static_cast<size_t>(row0) * kW + w] =
-        pack_bf16(acc[dn][0] * inv0, acc[dn][1] * inv0);
-    if (row1 < t) o[base + static_cast<size_t>(row1) * kW + w] =
-        pack_bf16(acc[dn][2] * inv1, acc[dn][3] * inv1);
+  for (int j = 0; j < kDh / 8; ++j) {
+    const int w = j * 4 + tq;
+    if (row0 < t) o[base + static_cast<size_t>(row0) * (kDh / 2) + w] =
+        pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    if (row1 < t) o[base + static_cast<size_t>(row1) * (kDh / 2) + w] =
+        pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
   }
 }
 
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the runtime has already loaded.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// A (Dh, T, B*H) bf16 tensor map with boxes of (Dh, rows, 1): the T bound
+// clips each head's tail, and TMA fills rows past it with zeros.
 template <int kDh>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int t,
-                   cudaStream_t stream) {
-  dim3 grid((t + kBlockQ - 1) / kBlockQ, bh);
-  flash_attention_mma_kernel<kDh><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(k),
-      static_cast<const uint32_t*>(v), static_cast<uint32_t*>(o), t);
-  return cudaGetLastError();
+CUresult make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int bh, int t,
+                  int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kDh), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kDh) * 2,
+                                 static_cast<cuuint64_t>(t) * kDh * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kDh), static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = kDh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : kDh == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+constexpr int kEncodeError = 1000;  // + the CUresult of a failed encode
+
+template <int kDh>
+int launch(const void* q, const void* k, const void* v, void* o, int bh, int t,
+           cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mq, mk, mv;
+  CUresult r = make_map<kDh>(encode, &mq, q, bh, t, kBlockM);
+  if (r == CUDA_SUCCESS) r = make_map<kDh>(encode, &mk, k, bh, t, kBlockN);
+  if (r == CUDA_SUCCESS) r = make_map<kDh>(encode, &mv, v, bh, t, kBlockN);
+  if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
+  auto kernel = flash_attention_wgmma_kernel<kDh>;
+  const int smem = Layout<kDh>::kBytes + 1024;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  dim3 grid((t + kBlockM - 1) / kBlockM, bh);
+  kernel<<<grid, kThreads, smem, stream>>>(mq, mk, mv, static_cast<uint32_t*>(o), t);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. q, k, v, o are contiguous
-// (bh, t, dh) bf16; dh 16, 32 or 64. Launches on `stream` without
-// synchronising and returns the launch's cudaError_t (0 on success).
+// (bh, t, dh) bf16, 16-byte aligned; dh 16, 32 or 64; 1 <= bh <= 65535.
+// Launches on `stream` without synchronising and returns 0 on success, a
+// cudaError_t, or 1000 + the CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, int bh, int t, int dh, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

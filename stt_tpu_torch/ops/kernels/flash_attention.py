@@ -13,8 +13,9 @@ kernel masks the ragged last key tile itself, so nothing is padded.
 
 The function does 4·T²·Dh flops per (row, head) against ~8·T·Dh bytes, so
 at the encoder's T = 1500 it is bound by arithmetic; the kernel runs it on
-the tensor cores through ``mma.sync``, in bf16 only (the serving path's
-type).
+the tensor cores through ``wgmma``, fed by TMA copies into a ring of shared
+memory that one producer warp keeps full for three consumer warpgroups, in
+bf16 only (the serving path's type).
 
 :func:`flash_attention` dispatches on the tensors' device: CUDA tensors go
 to the kernel, CPU tensors (bf16 or float32) to :func:`flash_attention_plain`.
@@ -81,6 +82,10 @@ def flash_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor) -> tor
     b, h, t, dh = qh.shape
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} unsupported (one of {HEAD_DIMS})")
+    if b * h > 65535:
+        raise ValueError(f"B*H={b * h} above the grid's 65535")
+    if any(x.data_ptr() % 16 for x in (qh, kh, vh)):
+        raise ValueError("flash_attention wants 16-byte aligned q, k and v (TMA)")
     out = torch.empty_like(qh)
     if b * h * t == 0:
         return out
@@ -90,7 +95,9 @@ def flash_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor) -> tor
         rc = launch(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
                     b * h, t, dh, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
+        what = (f"cuTensorMapEncodeTiled CUresult {rc - 1000}" if rc > 1000
+                else f"cudaError {rc}")
+        raise RuntimeError(f"flash_attention kernel launch failed: {what}")
     flash_attention.launches += 1
     return out
 

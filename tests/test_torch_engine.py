@@ -246,3 +246,131 @@ def test_engine_serves_30s_with_attention_options(monkeypatch):
     assert out._tokens.min() >= 0 and out._tokens.max() < cfg.n_vocab
     assert out.info.language in TW.WHISPER_LANG_CODES
     assert np.isfinite(out.avg_logprob) and 0.0 <= out.no_speech_prob <= 1.0
+
+
+# -- the audio wire and the pipeline depth ------------------------------------
+
+
+def _tasks(module, group):
+    return [module._Task(module.DecodeRequest(_audio(s, seed), language=lang), None)
+            for s, lang, seed in group]
+
+
+@pytest.fixture(scope="module")
+def served_int16():
+    """GROUPS served on the int16 wire by both engines. The JAX package's
+    wire is its import-time module state, switched here by patching
+    ``AUDIO_WIRE`` and ``_MULAW_LUT`` (nothing in stt_tpu/ is edited)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JE, "AUDIO_WIRE", "int16")
+        mp.setattr(JE, "_MULAW_LUT", None)
+        port = TE.WhisperEngine("test", device="cpu", compute_type="float32",
+                                audio_wire="int16")
+        ref = JE.WhisperEngine("test", device="cpu", compute_type="float32")
+        results = []
+        try:
+            for group in GROUPS:
+                t_ctx = port._device_phase(_tasks(TE, group))
+                j_ctx = ref._device_phase(_tasks(JE, group))
+                results.append((t_ctx["packed"].numpy().copy(), np.array(j_ctx["packed"]),
+                                t_ctx["rows_dev"].numpy().copy()))
+        finally:
+            port.close()
+            ref.close()
+    return results
+
+
+@pytest.mark.parametrize("gi", range(len(GROUPS)))
+def test_int16_wire_token_rows_identical(served_int16, gi):
+    """The port's int16-wire engine gives the JAX int16-wire engine's
+    tokens, lengths and languages, token for token."""
+    t_packed, j_packed, rows = served_int16[gi]
+    assert rows.dtype == np.int16
+    assert t_packed.shape == j_packed.shape
+    t_max = t_packed.shape[1] - 5
+    int_cols = list(range(t_max + 1)) + [t_max + 3]
+    np.testing.assert_array_equal(t_packed[:, int_cols], j_packed[:, int_cols])
+    for col in (t_max + 1, t_max + 2, t_max + 4):
+        np.testing.assert_allclose(t_packed[:, col].view(np.float32),
+                                   j_packed[:, col].view(np.float32), rtol=1e-5)
+
+
+def test_wires_feed_the_encoder_different_audio(monkeypatch):
+    """With STT_AUDIO_WIRE=int16 the engine ships the lossless PCM16 rows
+    (the reference's wire rows exactly), not mu-law codes, and the two
+    wires give the encoder different log-mel inputs."""
+    from stt_tpu_torch.ops.kernels.mel import log_mel_spectrogram_plain
+
+    monkeypatch.setenv("STT_AUDIO_WIRE", "int16")
+    wire16 = TE.WhisperEngine("test", device="cpu", compute_type="float32",
+                              max_decode_tokens=8)
+    mulaw = TE.WhisperEngine("test", device="cpu", compute_type="float32",
+                             max_decode_tokens=8, audio_wire="mulaw")
+    rows16 = wire16._device_phase(_tasks(TE, GROUPS[0]))["rows_dev"]
+    rows_mu = mulaw._device_phase(_tasks(TE, GROUPS[0]))["rows_dev"]
+    assert rows16.dtype == torch.int16 and rows_mu.dtype == torch.uint8
+    pcm = np.zeros(tuple(rows16.shape), np.int16)
+    for i, (s, _, seed) in enumerate(GROUPS[0]):
+        a = _audio(s, seed)
+        pcm[i, : len(a)] = np.clip(a * 32768.0, -32768, 32767).astype(np.int16)
+    np.testing.assert_array_equal(rows16.numpy(), pcm)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JE, "_MULAW_LUT", None)
+        np.testing.assert_array_equal(rows16.numpy(), JE._encode_wire_rows(pcm))
+    np.testing.assert_array_equal(rows_mu.numpy(), JE._build_mulaw_lut()[pcm.view(np.uint16)])
+    gap = (log_mel_spectrogram_plain(rows16) - log_mel_spectrogram_plain(rows_mu)).abs()
+    assert gap.max().item() > 0.1
+
+
+@pytest.mark.parametrize("env,wire", [(None, "mulaw"), ("", "mulaw"), (" MuLaw ", "mulaw"),
+                                      ("int16", "int16"), (" INT16\n", "int16"),
+                                      ("float32", "int16")])
+def test_audio_wire_parses_as_the_reference(monkeypatch, env, wire):
+    """STT_AUDIO_WIRE is stripped and lower-cased, empty means mulaw and any
+    other value ships the int16 rows (``stt_tpu/engine/engine.py:68-89``)."""
+    if env is None:
+        monkeypatch.delenv("STT_AUDIO_WIRE", raising=False)
+    else:
+        monkeypatch.setenv("STT_AUDIO_WIRE", env)
+    assert TE._audio_wire(None) == wire
+    pcm = np.array([[0, 1000, -32768, 32767]], np.int16)
+    lut = JE._build_mulaw_lut() if wire == "mulaw" else None
+    ref = lut[pcm.view(np.uint16)] if lut is not None else pcm
+    np.testing.assert_array_equal(TE._encode_wire_rows(pcm, TE._audio_wire(None)), ref)
+
+
+@pytest.mark.parametrize("env,depth", [(None, 2), ("", 2), ("3", 3), ("0", 1), ("-4", 1),
+                                       ("two", 2)])
+def test_pipeline_depth_parses_as_the_reference(monkeypatch, env, depth):
+    """STT_PIPELINE_DEPTH: default 2, unparsable 2, at least 1
+    (``stt_tpu/engine/engine.py:1142-1147``)."""
+    if env is None:
+        monkeypatch.delenv("STT_PIPELINE_DEPTH", raising=False)
+    else:
+        monkeypatch.setenv("STT_PIPELINE_DEPTH", env)
+    assert TE._pipeline_depth(None) == depth
+
+
+def test_wire_and_depth_read_once_at_build_and_argument_wins(monkeypatch):
+    monkeypatch.delenv("STT_AUDIO_WIRE", raising=False)
+    monkeypatch.delenv("STT_PIPELINE_DEPTH", raising=False)
+    default = TE.WhisperEngine("test", device="cpu", compute_type="float32")
+    assert (default.audio_wire, default.pipeline_depth) == ("mulaw", 2)
+
+    monkeypatch.setenv("STT_AUDIO_WIRE", "int16")
+    monkeypatch.setenv("STT_PIPELINE_DEPTH", "3")
+    eng = TE.WhisperEngine("test", device="cpu", compute_type="float32", max_decode_tokens=8)
+    assert (eng.audio_wire, eng.pipeline_depth) == ("int16", 3)
+    assert eng._dispatch_sem._value == 3
+    monkeypatch.setenv("STT_AUDIO_WIRE", "mulaw")
+    monkeypatch.setenv("STT_PIPELINE_DEPTH", "1")
+    assert eng._device_phase(_tasks(TE, GROUPS[1]))["rows_dev"].dtype == torch.int16
+    assert (eng.audio_wire, eng.pipeline_depth) == ("int16", 3)
+
+    given = TE.WhisperEngine("test", device="cpu", compute_type="float32",
+                             audio_wire="int16", pipeline_depth=5)
+    assert (given.audio_wire, given.pipeline_depth) == ("int16", 5)
+    assert given._dispatch_sem._value == 5
+    backend = TorchWhisperBackend("test", "cpu", "float32", audio_wire="int16",
+                                  pipeline_depth=4)
+    assert (backend.engine.audio_wire, backend.engine.pipeline_depth) == ("int16", 4)

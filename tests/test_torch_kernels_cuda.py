@@ -27,7 +27,9 @@ import torch
 from stt_tpu_torch.engine.engine import _encode_wire_rows
 from stt_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
 from stt_tpu_torch.ops.kernels.mel import log_mel_spectrogram_plain, mel_logspec
-from stt_tpu_torch.ops.kernels.xattn_decode import max_ta, xattn_decode, xattn_decode_plain
+from stt_tpu_torch.ops.kernels.xattn_decode import (
+    MAX_TA, plan_split, xattn_decode, xattn_decode_plain,
+)
 from stt_tpu_torch.ops.mel import normalize_log_mel
 
 ATOL, RTOL = 2e-4, 1e-4
@@ -50,7 +52,7 @@ def _rows(wire, batch, seconds, seed=1):
         for i in range(batch)
     ]).astype(np.float32)
     pcm = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
-    return torch.from_numpy({"mulaw": _encode_wire_rows(pcm), "int16": pcm,
+    return torch.from_numpy({"mulaw": _encode_wire_rows(pcm, "mulaw"), "int16": pcm,
                              "float32": audio}[wire])
 
 
@@ -137,6 +139,47 @@ def test_xattn_kernel_other_shapes(cuda_device, storage, h, dh, ta):
     torch.testing.assert_close(got32, got, atol=0, rtol=0)
 
 
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage,b,h,ta,clusters", [
+    ("fp8", 64, 12, 500, 1),      # many (row, head) pairs: no split
+    ("bf16", 1, 12, 1, 1),        # a single key
+    ("fp8", 16, 12, 1500, 2),
+    ("int8", 8, 12, 1500, 4),
+    ("fp8", 4, 12, 1500, 8),      # the served shape
+    ("bf16", 4, 12, 1001, 8),     # Ta not a multiple of the chunk
+    ("float32", 2, 12, 333, 8),
+    ("fp8", 1, 12, 20000, 8),     # above the one-block cap of 8,128 fp8 keys
+    ("bf16", 1, 2, 70000, 16),    # above 8 x CHUNK_MAX: a non-portable cluster
+])
+def test_xattn_kernel_cluster_sizes(cuda_device, storage, b, h, ta, clusters):
+    """Every cluster size the planner picks, the ragged last chunk and Ta
+    above the old one-block cap, against the plain version."""
+    q, k, v, v_scale = _xattn_inputs(storage, b, ta, h=h, seed=3)
+    assert plan_split(b * h, ta, 64, k.element_size(), _sms())[0] == clusters
+    q, k, v = q.to(cuda_device), k.to(cuda_device), v.to(cuda_device)
+    got = xattn_decode(q, k, v)
+    ref = xattn_decode_plain(q, k, v)
+    if v_scale is not None:
+        got, ref = got * v_scale.to(cuda_device), ref * v_scale.to(cuda_device)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=XATTN_ATOL, rtol=XATTN_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ta", [(4, 1500), (1, 70000)])
+def test_xattn_kernel_is_deterministic(cuda_device, b, ta):
+    """Partials meet in rank order, with no atomics: two calls agree bit for bit."""
+    q, k, v, _ = _xattn_inputs("fp8", b, ta, h=12 if b > 1 else 2, seed=4)
+    q, k, v = q.to(cuda_device), k.to(cuda_device), v.to(cuda_device)
+    first = xattn_decode(q, k, v)
+    for _ in range(3):
+        assert torch.equal(xattn_decode(q, k, v), first)
+
+
 @pytest.mark.cuda
 def test_xattn_kernel_rejects_bad_input(cuda_device):
     q, k, v, _ = _xattn_inputs("bf16", 2, 50)
@@ -152,7 +195,7 @@ def test_xattn_kernel_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError, match="head dim"):
         xattn_decode(q[..., :48].contiguous(), k[..., :48].contiguous(),
                      v[..., :48].contiguous())
-    long_ta = max_ta(64, torch.bfloat16) + 1
+    long_ta = MAX_TA + 1
     big = torch.zeros((1, 12, long_ta, 64), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="shared-memory"):
         xattn_decode(q[:1], big, big)
@@ -190,6 +233,30 @@ def test_flash_kernel_other_shapes(cuda_device, dh, t):
     ref = flash_attention_plain(q, k, v)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), ref.float(), atol=FLASH_ATOL, rtol=FLASH_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,dh", [
+    (3, 4, 333, 64),     # T a multiple of neither the 128-query nor the 128-key tile
+    (1, 2, 129, 64),     # one real row in the last tile
+    (2, 3, 1, 32),       # a single position
+    (64, 8, 200, 64),    # B*H 512: 1,024 blocks, more than the SMs hold at once
+    (1, 1, 3000, 16),
+])
+def test_flash_kernel_ragged_and_wide(cuda_device, b, h, t, dh):
+    q, k, v = (x.to(cuda_device) for x in _flash_inputs(b, t, h=h, dh=dh, seed=2))
+    got = flash_attention(q, k, v)
+    ref = flash_attention_plain(q, k, v)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=FLASH_ATOL, rtol=FLASH_RTOL)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_is_deterministic(cuda_device):
+    q, k, v = (x.to(cuda_device) for x in _flash_inputs(4, 1500, seed=5))
+    first = flash_attention(q, k, v)
+    for _ in range(3):
+        assert torch.equal(flash_attention(q, k, v), first)
 
 
 @pytest.mark.cuda

@@ -26,6 +26,7 @@ from stt_tpu.models import whisper as JW
 from stt_tpu.ops.pallas.xattn_decode import xattn_decode as jax_xattn_decode
 from stt_tpu_torch.engine import engine as TE
 from stt_tpu_torch.models import whisper as TW
+from stt_tpu_torch.ops.kernels import xattn_decode as XK
 from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode, xattn_decode_plain
 
 TOL = 2e-2
@@ -204,3 +205,32 @@ def test_fp8_cast_beyond_range_saturates_where_jax_gives_nan():
     np.testing.assert_array_equal(t[over], np.sign(x[over]) * 448.0)
     samples = torch.tensor([470.0, 500.0, -1000.0], dtype=torch.bfloat16)
     assert samples.to(torch.float8_e4m3fn).float().tolist() == [448.0, 448.0, -448.0]
+
+
+@pytest.mark.parametrize("bh,ta", [(48, 1500), (192, 1500), (768, 500), (12, 50), (1, 1),
+                                   (96, 1500), (24, 333), (12, 20000), (2, 70000),
+                                   (1, 131072), (5000, 7), (3, 8193)])
+@pytest.mark.parametrize("dh,itemsize", [(64, 1), (64, 2), (64, 4), (32, 1), (16, 2)])
+def test_split_plan_covers_ta_within_limits(bh, ta, dh, itemsize):
+    """The cross-attention-decode planner: the chunks cover Ta exactly, with
+    no chunk past the end; the cluster is a power of two within the
+    hardware's limit (portable unless Ta needs more); each chunk's scores fit
+    the block's shared memory; splitting stops once the grid has two
+    blocks per SM."""
+    clusters, chunk = XK.plan_split(bh, ta, dh, itemsize)
+    assert 1 <= clusters <= XK.CLUSTER_MAX and clusters & (clusters - 1) == 0
+    assert (clusters - 1) * chunk < ta <= clusters * chunk
+    assert 1 <= chunk <= XK.CHUNK_MAX
+    if ta <= XK.CLUSTER_PORTABLE * XK.CHUNK_MAX:
+        assert clusters <= XK.CLUSTER_PORTABLE
+    if clusters > 1 and ta <= clusters // 2 * XK.CHUNK_MAX:  # split for the grid, not length
+        assert bh * clusters // 2 < 2 * XK.H100_SMS
+        assert -(-ta // clusters) >= XK.rows_per_pass(dh, itemsize)
+
+
+def test_split_plan_served_shapes_and_limit():
+    assert XK.plan_split(4 * 12, 1500, 64, 1) == (8, 188)     # the served 30 s decode
+    assert XK.plan_split(64 * 12, 500, 64, 1) == (1, 500)     # a full batch needs no split
+    assert XK.MAX_TA == XK.CLUSTER_MAX * XK.CHUNK_MAX == 131072
+    with pytest.raises(ValueError):
+        XK.plan_split(1, XK.MAX_TA + 1, 64, 2)
