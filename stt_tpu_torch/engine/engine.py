@@ -19,8 +19,8 @@ without timestamps — what every streaming partial and final takes:
   flash kernels. Each one left None is read once, when the engine is
   built, from the JAX package's environment variable of the same meaning
   (``STT_CROSS_KV_DTYPE``, ``STT_XATTN_KERNEL``, ``STT_FLASH_ATTENTION``),
-  with its defaults (int8, off, off). The flash kernel takes bf16 only, so
-  a float32 engine on the card with flash on is refused when it is built.
+  with its defaults (int8, off, off). The flash kernel has a bf16 body
+  and a float32 one, so either compute type serves with flash on.
   ``audio_wire`` and ``pipeline_depth`` are read the same way from
   ``STT_AUDIO_WIRE`` (default mulaw) and ``STT_PIPELINE_DEPTH`` (default 2),
   parsed as the JAX package parses them.
@@ -297,11 +297,6 @@ class WhisperEngine:
             cross_kv_dtype=cross_kv_dtype, xattn_kernel=xattn_kernel,
             flash_attention=flash_attention,
         )
-        if (self.device.type == "cuda" and self._dtype == torch.float32
-                and self.policy.flash_attention != "off"):
-            raise NotImplementedError(
-                "flash_attention on the card needs compute_type='bfloat16' (the kernel "
-                "takes bf16 only); pass flash_attention='off' for float32")
         self.model = W.build_model(
             config, W.init_params(config, seed=seed), self.device, self._dtype,
             self.policy,

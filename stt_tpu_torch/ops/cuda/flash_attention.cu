@@ -12,7 +12,18 @@
 // with float32 scores, a float32 online softmax, the unnormalised p rounded
 // to bf16 before the P.V product (the TPU kernel's p.astype(v.dtype)), and
 // one division by l at the end. Inputs and output are bf16, the serving
-// path's type; the kernel takes no float32. Head dims 16, 32 and 64.
+// path's type. Head dims 16, 32 and 64.
+//
+// A second body, flash_attention_f32_kernel, serves float32 encoders: the
+// same softmax(q.k^T).v with nothing rounded below float32, in FMAs on the
+// CUDA cores (no TF32: it keeps ~3 decimal digits, and the float32 path is
+// held to float32). It is the simple design: one thread per query row with
+// q and its output row in registers, 32-key K and V tiles in shared memory
+// (every lane reads the same key, so the loads are broadcasts), an online
+// softmax per tile with full-precision expf, and the ragged key tail
+// zero-filled and masked to -inf. Bound: 4*T^2*Dh flops per (b, h) at the
+// 67 TFLOP/s float32 peak (~0.41 ms at 4 x 12 x 1500 x 64), ~15x the bf16
+// body's; it runs only when a deployment asks for float32 compute.
 //
 // What bounds it on the H100: 4*T^2*Dh flops per (b, h) against ~8*T*Dh bytes
 // moved, ~375 flops a byte at T 1500, so the work is bound by arithmetic on
@@ -429,6 +440,104 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+constexpr int kF32Rows = 128;  // query rows per block, one per thread
+constexpr int kF32Keys = 32;   // keys per K/V tile
+
+template <int kDh>
+__global__ void __launch_bounds__(kF32Rows)
+flash_attention_f32_kernel(const float4* __restrict__ q,  // (B*H, T, Dh) as float4
+                           const float4* __restrict__ k,
+                           const float4* __restrict__ v,
+                           float4* __restrict__ o, int t) {
+  constexpr int kVec = kDh / 4;  // float4 per row
+  __shared__ float4 ks[kF32Keys][kVec];
+  __shared__ float4 vs[kF32Keys][kVec];
+
+  const size_t base = static_cast<size_t>(blockIdx.y) * t * kVec;
+  const int row = blockIdx.x * kF32Rows + threadIdx.x;
+  float qr[kDh], acc[kDh];
+#pragma unroll
+  for (int c = 0; c < kVec; ++c) {
+    const float4 x = row < t ? q[base + static_cast<size_t>(row) * kVec + c]
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    qr[4 * c] = x.x;
+    qr[4 * c + 1] = x.y;
+    qr[4 * c + 2] = x.z;
+    qr[4 * c + 3] = x.w;
+  }
+#pragma unroll
+  for (int d = 0; d < kDh; ++d) acc[d] = 0.0f;
+  float m = -INFINITY, l = 0.0f;
+
+  for (int k0 = 0; k0 < t; k0 += kF32Keys) {
+    __syncthreads();  // the previous tile is consumed
+    for (int i = threadIdx.x; i < kF32Keys * kVec; i += kF32Rows) {
+      const int r = i / kVec, c = i % kVec;
+      const bool real = k0 + r < t;
+      const size_t at = base + static_cast<size_t>(k0 + r) * kVec + c;
+      ks[r][c] = real ? k[at] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      vs[r][c] = real ? v[at] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    __syncthreads();
+
+    // scores of this tile; keys >= t get -inf, and key k0 is always real,
+    // so the new max is finite and expf(-inf) = 0 clears the empty start
+    float s[kF32Keys];
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < kF32Keys; ++j) {
+      float a = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        const float4 kv = ks[j][c];
+        a = fmaf(qr[4 * c], kv.x, a);
+        a = fmaf(qr[4 * c + 1], kv.y, a);
+        a = fmaf(qr[4 * c + 2], kv.z, a);
+        a = fmaf(qr[4 * c + 3], kv.w, a);
+      }
+      s[j] = k0 + j < t ? a : -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float alpha = expf(m - mx);
+    m = mx;
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < kDh; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kF32Keys; ++j) {
+      const float p = expf(s[j] - m);
+      l += p;
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        const float4 vv = vs[j][c];
+        acc[4 * c] = fmaf(p, vv.x, acc[4 * c]);
+        acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
+        acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
+        acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
+      }
+    }
+  }
+  if (row < t) {
+    const float inv = 1.0f / l;
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      o[base + static_cast<size_t>(row) * kVec + c] =
+          make_float4(acc[4 * c] * inv, acc[4 * c + 1] * inv, acc[4 * c + 2] * inv,
+                      acc[4 * c + 3] * inv);
+    }
+  }
+}
+
+template <int kDh>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int t,
+               cudaStream_t stream) {
+  dim3 grid((t + kF32Rows - 1) / kF32Rows, bh);
+  flash_attention_f32_kernel<kDh><<<grid, kF32Rows, 0, stream>>>(
+      static_cast<const float4*>(q), static_cast<const float4*>(k),
+      static_cast<const float4*>(v), static_cast<float4*>(o), t);
+  return static_cast<int>(cudaGetLastError());
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -507,6 +616,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 16: return launch<16>(q, k, v, o, bh, t, s);
     case 32: return launch<32>(q, k, v, o, bh, t, s);
     case 64: return launch<64>(q, k, v, o, bh, t, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The float32 body, same contract: q, k, v, o contiguous (bh, t, dh)
+// float32, 16-byte aligned; dh 16, 32 or 64; 1 <= bh <= 65535. Returns the
+// launch's cudaError_t (0 on success).
+extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v,
+                                          void* o, int bh, int t, int dh, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16: return launch_f32<16>(q, k, v, o, bh, t, s);
+    case 32: return launch_f32<32>(q, k, v, o, bh, t, s);
+    case 64: return launch_f32<64>(q, k, v, o, bh, t, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

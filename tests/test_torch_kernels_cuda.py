@@ -7,7 +7,9 @@ device. This file imports no JAX, so it also runs on the GPU host:
 
 The log-mel kernel is held at the tolerance of ``tests/test_pallas_mel.py``
 (atol 2e-4, rtol 1e-4) after the shared epilogue: kernel and plain
-version are both float32 and differ only in summation order. The
+version are both float32; the kernel takes the DFT as an FFT and sums
+only the filterbank's non-zeros, the plain version takes both as dense
+products, so they differ only in rounding. The
 cross-attention decode kernel is held at atol 1e-3, rtol 1e-2 and the flash
 kernel at atol 2e-3, rtol 1e-2, at the shapes the serving path gives them
 and a few more. Those limits are set from the size of the values: the
@@ -17,7 +19,11 @@ and K, a sharper softmax with outputs of ~1. Both sides round the weights to bf1
 differs only where a weight's float32 value lands on the other side of a
 bf16 rounding step; the flash kernel rounds the unnormalised weights where
 the plain version rounds normalised ones, and its bf16 output may differ
-by one bf16 step (< 0.8% of |x|).
+by one bf16 step (< 0.8% of |x|). The flash kernel's float32 body is held
+at atol FLASH_F32_ATOL, rtol FLASH_F32_RTOL: nothing on either side is
+rounded below float32, so the two differ only in the order of float32
+sums over up to 1500 keys (~1e-7 relative), far inside the bf16 limit,
+which would pass a kernel that dropped the ragged key tail.
 """
 
 import numpy as np
@@ -35,6 +41,7 @@ from stt_tpu_torch.ops.mel import normalize_log_mel
 ATOL, RTOL = 2e-4, 1e-4
 XATTN_ATOL, XATTN_RTOL = 1e-3, 1e-2
 FLASH_ATOL, FLASH_RTOL = 2e-3, 1e-2
+FLASH_F32_ATOL, FLASH_F32_RTOL = 1e-5, 1e-5
 
 
 @pytest.fixture
@@ -46,7 +53,7 @@ def cuda_device():
 
 def _rows(wire, batch, seconds, seed=1):
     rng = np.random.default_rng(seed)
-    t = np.arange(int(16000 * seconds)) / 16000.0
+    t = np.arange(int(round(16000 * seconds))) / 16000.0
     audio = np.stack([
         0.3 * np.sin(2 * np.pi * (220 + 40 * i) * t) + 0.05 * rng.normal(0, 1, t.shape)
         for i in range(batch)
@@ -71,6 +78,61 @@ def test_mel_kernel_matches_plain(cuda_device, wire, batch, seconds):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["mulaw", "int16"])
+@pytest.mark.parametrize("seconds", [1.0, 2.0, 5.0, 10.0])
+def test_mel_kernel_served_groups(cuda_device, wire, seconds):
+    """The groups phase 3a of chip_smoke.py serves: 2 requests padded to
+    the batch bucket of 4 rows, at each of the 1/2/5/10 s buckets."""
+    rows = _rows(wire, 4, seconds, seed=2).to(cuda_device)
+    got = normalize_log_mel(mel_logspec(rows))
+    ref = normalize_log_mel(log_mel_spectrogram_plain(rows))
+    torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["mulaw", "int16", "float32"])
+@pytest.mark.parametrize("batch,seconds", [(16, 10.0), (1, 1.5), (2, 30.0)])
+def test_mel_kernel_128_mels(cuda_device, wire, batch, seconds):
+    rows = _rows(wire, batch, seconds, seed=3).to(cuda_device)
+    got = normalize_log_mel(mel_logspec(rows, 128))
+    assert got.shape == (batch, 128, int(seconds * 100))
+    ref = normalize_log_mel(log_mel_spectrogram_plain(rows, 128))
+    torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_frames", [2, 15, 17, 107, 1501])
+def test_mel_kernel_ragged_last_tile(cuda_device, n_frames):
+    """Frame counts that are not a multiple of the 16-frame tile: frames
+    past the end are computed and never stored, so they leave no trace."""
+    rows = _rows("int16", 3, n_frames / 100, seed=4).to(cuda_device)
+    got = mel_logspec(rows)
+    assert got.shape == (3, 80, n_frames)
+    # a frame stored past the end would land on the next mel row's first frames
+    torch.testing.assert_close(normalize_log_mel(got),
+                               normalize_log_mel(log_mel_spectrogram_plain(rows)),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire,values", [("int16", (-32768, 32767)), ("mulaw", (0, 255))])
+def test_mel_kernel_wire_extremes(cuda_device, wire, values):
+    """Full-scale rows: random picks of the two extreme codes, and each
+    extreme held constant (all power in the lowest bins)."""
+    dtype = torch.int16 if wire == "int16" else torch.uint8
+    rng = np.random.default_rng(5)
+    noise = rng.choice(np.array(values), (2, 16000))
+    const = np.repeat(np.array(values)[:, None], 16000, axis=1)
+    rows = torch.from_numpy(np.concatenate([noise, const]).astype(
+        np.int16 if wire == "int16" else np.uint8)).to(cuda_device)
+    assert rows.dtype == dtype
+    got = normalize_log_mel(mel_logspec(rows))
+    ref = normalize_log_mel(log_mel_spectrogram_plain(rows))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
 def test_mel_kernel_silence(cuda_device):
     rows = torch.zeros((2, 16000), dtype=torch.int16, device=cuda_device)
     got = normalize_log_mel(mel_logspec(rows))
@@ -86,6 +148,8 @@ def test_mel_kernel_rejects_bad_input(cuda_device):
         mel_logspec(torch.zeros((1, 16000), dtype=torch.float64, device=cuda_device))
     with pytest.raises(ValueError):
         mel_logspec(torch.zeros((16000, 2), device=cuda_device).t())
+    with pytest.raises(ValueError, match="at most 128 mels"):
+        mel_logspec(torch.zeros((1, 16000), device=cuda_device), n_mels=129)
 
 
 def _xattn_inputs(storage, b, ta, h=12, dh=64, seed=0):
@@ -251,6 +315,30 @@ def test_flash_kernel_ragged_and_wide(cuda_device, b, h, t, dh):
     torch.testing.assert_close(got.float(), ref.float(), atol=FLASH_ATOL, rtol=FLASH_RTOL)
 
 
+def _flash_inputs_f32(b, t, h, dh, seed=6):
+    rng = np.random.default_rng(seed)
+    scale = dh ** -0.25
+    return tuple(torch.from_numpy((rng.normal(0, 1, (b, h, t, dh)) * sc).astype(np.float32))
+                 for sc in (scale, scale, 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,dh", [
+    (1, 12, 512, 64), (4, 12, 1500, 64), (3, 4, 333, 64),
+    (2, 2, 1500, 32), (2, 3, 512, 16), (1, 2, 333, 16), (2, 3, 1, 32),
+])
+def test_flash_kernel_float32_matches_plain(cuda_device, b, h, t, dh):
+    q, k, v = (x.to(cuda_device) for x in _flash_inputs_f32(b, t, h, dh))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v), atol=FLASH_F32_ATOL,
+                               rtol=FLASH_F32_RTOL)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_is_deterministic(cuda_device):
     q, k, v = (x.to(cuda_device) for x in _flash_inputs(4, 1500, seed=5))
@@ -266,8 +354,8 @@ def test_flash_kernel_rejects_bad_input(cuda_device):
         flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(TypeError):
         flash_attention(q, k, v.float())
-    with pytest.raises(NotImplementedError, match="bfloat16 only"):
-        flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*(x.float()[..., :48].contiguous() for x in (q, k, v)))
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="head dim"):
@@ -278,9 +366,26 @@ def test_flash_kernel_rejects_bad_input(cuda_device):
 
 
 @pytest.mark.cuda
-def test_float32_engine_with_flash_is_refused_on_the_card(cuda_device):
-    from stt_tpu_torch.engine.engine import WhisperEngine
+def test_float32_engine_with_flash_serves_30s_on_the_card(cuda_device):
+    """whisper-small in float32 with flash on serves a 30 s request through
+    the float32 body (12 launches, one per encoder layer, for its one
+    encode) and decodes the tokens of the same engine with flash off."""
+    from stt_tpu_torch.engine.engine import DecodeRequest, WhisperEngine
 
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        WhisperEngine("test", device=cuda_device, compute_type="float32",
-                      flash_attention="auto")
+    rng = np.random.default_rng(7)
+    t = np.arange(16000 * 30) / 16000.0
+    audio = (0.2 * np.sin(2 * np.pi * 180.0 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 3.0 * t))
+             + 0.02 * rng.normal(0, 1, t.shape)).astype(np.float32)
+    tokens, launches = {}, {}
+    for flash in ("auto", "off"):
+        engine = WhisperEngine("small", device=cuda_device, compute_type="float32",
+                               flash_attention=flash, max_decode_tokens=64)
+        try:
+            before = flash_attention.launches
+            out = engine.transcribe_sync(DecodeRequest(audio, language="en"))
+            launches[flash] = flash_attention.launches - before
+        finally:
+            engine.close()
+        tokens[flash] = out._tokens[out._p_len: out._p_len + out._n_gen].tolist()
+    assert launches == {"auto": 12, "off": 0}
+    assert tokens["auto"] == tokens["off"] and len(tokens["auto"]) > 0
