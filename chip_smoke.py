@@ -20,10 +20,13 @@ PyTorch built for CUDA. In order:
    case printing the share of its limit used and the kernel's share of its
    bound; the cross-attention decode cases cover every cluster size the
    split planner picks (1, 2, 4, 8 and 16 blocks) and Ta above the
-   one-block cap of earlier versions. Every time is read with the L2 cache
-   flushed and the device spinning until the host has enqueued the call
-   (``cuda_ms_cold``); log-mel also prints each call's host enqueue time
-   and, in a second column, the back-to-back reading of earlier versions;
+   one-block cap of earlier versions; the float32 flash cases include the
+   served 1/4/16/64 rows x 12 heads x 1500, each naming its key split and
+   the grid's waves, and at 1 and 4 rows every key split is timed too.
+   Every time is read with the L2 cache flushed and the device spinning
+   until the host has enqueued the call (``cuda_ms_cold``); log-mel also
+   prints each call's host enqueue time and, in a second column, the
+   back-to-back reading of earlier versions;
 3. serves two paths with whisper-small in bfloat16 at full width and
    random weights from seed 0, each with the launch counts set to 0 just
    before and read just after:
@@ -345,13 +348,49 @@ def xattn_phase(torch, dev):
     return worst, headline
 
 
+def split_sweep(torch, q, k, v, planned: int) -> None:
+    """Times the float32 flash body at every key split its launcher takes
+    (the planner's pick among them) on (B, H, T, Dh) q/k/v, checking each
+    against the planned split's output at the float32 limit."""
+    from stt_tpu_torch.ops.kernels.flash_attention import (
+        F32_KEYS, F32_MAX_SPLIT, _launcher, flash_attention,
+    )
+
+    b, h, t, dh = q.shape
+    launch = _launcher(torch.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    ref = flash_attention(q, k, v)
+    out = torch.empty_like(q)
+    n_tiles = -(-t // F32_KEYS)
+    times = {}
+    for splits in range(1, F32_MAX_SPLIT + 1):
+        if -(-n_tiles // -(-n_tiles // splits)) != splits:
+            continue
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, dh,
+                splits, stream)
+        if launch(*args) != 0:
+            fail(f"flash_attention float32 B{b}: the launcher refused {splits} key splits")
+        torch.cuda.synchronize()
+        try:
+            torch.testing.assert_close(out, ref, atol=FLASH_F32_ATOL, rtol=FLASH_F32_RTOL)
+        except AssertionError as exc:
+            fail(f"flash_attention float32 B{b}, {splits} key splits: {exc}")
+        times[splits] = cuda_ms_cold(torch, lambda: launch(*args))
+    best = min(times, key=times.get)
+    log(f"flash_attention B{b} H{h} T{t} float32 key splits: "
+        + ", ".join(f"{n} {ms:.4f} ms" for n, ms in times.items())
+        + f"; the planner picks {planned}, the fastest here is {best}")
+
+
 def flash_phase(torch, dev):
     """Phase 2 for the encoder flash-attention kernel, bf16 body then float32
     body; returns the bf16 body's largest error and the numbers of its
     served case (4 rows x 1500), then the float32 body's numbers at 4 x 1500
     with its largest error."""
     import torch.nn.functional as F
-    from stt_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
+    from stt_tpu_torch.ops.kernels.flash_attention import (
+        f32_waves, flash_attention, flash_attention_plain, plan_f32,
+    )
 
     worst, headline = 0.0, None
     h, dh = 12, 64
@@ -391,12 +430,17 @@ def flash_phase(torch, dev):
                             bound_by=b_by)
 
     # the float32 body (engines built with compute_type="float32"); its plain
-    # version and SDPA run with TF32 off (set in main)
+    # version and SDPA run with TF32 off (set in main). The served shapes are
+    # 12 heads x 1500 at the row buckets 1/4/16/64; each line names the key
+    # split the planner picked and the grid's waves (blocks over the blocks
+    # the card holds at once)
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("TF32 is on: the float32 plain version and SDPA would round to ~3 digits")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst32, headline32 = 0.0, None
     for b, h, t, dh in [(1, 12, 512, 64), (4, 12, 1500, 64), (2, 12, 600, 64),
-                        (3, 4, 333, 64), (2, 2, 1500, 32), (2, 3, 512, 16)]:
+                        (3, 4, 333, 64), (2, 2, 1500, 32), (2, 3, 512, 16),
+                        (1, 12, 1500, 64), (16, 12, 1500, 64), (64, 12, 1500, 64)]:
         gen = torch.Generator(device=dev).manual_seed(b * 10000 + t + dh)
         scale = dh ** -0.25
         q, k, v = (torch.randn((b, h, t, dh), generator=gen, device=dev) * sc
@@ -415,20 +459,28 @@ def flash_phase(torch, dev):
             torch.testing.assert_close(got, ref, atol=FLASH_F32_ATOL, rtol=FLASH_F32_RTOL)
         except AssertionError as exc:
             fail(f"{tag}: kernel disagrees with plain: {exc}")
+        lib_err = (lib - ref).abs().max().item()
+        ref_max, ref_mean = ref.abs().max().item(), ref.abs().mean().item()
+        del lib, ref
+        iters = 5 if b * h * t * t > 1e9 else 20  # the plain version's logits: 6.9 GB at 64 rows
         k_ms = cuda_ms_cold(torch, lambda: flash_attention(q, k, v))
-        p_ms = cuda_ms_cold(torch, lambda: flash_attention_plain(q, k, v))
-        l_ms = cuda_ms_cold(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+        p_ms = cuda_ms_cold(torch, lambda: flash_attention_plain(q, k, v), iters=iters)
+        l_ms = cuda_ms_cold(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0),
+                            iters=iters)
         flops = 4.0 * b * h * t * t * dh
         b_ms, b_by = bound(4 * q.numel() * 4, flops, H100_F32_FLOPS)
-        lib_err = (lib - ref).abs().max().item()
+        splits = plan_f32(b * h, t, sms)
         log(f"{tag}: max_abs_err {err:.3g} (library {lib_err:.3g}), {used:.3g} of the limit, "
-            f"max |ref| {ref.abs().max().item():.3g}, mean |ref| {ref.abs().mean().item():.3g}; "
+            f"max |ref| {ref_max:.3g}, mean |ref| {ref_mean:.3g}; "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound "
             f"{b_ms:.4g} ms ({b_by}), {b_ms / k_ms:.1%} of the bound, "
-            f"{flops / k_ms / 1e9:.1f} TFLOP/s")
+            f"{flops / k_ms / 1e9:.1f} TFLOP/s; {splits} key split(s), "
+            f"{f32_waves(b * h, t, splits, sms):.2f} waves")
         if (b, t, dh) == (4, 1500, 64):
             headline32 = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                               bound_by=b_by)
+        if h == 12 and t == 1500 and b in (1, 4):
+            split_sweep(torch, q, k, v, splits)
     headline32["max_abs_err"] = worst32
     return worst, headline, headline32
 

@@ -17,15 +17,45 @@
 // A second body, flash_attention_f32_kernel, serves float32 encoders: the
 // same softmax(q.k^T).v with nothing rounded below float32, in FMAs on the
 // CUDA cores (no TF32: it keeps ~3 decimal digits, and the float32 path is
-// held to float32). It is the simple design: one thread per query row with
-// q and its output row in registers, 32-key K and V tiles in shared memory
-// (every lane reads the same key, so the loads are broadcasts), an online
-// softmax per tile with full-precision expf, and the ragged key tail
-// zero-filled and masked to -inf. Bound: 4*T^2*Dh flops per (b, h) at the
-// 67 TFLOP/s float32 peak (~0.41 ms at 4 x 12 x 1500 x 64), ~15x the bf16
-// body's; it runs only when a deployment asks for float32 compute.
+// held to float32), full-precision expf and one division by the running sum
+// at the end. What bounds it: 4*T^2*Dh flops per (b, h) at the 67 TFLOP/s
+// float32 peak (~0.41 ms at 4 x 12 x 1500 x 64), and as much the path from
+// shared memory to registers: 128 bytes a clock a SM, so one LDS.128 (16
+// bytes to each of 32 lanes, broadcast or not) holds it 4 clocks while the
+// SM's four schedulers issue 16 warp FMAs. A thread that loads r + c floats
+// for an r x c block of FMAs keeps both pipes level only at r*c/(r+c) >= 4:
+// an 8 x 8 micro-tile, the register-blocked SGEMM's, applied twice:
+//   - a block is 128 query rows in 128 threads, a 16 x 8 grid; thread
+//     (ty, tx) owns rows ty + 16r (r < 8), so a warp's 4 row groups read 4
+//     consecutive rows at once and a row's 8 lanes sit in one warp. The Q
+//     tile is staged once; K and V come in 64-key tiles into one K and one
+//     V buffer by 16-byte cp.async.cg (zero-filled past T), alternately:
+//     V_i is copied while S_i is computed, K_{i+1} while P_i V_i is. Rows
+//     are padded to Dh + 4 floats, so 8 consecutive rows read at one column
+//     hit 8 distinct bank groups;
+//   - S = Q K^T: each thread sums an 8 x 8 micro-tile (its 8 rows x keys
+//     tx + 8j) over d in steps of 4: 8 float4 of q and 8 of k for 256 FMAs;
+//   - the online softmax stays in registers: the row max over the 8 tx
+//     lanes takes 3 xor shuffles, alpha = expf(m_old - m_new) rescales the
+//     thread's own O rows (the rows of S and of O are the same rows), keys
+//     >= T score -inf, and each lane keeps its share of the row sum until one
+//     shuffle reduction at the end;
+//   - O += P V: p goes to a shared [key][row slot] tile (slot 8ty + r holds
+//     row ty + 16r, padded to 132 floats), so a thread reads its 8 rows' p at
+//     key c as 2 float4s and its Dh/8 dims of V (float4s at 32c + 4tx) as 2:
+//     64 FMAs per 4 loads at Dh 64;
+//   - 255 registers and no spills at Dh 64, 103,424 bytes of shared memory:
+//     2 blocks (8 warps) a SM;
+//   - a grid that loads the SMs unevenly (1 x 12 x 1500 is 144 blocks on
+//     132 SMs) may split the keys over a cluster of up to 8 blocks (the
+//     planner in ops/kernels/flash_attention.py picks how many): each block
+//     runs a contiguous range of tiles, publishes (m, l, O) in its shared
+//     memory, and after one cluster barrier each block combines a slice of
+//     the rows from every block's shared memory (DSMEM) in rank order. Sums
+//     run in a fixed order and nothing is atomic, so repeated calls are
+//     bit-identical.
 //
-// What bounds it on the H100: 4*T^2*Dh flops per (b, h) against ~8*T*Dh bytes
+// What bounds the bf16 body on the H100: 4*T^2*Dh flops per (b, h) against ~8*T*Dh bytes
 // moved, ~375 flops a byte at T 1500, so the work is bound by arithmetic on
 // the tensor cores (989 TFLOP/s bf16). The design is Hopper's:
 //   - warp specialisation: each block has three consumer warpgroups of 64
@@ -58,11 +88,14 @@
 // through cudaGetDriverEntryPoint so the library needs no -lcuda, and passed
 // as __grid_constant__ parameters.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -440,101 +473,354 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-constexpr int kF32Rows = 128;  // query rows per block, one per thread
-constexpr int kF32Keys = 32;   // keys per K/V tile
+constexpr int kF32R = 8;                // query rows per thread
+constexpr int kF32Rows = 16 * kF32R;    // query rows per block: 16 row groups
+constexpr int kF32Keys = 64;            // keys per K/V tile: 8 key lanes of 8
+constexpr int kF32Threads = 128;        // thread (ty, tx) = (threadIdx.x / 8, threadIdx.x % 8)
+constexpr int kF32MinBlocks = 2;        // resident blocks a SM: 255 registers a thread
+constexpr int kF32MaxSplit = 8;         // key splits: blocks of one cluster, the portable size
+constexpr int kF32PStride = kF32Rows + 4;  // the P tile is [key][row slot], padded
 
+// Offsets in floats of the float32 body's shared memory: the Q tile, one K
+// tile, one V tile, the P tile.
 template <int kDh>
-__global__ void __launch_bounds__(kF32Rows)
-flash_attention_f32_kernel(const float4* __restrict__ q,  // (B*H, T, Dh) as float4
-                           const float4* __restrict__ k,
-                           const float4* __restrict__ v,
-                           float4* __restrict__ o, int t) {
-  constexpr int kVec = kDh / 4;  // float4 per row
-  __shared__ float4 ks[kF32Keys][kVec];
-  __shared__ float4 vs[kF32Keys][kVec];
+struct F32Layout {
+  static constexpr int kStride = kDh + 4;            // a padded row of Q, K or V
+  static constexpr int kTile = kF32Keys * kStride;   // K or V
+  static constexpr int kK = kF32Rows * kStride;
+  static constexpr int kV = kK + kTile;
+  static constexpr int kP = kV + kTile;
+  static constexpr int kFloats = kP + kF32Keys * kF32PStride;
+  static constexpr int kDv = kDh / 8;                // output dims per thread
+};
 
-  const size_t base = static_cast<size_t>(blockIdx.y) * t * kVec;
-  const int row = blockIdx.x * kF32Rows + threadIdx.x;
-  float qr[kDh], acc[kDh];
+// 16 bytes global -> shared without registers; `real` false zero-fills the
+// 16 bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool real) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(__cvta_generic_to_global(src)), "r"(real ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Starts the copy of rows [r0, r0 + kN) of one head's (t, kDh) matrix into
+// a padded tile; rows >= t are zero-filled. Neighbouring threads copy
+// neighbouring 16-byte pieces of a row.
+template <int kDh, int kN>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int t) {
+  constexpr int kVec = kDh / 4;
 #pragma unroll
-  for (int c = 0; c < kVec; ++c) {
-    const float4 x = row < t ? q[base + static_cast<size_t>(row) * kVec + c]
-                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    qr[4 * c] = x.x;
-    qr[4 * c + 1] = x.y;
-    qr[4 * c + 2] = x.z;
-    qr[4 * c + 3] = x.w;
+  for (int n = 0; n < kN * kVec / kF32Threads; ++n) {
+    const int i = threadIdx.x + n * kF32Threads;
+    const int r = i / kVec, c = i % kVec;
+    const bool real = r0 + r < t;
+    cp_async16(dst + r * F32Layout<kDh>::kStride + 4 * c,
+               src + (real ? static_cast<size_t>(r0 + r) * kDh + 4 * c : 0), real);
   }
-#pragma unroll
-  for (int d = 0; d < kDh; ++d) acc[d] = 0.0f;
-  float m = -INFINITY, l = 0.0f;
+}
 
-  for (int k0 = 0; k0 < t; k0 += kF32Keys) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kF32Keys * kVec; i += kF32Rows) {
-      const int r = i / kVec, c = i % kVec;
-      const bool real = k0 + r < t;
-      const size_t at = base + static_cast<size_t>(k0 + r) * kVec + c;
-      ks[r][c] = real ? k[at] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      vs[r][c] = real ? v[at] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+// A thread's kDh / 8 output dims of a row: float4s at 32c + 4tx (Dh 32,
+// 64), so the 8 lanes of a row group read 128 contiguous bytes at once; a
+// float2 at 2tx (Dh 16).
+template <int kDh>
+__device__ __forceinline__ void load_dims(float (&x)[kDh / 8], const float* row, int tx) {
+  if constexpr (kDh >= 32) {
+#pragma unroll
+    for (int c = 0; c < kDh / 32; ++c) {
+      const float4 a = *reinterpret_cast<const float4*>(row + 32 * c + 4 * tx);
+      x[4 * c] = a.x; x[4 * c + 1] = a.y; x[4 * c + 2] = a.z; x[4 * c + 3] = a.w;
     }
-    __syncthreads();
-
-    // scores of this tile; keys >= t get -inf, and key k0 is always real,
-    // so the new max is finite and expf(-inf) = 0 clears the empty start
-    float s[kF32Keys];
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
-      float a = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        const float4 kv = ks[j][c];
-        a = fmaf(qr[4 * c], kv.x, a);
-        a = fmaf(qr[4 * c + 1], kv.y, a);
-        a = fmaf(qr[4 * c + 2], kv.z, a);
-        a = fmaf(qr[4 * c + 3], kv.w, a);
-      }
-      s[j] = k0 + j < t ? a : -INFINITY;
-      mx = fmaxf(mx, s[j]);
-    }
-    const float alpha = expf(m - mx);
-    m = mx;
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < kDh; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
-      const float p = expf(s[j] - m);
-      l += p;
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        const float4 vv = vs[j][c];
-        acc[4 * c] = fmaf(p, vv.x, acc[4 * c]);
-        acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
-      }
-    }
-  }
-  if (row < t) {
-    const float inv = 1.0f / l;
-#pragma unroll
-    for (int c = 0; c < kVec; ++c) {
-      o[base + static_cast<size_t>(row) * kVec + c] =
-          make_float4(acc[4 * c] * inv, acc[4 * c + 1] * inv, acc[4 * c + 2] * inv,
-                      acc[4 * c + 3] * inv);
-    }
+  } else {
+    const float2 a = *reinterpret_cast<const float2*>(row + 2 * tx);
+    x[0] = a.x; x[1] = a.y;
   }
 }
 
 template <int kDh>
+__device__ __forceinline__ void store_dims(float* row, const float (&x)[kDh / 8], int tx) {
+  if constexpr (kDh >= 32) {
+#pragma unroll
+    for (int c = 0; c < kDh / 32; ++c) {
+      *reinterpret_cast<float4*>(row + 32 * c + 4 * tx) =
+          make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]);
+    }
+  } else {
+    *reinterpret_cast<float2*>(row + 2 * tx) = make_float2(x[0], x[1]);
+  }
+}
+
+// Grid (ceil(t / 64) * splits, B*H); with splits > 1, clusters of `splits`
+// blocks along x: block rank r of query block qb takes key tiles
+// [r * per, min((r + 1) * per, n_tiles)), per = ceil(n_tiles / splits),
+// which the launcher checks is never empty. Thread (ty, tx) owns query rows
+// ty + 16r (r < kF32R; 4 consecutive rows across a warp's row groups, so a
+// q load hits 4 distinct bank groups), keys tx + 8j (j < 8) of every tile,
+// and output dims as load_dims.
+template <int kDh>
+__global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
+flash_attention_f32_kernel(const float* __restrict__ q,  // (B*H, T, Dh)
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ o, int t, int splits) {
+  using L = F32Layout<kDh>;
+  constexpr int kStride = L::kStride;
+  constexpr int kDv = L::kDv;
+  extern __shared__ float4 smem_f32[];
+  float* q_s = reinterpret_cast<float*>(smem_f32);
+  float* k_s = q_s + L::kK;
+  float* v_s = q_s + L::kV;
+  float* p_s = q_s + L::kP;
+
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int rank = blockIdx.x % splits;
+  const int q0 = blockIdx.x / splits * kF32Rows;
+  const int n_tiles = (t + kF32Keys - 1) / kF32Keys;
+  const int per = (n_tiles + splits - 1) / splits;
+  const int first = rank * per;
+  const int last = min(n_tiles, first + per);
+  const size_t base = static_cast<size_t>(blockIdx.y) * t * kDh;
+  const float* qh = q + base;
+  const float* kh = k + base;
+  const float* vh = v + base;
+
+  load_rows<kDh, kF32Rows>(q_s, qh, q0, t);
+  load_rows<kDh, kF32Keys>(k_s, kh, first * kF32Keys, t);
+  cp_async_commit();
+
+  float acc[kF32R][kDv];  // rows ty + 16r
+  float m[kF32R], l[kF32R];   // running max; this lane's share of the running sum
+#pragma unroll
+  for (int r = 0; r < kF32R; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < kDv; ++e) acc[r][e] = 0.0f;
+  }
+
+  // One K and one V buffer, filled alternately: V_i lands while S_i is
+  // computed, K_{i+1} while P_i V_i is.
+  for (int i = first; i < last; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // K_i has landed; every thread is done with V_{i-1}
+    load_rows<kDh, kF32Keys>(v_s, vh, i * kF32Keys, t);
+    cp_async_commit();
+
+    // S: rows ty + 16r x keys tx + 8j, summed over d in order
+    float s[kF32R][8];
+#pragma unroll
+    for (int r = 0; r < kF32R; ++r) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[r][j] = 0.0f;
+    }
+#pragma unroll
+    for (int d = 0; d < kDh; d += 4) {
+      float4 a[kF32R], b[8];
+#pragma unroll
+      for (int r = 0; r < kF32R; ++r) {
+        a[r] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * r) * kStride + d);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        b[j] = *reinterpret_cast<const float4*>(k_s + (tx + 8 * j) * kStride + d);
+      }
+#pragma unroll
+      for (int r = 0; r < kF32R; ++r) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[r][j] = fmaf(a[r].x, b[j].x, s[r][j]);
+          s[r][j] = fmaf(a[r].y, b[j].y, s[r][j]);
+          s[r][j] = fmaf(a[r].z, b[j].z, s[r][j]);
+          s[r][j] = fmaf(a[r].w, b[j].w, s[r][j]);
+        }
+      }
+    }
+    const int k0 = i * kF32Keys;
+    if (k0 + kF32Keys > t) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (k0 + tx + 8 * j >= t) {
+#pragma unroll
+          for (int r = 0; r < kF32R; ++r) s[r][j] = -INFINITY;
+        }
+      }
+    }
+    // key k0 is real, so every new max is finite, and expf(-inf) = 0 clears
+    // the empty start state
+#pragma unroll
+    for (int r = 0; r < kF32R; ++r) {
+      float mx = s[r][0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[r][j]);
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+      const float mn = fmaxf(m[r], mx);
+      const float alpha = expf(m[r] - mn);
+      m[r] = mn;
+      l[r] *= alpha;
+#pragma unroll
+      for (int e = 0; e < kDv; ++e) acc[r][e] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[r][j] = expf(s[r][j] - mn);
+        l[r] += s[r][j];
+      }
+    }
+    // P[key][kF32R * ty + r] holds row ty + 16r, so a thread reads its rows'
+    // p as kF32R / 4 float4s
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < kF32R; r += 4) {
+        *reinterpret_cast<float4*>(p_s + (tx + 8 * j) * kF32PStride + kF32R * ty + r) =
+            make_float4(s[r][j], s[r + 1][j], s[r + 2][j], s[r + 3][j]);
+      }
+    }
+
+    cp_async_wait_all();
+    __syncthreads();  // V_i has landed and P is written; every thread is done with K_i
+    if (i + 1 < last) load_rows<kDh, kF32Keys>(k_s, kh, (i + 1) * kF32Keys, t);
+    cp_async_commit();
+
+    // O += P V over the tile's keys in order (8 keys an unrolled step: 4 ran
+    // slower, a full unroll spills)
+#pragma unroll 8
+    for (int c = 0; c < kF32Keys; ++c) {
+      float p[kF32R];
+#pragma unroll
+      for (int r = 0; r < kF32R; r += 4) {
+        const float4 p4 =
+            *reinterpret_cast<const float4*>(p_s + c * kF32PStride + kF32R * ty + r);
+        p[r] = p4.x; p[r + 1] = p4.y; p[r + 2] = p4.z; p[r + 3] = p4.w;
+      }
+      float x[kDv];
+      load_dims<kDh>(x, v_s + c * kStride, tx);
+#pragma unroll
+      for (int r = 0; r < kF32R; ++r) {
+#pragma unroll
+        for (int e = 0; e < kDv; ++e) acc[r][e] = fmaf(p[r], x[e], acc[r][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kF32R; ++r) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+  }
+  if (splits == 1) {
+#pragma unroll
+    for (int r = 0; r < kF32R; ++r) {
+      const int row = q0 + ty + 16 * r;
+      if (row < t) {
+        float out[kDv];
+#pragma unroll
+        for (int e = 0; e < kDv; ++e) out[e] = acc[r][e] / l[r];
+        store_dims<kDh>(o + base + static_cast<size_t>(row) * kDh, out, tx);
+      }
+    }
+    return;
+  }
+
+  // Key split: publish (m, l, O) of the block's rows over the K and V
+  // tiles (the last committed copy group is empty, so nothing lands there),
+  // then after one cluster barrier rank r combines rows [r * rows,
+  // (r + 1) * rows) from every rank's shared memory, in rank order.
+  __syncthreads();
+  float* m_s = k_s;
+  float* l_s = m_s + kF32Rows;
+  float* o_s = l_s + kF32Rows;  // [row][kDh]
+#pragma unroll
+  for (int r = 0; r < kF32R; ++r) {
+    const int row = ty + 16 * r;
+    if (tx == 0) {
+      m_s[row] = m[r];
+      l_s[row] = l[r];
+    }
+    store_dims<kDh>(o_s + row * kDh, acc[r], tx);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  constexpr int kVec = kDh / 4;
+  const int rows = (kF32Rows + splits - 1) / splits;
+  for (int it = threadIdx.x; it < rows * kVec; it += kF32Threads) {
+    const int row = rank * rows + it / kVec, c = it % kVec;
+    if (row >= kF32Rows || q0 + row >= t) continue;
+    float mx = -INFINITY;
+    for (int src = 0; src < splits; ++src) {
+      mx = fmaxf(mx, *cluster.map_shared_rank(m_s + row, src));
+    }
+    float sum = 0.0f;
+    float4 acc4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int src = 0; src < splits; ++src) {
+      const float w = expf(*cluster.map_shared_rank(m_s + row, src) - mx);
+      sum = fmaf(*cluster.map_shared_rank(l_s + row, src), w, sum);
+      const float4 x =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(o_s + row * kDh + 4 * c, src));
+      acc4.x = fmaf(x.x, w, acc4.x);
+      acc4.y = fmaf(x.y, w, acc4.y);
+      acc4.z = fmaf(x.z, w, acc4.z);
+      acc4.w = fmaf(x.w, w, acc4.w);
+    }
+    *reinterpret_cast<float4*>(o + base + static_cast<size_t>(q0 + row) * kDh + 4 * c) =
+        make_float4(acc4.x / sum, acc4.y / sum, acc4.z / sum, acc4.w / sum);
+  }
+  cluster.sync();  // no block leaves while another still reads its shared memory
+}
+
+template <int kDh>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int t,
-               cudaStream_t stream) {
-  dim3 grid((t + kF32Rows - 1) / kF32Rows, bh);
-  flash_attention_f32_kernel<kDh><<<grid, kF32Rows, 0, stream>>>(
-      static_cast<const float4*>(q), static_cast<const float4*>(k),
-      static_cast<const float4*>(v), static_cast<float4*>(o), t);
+               int splits, cudaStream_t stream) {
+  const int n_tiles = (t + kF32Keys - 1) / kF32Keys;
+  if (splits < 1 || splits > kF32MaxSplit || splits > n_tiles ||
+      (splits - 1) * ((n_tiles + splits - 1) / splits) >= n_tiles) {
+    return static_cast<int>(cudaErrorInvalidValue);  // a split would get no key tile
+  }
+  auto kernel = flash_attention_f32_kernel<kDh>;
+  constexpr int smem = F32Layout<kDh>::kFloats * static_cast<int>(sizeof(float));
+  static bool attrs_set = false;
+  if (!attrs_set) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    // the largest carveout, so kF32MinBlocks blocks' shared memory fit on one SM
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attrs_set = true;
+  }
+  const dim3 grid((t + kF32Rows - 1) / kF32Rows * splits, bh);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  if (splits == 1) {
+    kernel<<<grid, kF32Threads, smem, stream>>>(qf, kf, vf, of, t, 1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kF32Threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, qf, kf, vf, of, t, splits);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -621,15 +907,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 }
 
 // The float32 body, same contract: q, k, v, o contiguous (bh, t, dh)
-// float32, 16-byte aligned; dh 16, 32 or 64; 1 <= bh <= 65535. Returns the
-// launch's cudaError_t (0 on success).
+// float32, 16-byte aligned; dh 16, 32 or 64; 1 <= bh <= 65535; and
+// `splits`, the blocks of one cluster that share each query block's keys
+// (1-8, each given at least one 64-key tile; the wrapper's planner picks
+// it). Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v,
-                                          void* o, int bh, int t, int dh, void* stream) {
+                                          void* o, int bh, int t, int dh, int splits,
+                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 16: return launch_f32<16>(q, k, v, o, bh, t, s);
-    case 32: return launch_f32<32>(q, k, v, o, bh, t, s);
-    case 64: return launch_f32<64>(q, k, v, o, bh, t, s);
+    case 16: return launch_f32<16>(q, k, v, o, bh, t, splits, s);
+    case 32: return launch_f32<32>(q, k, v, o, bh, t, splits, s);
+    case 64: return launch_f32<64>(q, k, v, o, bh, t, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

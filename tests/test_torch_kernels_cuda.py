@@ -326,6 +326,10 @@ def _flash_inputs_f32(b, t, h, dh, seed=6):
 @pytest.mark.parametrize("b,h,t,dh", [
     (1, 12, 512, 64), (4, 12, 1500, 64), (3, 4, 333, 64),
     (2, 2, 1500, 32), (2, 3, 512, 16), (1, 2, 333, 16), (2, 3, 1, 32),
+    (1, 12, 1500, 64), (16, 12, 1500, 64),   # the served 1- and 16-row buckets
+    (2, 3, 64, 64), (2, 3, 65, 64),          # one whole tile; one key in the last
+    (1, 4, 129, 32), (1, 12, 1499, 64),      # around the 128-row / 64-key tiles
+    (32, 16, 200, 64),                       # B*H 512
 ])
 def test_flash_kernel_float32_matches_plain(cuda_device, b, h, t, dh):
     q, k, v = (x.to(cuda_device) for x in _flash_inputs_f32(b, t, h, dh))
@@ -342,6 +346,45 @@ def test_flash_kernel_float32_matches_plain(cuda_device, b, h, t, dh):
 @pytest.mark.cuda
 def test_flash_kernel_is_deterministic(cuda_device):
     q, k, v = (x.to(cuda_device) for x in _flash_inputs(4, 1500, seed=5))
+    first = flash_attention(q, k, v)
+    for _ in range(3):
+        assert torch.equal(flash_attention(q, k, v), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,dh", [(1500, 64), (600, 32), (129, 16)])
+def test_flash_kernel_float32_every_split(cuda_device, t, dh):
+    """Every key split the launcher accepts (the planner picks one of them)
+    gives the plain version's output; a split that would leave a block
+    without a key tile is refused before launch."""
+    from stt_tpu_torch.ops.kernels.flash_attention import F32_KEYS, F32_MAX_SPLIT, _launcher
+
+    b, h = 1, 3
+    q, k, v = (x.to(cuda_device) for x in _flash_inputs_f32(b, t, h, dh, seed=8))
+    ref = flash_attention_plain(q, k, v)
+    launch = _launcher(torch.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    n_tiles = -(-t // F32_KEYS)
+    for splits in range(1, F32_MAX_SPLIT + 2):
+        out = torch.full_like(q, float("nan"))
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, dh,
+                    splits, stream)
+        per = -(-n_tiles // splits)
+        if splits > F32_MAX_SPLIT or -(-n_tiles // per) != splits:
+            assert rc != 0, f"{splits} splits of {n_tiles} tiles launched"
+            continue
+        assert rc == 0
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, atol=FLASH_F32_ATOL, rtol=FLASH_F32_RTOL,
+                                   msg=lambda m: f"{splits} splits: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4])
+def test_flash_kernel_float32_is_deterministic(cuda_device, b):
+    """Fixed-order sums, the split's combine in rank order, no atomics: two
+    calls agree bit for bit (1 row takes the split, 4 rows too)."""
+    q, k, v = (x.to(cuda_device) for x in _flash_inputs_f32(b, 1500, 12, 64, seed=9))
     first = flash_attention(q, k, v)
     for _ in range(3):
         assert torch.equal(flash_attention(q, k, v), first)
