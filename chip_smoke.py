@@ -38,12 +38,26 @@ PyTorch built for CUDA. In order:
       ``flash_attention="auto"``): 4 concurrent requests of 12, 20, 25 and
       30 s, all in the 30 s bucket, the only one whose 1500 encoder
       positions reach flash attention's 512;
+   each engine first prewarms the shapes its requests reach (every bucket
+   of the path at 1 and 4 rows), which captures their decode graphs, and
+   the phase fails if a graph is captured while the requests are served;
    it checks every output, that requests shared a batch, and from the
    launch counts that each path ran through its kernels (path b: flash
    once per encoder layer per encode, cross-attention decode once per
-   decoder layer per single-position step); after each run it times the
-   log-mel kernel against the whole encode at the path's buckets (the
-   front end's share of an encode);
+   decoder layer per single-position step, where the steps inside a
+   captured decode chunk count as the launches the capture recorded times
+   the chunk's replays); after each run it times the log-mel kernel
+   against the whole encode at the path's buckets (the front end's share
+   of an encode);
+   c. the decode graphs: at phase a's group (4 rows x 10 s), phase b's (4
+   x 30 s) and the ``test`` model in float32 (4 x 10 s), one group decoded
+   twice on its prewarmed entry, by replaying the captured chunk and by
+   running the same chunk uncaptured, must give bitwise-identical tokens,
+   lengths and logprob sums (the same kernels in the same order); each
+   prints the ms per decode step of both (CUDA events) beside the step's
+   bound (its bytes over the card's memory rate);
+   d. one round of the port's bench (``stt_tpu_torch/bench.py``) at 64
+   streams of 10 s, printing its JSON line;
 4. checks the outputs against references on small inputs: the ``test``
    model in float32 on the card against the CPU (encoder output and
    teacher-forced logits within max abs 1e-3), once at 1.5 s with flash
@@ -502,11 +516,73 @@ def front_end_share(torch, E, engine, seconds_list, wire: str) -> None:
             f"{enc_ms:.4f} ms for log-mel + encoder ({mel_ms / enc_ms:.2%})")
 
 
+def prewarm(engine, buckets) -> int:
+    """Prewarms ``buckets`` at 1 and 4 rows (the batch buckets a served
+    phase's groups reach); returns the graphs captured so far."""
+    import torch
+
+    sec = engine.prewarm(buckets, [1, 4])
+    log(f"prewarm {'/'.join(f'{b:g}' for b in buckets)} s x 1/4 rows: {sec:.2f} s, "
+        f"{engine.graph_captures} decode graphs captured, "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+    return engine.graph_captures
+
+
+def graphs_phase(torch, E, W, engine, seconds: float, rows: int, tag: str) -> None:
+    """Phase 3c on one prewarmed engine: a group of ``rows`` requests of
+    ``seconds`` (alternately a fixed and a detected language) decoded on
+    its entry by replaying the captured chunk and by the same chunk
+    uncaptured; tokens, lengths and logprob sums must be bitwise identical.
+    Prints both ms per decode step (CUDA events)."""
+    from stt_tpu_torch import bench as B
+
+    bucket = engine._bucket_for(int(seconds * 16000))
+    n = int(bucket * 16000)
+    pcm = np.zeros((rows, n), np.int16)
+    for i in range(rows):
+        audio = synth_audio(seconds * (0.6 + 0.4 * i / max(1, rows - 1)), seed=40 + i)
+        pcm[i, : len(audio)] = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    prompt = np.array([W.build_prompt(engine.config, "en")] * rows, np.int64)
+    auto = np.arange(rows) % 2 == 1
+    max_new = engine._max_new_for(bucket)
+    dev = engine.device
+    with engine._device_lock, torch.inference_mode():
+        rows_dev = torch.from_numpy(E._encode_wire_rows(pcm, engine.audio_wire)).to(dev)
+        enc = E._mel_encode(engine.model, rows_dev, engine._dtype)
+        entry = engine.graphs.lookup(bucket, rows, prompt.shape[1], max_new)
+        ckv = W.precompute_cross_kv(engine.model.decoder, enc, out=entry.cross_kv)
+        prompt_dev, _, _ = E._detect_and_patch_lang(
+            engine.model, enc, torch.from_numpy(prompt).to(dev), torch.from_numpy(auto).to(dev),
+            ckv, 1)
+        plen = torch.full((rows,), prompt.shape[1], dtype=torch.long, device=dev)
+        got = {captured: engine.graphs.decode(entry, prompt_dev, plen, captured=captured)
+               for captured in (True, False)}
+        torch.cuda.synchronize()
+    a, b = got[True], got[False]
+    for name in ("tokens", "lengths", "sum_logprob"):
+        x, y = getattr(a, name), getattr(b, name)
+        if not torch.equal(x, y):
+            fail(f"decode graphs ({tag}): captured and uncaptured {name} differ: "
+                 f"{x.tolist()} vs {y.tolist()}")
+    ms = {c: B.decode_step_ms(engine, bucket, rows, captured=c) for c in (True, False)}
+    nbytes = B.decode_step_bytes(engine, bucket, rows)
+    bound_ms = nbytes / H100_HBM_BYTES * 1e3
+    log(f"decode graphs ({tag}, {rows} x {bucket:g} s, max_new {max_new}, "
+        f"{entry.launches['xattn_decode']} xattn_decode launches a chunk): captured and "
+        f"uncaptured tokens, lengths and logprob sums bitwise identical (lengths "
+        f"{a.lengths.tolist()}); ms per decode step: captured {ms[True]:.4f}, uncaptured "
+        f"{ms[False]:.4f}; {nbytes / 1e6:.1f} MB a step, bound {bound_ms:.4f} ms (bytes), "
+        f"captured at {bound_ms / ms[True]:.1%} of it")
+
+
 def serve_default_phase(torch, E, W, audio_wire: str) -> int:
     """Phase 3a: whisper-small bf16 on the default attention path (int8
     cross K/V, einsum attention), 8 concurrent requests of 1-10 s on the
-    given audio wire. Checks that every log-mel launch of the run received
-    rows of the wire's type; returns the log-mel launch count."""
+    given audio wire, after a prewarm of their shapes. Checks that every
+    log-mel launch of the run received rows of the wire's type and that no
+    decode graph was captured while serving; on the mu-law wire it then
+    holds the captured decode against the uncaptured one (phase 3c).
+    Returns the log-mel launch count."""
     from stt_tpu_torch.ops.kernels.mel import mel_logspec
 
     t0 = time.monotonic()
@@ -535,6 +611,7 @@ def serve_default_phase(torch, E, W, audio_wire: str) -> int:
         t0 = time.monotonic()
         engine.transcribe_sync(E.DecodeRequest(synth_audio(1.0, 9), language="en"))
         log(f"warm-up request: {time.monotonic() - t0:.2f} s")
+        captures = prewarm(engine, [1.0, 2.0, 5.0, 10.0])
 
         durations = [1.0, 2.0, 5.0, 10.0] * 2
         requests = [
@@ -546,10 +623,14 @@ def serve_default_phase(torch, E, W, audio_wire: str) -> int:
         mel_logspec.launches = 0
         results, wall = serve_concurrently(engine, requests)
         launches = mel_logspec.launches
+        served_captures = engine.graph_captures - captures
         check_served(E, W, engine, requests, results)
     finally:
         E.mel_logspec = real
         engine.close()
+    if served_captures:
+        fail(f"{audio_wire} wire: {served_captures} decode graphs captured while serving "
+             f"prewarmed shapes")
     if engine._thread is not None or engine._harvest_thread is not None:
         fail("engine threads still running after close()")
     if launches <= 0:
@@ -558,15 +639,22 @@ def serve_default_phase(torch, E, W, audio_wire: str) -> int:
         fail(f"{audio_wire} wire: the log-mel kernel got rows {row_dtypes} in {launches} "
              f"launches, not {wire_dtype}")
     log(f"served {len(requests)} requests on the {audio_wire} wire in {wall:.3f} s; "
-        f"mel_logspec launches {launches}, each on {wire_dtype} rows")
+        f"mel_logspec launches {launches}, each on {wire_dtype} rows; no decode graph "
+        f"captured while serving ({engine.graph_replays} replays so far)")
     front_end_share(torch, E, engine, (1.0, 2.0, 5.0, 10.0), audio_wire)
+    if audio_wire == "mulaw":
+        graphs_phase(torch, E, W, engine, 10.0, 4, "whisper-small bf16, int8 cross K/V, einsum")
     return launches
 
 
 def serve_30s_phase(torch, E, W):
     """Phase 3b: whisper-small bf16 with fp8 cross K/V and both attention
-    kernels on, 4 concurrent requests in the 30 s bucket. Returns the
-    launch counts of the run."""
+    kernels on, 4 concurrent requests in the 30 s bucket, after a prewarm
+    of their shapes. Returns the launch counts of the run: a kernel launched
+    inside a captured decode chunk counts the launches the capture recorded
+    times the chunk's replays, and the decoder steps are the uncaptured
+    ones (language detection) plus ``FINISH_CHECK_EVERY`` a replay. Then
+    holds the captured decode against the uncaptured one (phase 3c)."""
     from stt_tpu_torch.ops.kernels.flash_attention import flash_attention
     from stt_tpu_torch.ops.kernels.mel import mel_logspec
     from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode
@@ -591,6 +679,7 @@ def serve_30s_phase(torch, E, W):
         t0 = time.monotonic()
         engine.transcribe_sync(E.DecodeRequest(synth_audio(30.0, 8), language="en"))
         log(f"warm-up request (30 s): {time.monotonic() - t0:.2f} s")
+        captures = prewarm(engine, [30.0])
         durations = [12.0, 20.0, 25.0, 30.0]
         requests = [
             E.DecodeRequest(synth_audio(d, seed=20 + i), language=None if i % 2 else "en",
@@ -599,14 +688,28 @@ def serve_30s_phase(torch, E, W):
         ]
         W._decoder_step = counted_step
         steps[0] = 0
+        replayed = engine.graphs.replayed_launches()
+        replays = engine.graph_replays
         mel_logspec.launches = xattn_decode.launches = flash_attention.launches = 0
         results, wall = serve_concurrently(engine, requests)
-        counts = {"mel_logspec": mel_logspec.launches, "xattn_decode": xattn_decode.launches,
-                  "flash_attention": flash_attention.launches, "decoder_steps": steps[0]}
+        in_graphs = {k: v - replayed[k] for k, v in engine.graphs.replayed_launches().items()}
+        counts = {"mel_logspec": mel_logspec.launches + in_graphs["mel_logspec"],
+                  "xattn_decode": xattn_decode.launches + in_graphs["xattn_decode"],
+                  "flash_attention": flash_attention.launches + in_graphs["flash_attention"],
+                  "xattn_decode_in_graphs": in_graphs["xattn_decode"],
+                  "graph_replays": engine.graph_replays - replays,
+                  "decoder_steps": steps[0] + W.FINISH_CHECK_EVERY * (
+                      engine.graph_replays - replays)}
+        served_captures = engine.graph_captures - captures
         check_served(E, W, engine, requests, results)
     finally:
         W._decoder_step = step
         engine.close()
+    if served_captures:
+        fail(f"30 s path: {served_captures} decode graphs captured while serving prewarmed "
+             f"shapes")
+    if counts["xattn_decode_in_graphs"] <= 0:
+        fail("30 s path: no xattn_decode launch inside a replayed decode graph")
     if engine._thread is not None or engine._harvest_thread is not None:
         fail("engine threads still running after close()")
     encodes = counts["mel_logspec"]
@@ -617,9 +720,34 @@ def serve_30s_phase(torch, E, W):
             counts["xattn_decode"] != cfg.n_text_layer * counts["decoder_steps"]):
         fail(f"30 s path: xattn_decode launched {counts['xattn_decode']} times for "
              f"{counts['decoder_steps']} decoder steps, not {cfg.n_text_layer} per step")
-    log(f"served {len(requests)} requests (30 s bucket) in {wall:.3f} s; launches {counts}")
+    log(f"served {len(requests)} requests (30 s bucket) in {wall:.3f} s; launches {counts}; "
+        f"no decode graph captured while serving")
     front_end_share(torch, E, engine, (30.0,), "mulaw")
+    graphs_phase(torch, E, W, engine, 30.0, 4, "whisper-small bf16, fp8 cross K/V, both kernels")
     return counts
+
+
+def graphs_f32_phase(torch, E, W) -> None:
+    """Phase 3c for the ``test`` model in float32 on the card."""
+    engine = E.WhisperEngine("test", device="cuda", compute_type="float32",
+                             batch_buckets=(1, 4, 16, 64))
+    prewarm(engine, [10.0])
+    graphs_phase(torch, E, W, engine, 10.0, 4, "test model, float32")
+    engine.close()
+
+
+def bench_phase() -> None:
+    """Phase 3d: one steady round of the port's bench at 64 x 10 s."""
+    from stt_tpu_torch import bench as B
+
+    t0 = time.monotonic()
+    result = B.run(B.parse_args(["--rounds", "1"]))
+    if result["graph_captures_serving"]:
+        fail(f"bench: {result['graph_captures_serving']} decode graphs captured while serving")
+    if not (result["value"] > 0 and np.isfinite(result["value"])):
+        fail(f"bench: RTFx {result['value']}")
+    log(f"bench (one round, {time.monotonic() - t0:.1f} s):")
+    log(json.dumps(result))
 
 
 def reference_f32_phase(torch, E, W, dev, clips, flash: str) -> None:
@@ -878,6 +1006,10 @@ def main() -> None:
 
     # -- 3b. served requests, 30 s path (fp8 cross K/V, both attention kernels) -
     counts_30s = serve_30s_phase(torch, E, W)
+
+    # -- 3c. decode graphs in float32; 3d. one round of the port's bench --------
+    graphs_f32_phase(torch, E, W)
+    bench_phase()
 
     # -- 4. reference on small inputs -------------------------------------------
     reference_f32_phase(torch, E, W, dev, [(1.5, "en"), (0.7, None)], flash="off")

@@ -24,6 +24,13 @@ without timestamps — what every streaming partial and final takes:
   ``audio_wire`` and ``pipeline_depth`` are read the same way from
   ``STT_AUDIO_WIRE`` (default mulaw) and ``STT_PIPELINE_DEPTH`` (default 2),
   parsed as the JAX package parses them.
+- The greedy decode of each group runs on its shape's entry in the decode
+  graph cache (:class:`~stt_tpu_torch.engine.graphs.DecodeGraphs`, the JAX
+  engine's exec cache): on the card a captured CUDA graph of the decode
+  chunk, replayed, and never an eager fallback; on the CPU the same chunk
+  uncaptured. :meth:`WhisperEngine.prewarm` builds the entries (and the
+  kernels, and cuBLAS's choices) of the shapes a deployment serves before
+  it serves them, so nothing is captured at serving time.
 - The device phase returns one packed int32 array per group (tokens,
   lengths, logprob sum, p(no_speech), language index and probability);
   a harvester thread reads it back, detokenizes and resolves the futures,
@@ -61,6 +68,7 @@ from ..models import whisper as W
 from ..models.tokenizer import load_tokenizer
 from ..ops.kernels.mel import mel_logspec
 from ..ops.mel import HOP_LENGTH, SAMPLE_RATE, normalize_log_mel
+from .graphs import DecodeGraphs
 
 LOGGER = logging.getLogger("stt_tpu_torch")
 
@@ -116,7 +124,8 @@ def _pipeline_depth(given: Optional[int]) -> int:
 
 def max_new_for(bucket_sec: float, max_decode_tokens: int) -> int:
     """Decode-loop bound for one audio bucket: ~7.5 tokens/sec of audio
-    at 30 s = 224, rounded up to a multiple of 8."""
+    at 30 s = 224, rounded up to a multiple of 8 (a multiple of 8 whenever
+    ``max_decode_tokens`` is one, as the engine requires)."""
     est = int(np.ceil(bucket_sec * max_decode_tokens / 30.0 / 8.0)) * 8
     return int(min(max_decode_tokens, max(24, est)))
 
@@ -231,31 +240,34 @@ def _detect_and_patch_lang(model: W.Whisper, enc: torch.Tensor, prompt: torch.Te
     return prompt, lang_idx, lang_p
 
 
-def _decode_serve(model: W.Whisper, enc: torch.Tensor, prompt: torch.Tensor,
-                  prompt_len: torch.Tensor, auto_mask: torch.Tensor,
-                  max_new_tokens: int, suppress_blank: bool = True,
-                  lang_pos: int = 1) -> torch.Tensor:
+def _decode_serve(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
+                  enc: torch.Tensor, prompt: torch.Tensor, prompt_len: torch.Tensor,
+                  auto_mask: torch.Tensor, max_new_tokens: int,
+                  suppress_blank: bool = True, lang_pos: int = 1) -> torch.Tensor:
     """Language detection -> greedy decode -> packed outputs, from an
-    encoder output. The cross K/V is computed once and shared by the
-    detection step and the decode."""
-    cross_kv = W.precompute_cross_kv(model.decoder, enc)
+    encoder output, on the shape's entry of ``graphs``: the cross K/V is
+    computed once into the entry's buffers and shared by the detection step
+    and the decode. The packed result is a new tensor, enqueued after the
+    decode's last replay, so a next group of the same shape may reuse the
+    entry before this one is harvested."""
+    entry = graphs.entry(bucket_sec, enc.shape[0], prompt.shape[1], max_new_tokens,
+                         enc.shape[1])
+    cross_kv = W.precompute_cross_kv(model.decoder, enc, out=entry.cross_kv)
     prompt, lang_idx, lang_p = _detect_and_patch_lang(
         model, enc, prompt, auto_mask, cross_kv, lang_pos
     )
-    res = W.greedy_decode(
-        model, enc, prompt, prompt_len, max_new_tokens,
-        suppress_blank=suppress_blank, sot_pos=lang_pos - 1, cross_kv=cross_kv,
-    )
+    res = graphs.decode(entry, prompt, prompt_len, suppress_blank=suppress_blank,
+                        sot_pos=lang_pos - 1)
     return _pack_result(res, lang_idx, lang_p)
 
 
-def _serve_step(model: W.Whisper, rows: torch.Tensor, prompt: torch.Tensor,
-                prompt_len: torch.Tensor, auto_mask: torch.Tensor,
-                dtype: torch.dtype, max_new_tokens: int,
+def _serve_step(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
+                rows: torch.Tensor, prompt: torch.Tensor, prompt_len: torch.Tensor,
+                auto_mask: torch.Tensor, dtype: torch.dtype, max_new_tokens: int,
                 suppress_blank: bool = True) -> torch.Tensor:
     """The whole serving step: mel + encoder, then detect + decode + pack."""
     enc = _mel_encode(model, rows, dtype)
-    return _decode_serve(model, enc, prompt, prompt_len, auto_mask,
+    return _decode_serve(model, graphs, bucket_sec, enc, prompt, prompt_len, auto_mask,
                          max_new_tokens, suppress_blank)
 
 
@@ -288,6 +300,11 @@ class WhisperEngine:
         if compute_type not in _DTYPES:
             raise ValueError(f"compute_type must be one of {sorted(_DTYPES)}, "
                              f"got {compute_type!r}")
+        if int(max_decode_tokens) <= 0 or int(max_decode_tokens) % W.FINISH_CHECK_EVERY:
+            # the decode graphs replay chunks of FINISH_CHECK_EVERY steps, and
+            # max_new_for keeps every bucket's bound a multiple of it only then
+            raise ValueError(f"max_decode_tokens={max_decode_tokens} must be a positive "
+                             f"multiple of {W.FINISH_CHECK_EVERY}")
         self.model_size = model_size
         self.device = resolve_device(device)
         self._dtype = _DTYPES[compute_type]
@@ -301,6 +318,7 @@ class WhisperEngine:
             config, W.init_params(config, seed=seed), self.device, self._dtype,
             self.policy,
         )
+        self.graphs = DecodeGraphs(self.model, self.device, self._dtype)
         self.audio_wire = _audio_wire(audio_wire)
         self.pipeline_depth = _pipeline_depth(pipeline_depth)
         self.tokenizer = load_tokenizer(tokenizer_path, config.n_vocab)
@@ -322,6 +340,19 @@ class WhisperEngine:
         self._running = False
         self._closing = False
         self._lock = threading.Lock()
+        # one group at a time enqueues device work: the graph entries'
+        # buffers are shared by every group of their shape
+        self._device_lock = threading.Lock()
+
+    @property
+    def graph_captures(self) -> int:
+        """Decode graphs captured so far (the JAX engine's compiles)."""
+        return self.graphs.graph_captures
+
+    @property
+    def graph_replays(self) -> int:
+        """Decode-chunk graph replays so far (the JAX engine's cache loads)."""
+        return self.graphs.graph_replays
 
     # -- sizing ---------------------------------------------------------------
 
@@ -427,6 +458,58 @@ class WhisperEngine:
         self._check_supported(request)
         task = _Task(request, None)
         return self._harvest(self._device_phase([task]))[0]
+
+    def prewarm(
+        self,
+        bucket_secs: Optional[Sequence[float]] = None,
+        batch_sizes: Optional[Sequence[int]] = None,
+        *,
+        include_detect: bool = False,
+        beam_sizes: Optional[Sequence[int]] = None,
+        parallelism: int = 1,
+        mode: str = "execute",
+        include_drafted: bool = False,
+    ) -> float:
+        """Build every (audio bucket, batch bucket) shape up front; returns
+        the wall time in seconds (``stt_tpu/engine/engine.py:1293``).
+
+        Each combination (``bucket_secs``, default every audio bucket, by
+        ``batch_sizes``, default the smallest batch bucket) runs one group
+        of zero-audio rows through the device phase: that builds the kernels
+        (``ops/cuda/build.py``), sets their function attributes, lets cuBLAS
+        and cuDNN pick their algorithms and captures the shape's decode
+        graph, so serving those shapes captures nothing. ``include_detect``
+        is accepted for call sites and unused (every group can detect);
+        ``parallelism`` is accepted and the shapes are built one after
+        another, since captures share one device and one memory pool. Raises
+        ``NotImplementedError`` for ``mode="aot"`` (ahead-of-time compiles
+        have no counterpart on the card), beam sizes above 1 and
+        ``include_drafted``: those belong to later slices.
+        """
+        del include_detect, parallelism
+        if mode != "execute":
+            raise NotImplementedError(
+                f"prewarm option mode={mode!r} is not served by stt_tpu_torch "
+                f"(only 'execute'; ahead-of-time compiles have no counterpart on the card)"
+            )
+        if any(int(b) > 1 for b in (beam_sizes or ())):
+            raise NotImplementedError(
+                f"prewarm option beam_sizes={list(beam_sizes)!r} is not served by "
+                f"stt_tpu_torch yet (greedy decodes only)"
+            )
+        if include_drafted:
+            raise NotImplementedError(
+                "prewarm option include_drafted=True is not served by stt_tpu_torch yet "
+                "(drafted partials are a later slice)"
+            )
+        t0 = time.monotonic()
+        for sec in bucket_secs or self.audio_buckets_sec:
+            for rows in batch_sizes or (self.batch_buckets[0],):
+                audio = np.zeros(int(float(sec) * SAMPLE_RATE), np.float32)
+                group = [_Task(DecodeRequest(audio=audio, language="en"), None)
+                         for _ in range(int(rows))]
+                self._harvest(self._device_phase(group))
+        return time.monotonic() - t0
 
     # -- threads --------------------------------------------------------------
 
@@ -563,10 +646,10 @@ class WhisperEngine:
         )
 
         dev = self.device
-        with torch.inference_mode():
+        with self._device_lock, torch.inference_mode():
             rows_dev = torch.from_numpy(_encode_wire_rows(rows, self.audio_wire)).to(dev)
             packed = _serve_step(
-                self.model, rows_dev,
+                self.model, self.graphs, bucket_sec, rows_dev,
                 torch.from_numpy(prompt_arr).to(dev),
                 torch.full((batch_n,), p_len, dtype=torch.long, device=dev),
                 torch.from_numpy(auto_mask).to(dev),

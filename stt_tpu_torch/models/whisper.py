@@ -30,10 +30,20 @@ that the two can be held against each other on identical weights:
   wrappers launch their CUDA kernel on the card and take their plain
   version on the CPU.
 
-Unlike the JAX package, caches are updated in place, and the greedy loop
-is a Python loop that checks for all-rows-finished every
-``FINISH_CHECK_EVERY`` steps; extra steps after every row has finished
-only rewrite end-of-text tokens, so the result is the same.
+The decode step has one shape for every position, as the JAX package's
+scalar-``pos`` ``_decoder_step``: ``pos`` is a 0-d device tensor, the
+embeddings are gathered by index, the new K/V are written with
+``index_copy_`` and self-attention runs over every cache slot under the
+mask ``slot <= pos``. Unlike the JAX package, the caches and the decode
+state (:class:`DecodeState`) are updated in place, and the greedy loop is
+split: the prefill runs once, then :func:`_decode_chunk` runs
+``FINISH_CHECK_EVERY`` steps that read and write only the state's buffers,
+and the host reads all-rows-finished once after each chunk. Extra steps
+after every row has finished only rewrite end-of-text tokens, so the
+result is the JAX package's. No step reads a value back to the host, so
+the card can capture a chunk once as a CUDA graph and replay it
+(``stt_tpu_torch/engine/graphs.py``); on the CPU the same function runs
+uncaptured.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -477,29 +487,61 @@ def _q8(x: torch.Tensor):
     return torch.round(xf / s).to(torch.int8), s
 
 
-def precompute_cross_kv(dec: TextDecoder, enc_out: torch.Tensor) -> CrossKV:
+def empty_cross_kv(dec: TextDecoder, batch: int, n_audio: int,
+                   dtype: torch.dtype, device: torch.device) -> CrossKV:
+    """Zeroed cross K/V buffers for ``batch`` rows of ``n_audio`` encoder
+    positions under compute type ``dtype``, in the storage the decoder's
+    policy picks (with int8 scales): an ``out=`` for
+    :func:`precompute_cross_kv`."""
+    n_head = dec.n_head
+    d = dec.tok.shape[1]
+    shape = (len(dec.blocks), batch, n_head, n_audio, d // n_head)
+    store = dec.policy.cross_store_dtype(dtype) or dtype
+    scales = None
+    if store == torch.int8:
+        scales = [torch.zeros(shape[:3] + (1, 1), dtype=torch.float32, device=device)
+                  for _ in range(2)]
+    return CrossKV(torch.zeros(shape, dtype=store, device=device),
+                   torch.zeros(shape, dtype=store, device=device),
+                   *(scales or (None, None)))
+
+
+def precompute_cross_kv(dec: TextDecoder, enc_out: torch.Tensor,
+                        out: Optional[CrossKV] = None) -> CrossKV:
     """Cross-attention K/V for all layers, computed once per window, stored
     as the decoder's policy says: int8 with per-(layer, row, head) scales
     or fp8 e4m3 (both only under bfloat16 compute), else the compute type.
     fp8 is cast from the bf16 k·Dh^-0.25 and v, as the JAX package casts
     it; beyond ±464 torch's cast saturates to ±448 where JAX's gives NaN,
-    and the port keeps torch's."""
+    and the port keeps torch's. With ``out`` (buffers of
+    :func:`empty_cross_kv`'s shape) each layer is written into it in place
+    and ``out`` is returned."""
     n_head = dec.n_head
     scale = (enc_out.shape[-1] // n_head) ** -0.25
     store = dec.policy.cross_store_dtype(enc_out.dtype)
     int8 = store == torch.int8
     ks, vs, kss, vss = [], [], [], []
-    for block in dec.blocks:
+    for li, block in enumerate(dec.blocks):
         k = _split_heads(block.xattn.k(enc_out), n_head) * scale
         v = _split_heads(block.xattn.v(enc_out), n_head)
+        k_s = v_s = None
         if int8:
             (k, k_s), (v, v_s) = _q8(k), _q8(v)
-            kss.append(k_s)
-            vss.append(v_s)
         elif store is not None:
             k, v = k.to(store), v.to(store)
+        if out is not None:
+            out.k[li].copy_(k)
+            out.v[li].copy_(v)
+            if int8:
+                out.k_scale[li].copy_(k_s)
+                out.v_scale[li].copy_(v_s)
+            continue
         ks.append(k)
         vs.append(v)
+        kss.append(k_s)
+        vss.append(v_s)
+    if out is not None:
+        return out
     return CrossKV(
         torch.stack(ks), torch.stack(vs),
         torch.stack(kss) if int8 else None, torch.stack(vss) if int8 else None,
@@ -541,24 +583,32 @@ def _tok_logits(dec: TextDecoder, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x.float(), dec.tok_f32())
 
 
-def _decoder_step(dec: TextDecoder, tokens: torch.Tensor, pos: int,
+def _decoder_step(dec: TextDecoder, tokens: torch.Tensor, pos: Union[int, torch.Tensor],
                   cache: KVCache, cross_kv: CrossKV) -> torch.Tensor:
-    """One decode position for the whole batch at scalar position ``pos``:
-    tokens (B,) -> logits (B, V) float32. Writes k/v of ``pos`` into the
-    cache in place and attends over slots [0, pos]."""
+    """One decode position for the whole batch at scalar position ``pos``
+    (a 0-d int64 tensor on the tokens' device; a Python int is filled in
+    there, with no host-to-device copy): tokens (B,) -> logits (B, V)
+    float32. Writes k/v of ``pos`` into the cache in place and attends over
+    all T_max slots under the mask ``slot <= pos``, as the JAX package's
+    scalar-``pos`` step does. Every shape is the same at every position and
+    nothing is read back to the host, so the step can be captured in a CUDA
+    graph."""
     n_head = dec.n_head
-    h = (dec.tok[tokens] + dec.pos[pos].to(dec.tok.dtype))[:, None, :]  # (B, 1, d)
+    if not torch.is_tensor(pos):
+        pos = torch.full((), pos, dtype=torch.long, device=tokens.device)
+    slot = pos.reshape(1)
+    h = (dec.tok[tokens] + dec.pos.index_select(0, slot).to(dec.tok.dtype))[:, None, :]
     scale = (h.shape[-1] // n_head) ** -0.25
+    t_max = cache.k.shape[3]
+    mask = torch.where(torch.arange(t_max, device=tokens.device) <= pos, 0.0, -torch.inf)
     for li, block in enumerate(dec.blocks):
         hn = block.ln1(h)
         qh = _split_heads(block.attn.q(hn), n_head) * scale
         k_new = _split_heads(block.attn.k(hn), n_head) * scale
         v_new = _split_heads(block.attn.v(hn), n_head)
-        cache.k[li, :, :, pos] = k_new[:, :, 0].to(cache.k.dtype)
-        cache.v[li, :, :, pos] = v_new[:, :, 0].to(cache.v.dtype)
-        attn_out = _attn_cached(
-            qh, cache.k[li, :, :, : pos + 1], cache.v[li, :, :, : pos + 1]
-        ).to(h.dtype)
+        cache.k[li].index_copy_(2, slot, k_new.to(cache.k.dtype))
+        cache.v[li].index_copy_(2, slot, v_new.to(cache.v.dtype))
+        attn_out = _attn_cached(qh, cache.k[li], cache.v[li], mask).to(h.dtype)
         h = h + block.attn.o(_merge_heads(attn_out))
         qx = _split_heads(block.xattn.q(block.ln_x(h)), n_head) * scale
         x_out = _cross_layer_attn(qx, cross_kv, li, dec.policy.xattn_on).to(h.dtype)
@@ -667,6 +717,104 @@ def _sample_begin_mask(config: WhisperConfig) -> np.ndarray:
     return mask
 
 
+class DecodeState(NamedTuple):
+    """Everything the greedy loop reads and writes, allocated once for a
+    (rows, prompt length, max_new) shape and updated in place, so a CUDA
+    graph of :func:`_decode_chunk` can be replayed against it. The masks
+    are built once from numpy."""
+
+    tokens: torch.Tensor       # (B, T_max) int64: prompt + generated, eot-padded
+    cache: KVCache             # self-attention K/V, (L, B, H, T_max, Dh)
+    pos: torch.Tensor          # () int64: the position the next step writes
+    finished: torch.Tensor     # (B,) bool
+    sum_lp: torch.Tensor       # (B,) float32: generated-token logprob sums
+    prompt_len: torch.Tensor   # (B,) int64: each row's logical prompt length
+    suppress: torch.Tensor     # (V,) float32: :func:`_suppress_mask`
+    begin_blank: torch.Tensor  # (V,) float32: :func:`_sample_begin_mask`
+    begin: torch.Tensor        # (V,) float32: ``begin_blank`` or zeros, per call
+
+
+def init_decode_state(config: WhisperConfig, batch: int, p_len: int, max_new: int,
+                      dtype: torch.dtype, device: torch.device) -> DecodeState:
+    """Zeroed decode state for ``batch`` rows of a ``p_len``-token prompt
+    and up to ``max_new`` generated tokens; the self cache is in ``dtype``."""
+    t_max = p_len + max_new
+
+    def const(mask: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(mask).to(device)
+
+    return DecodeState(
+        tokens=torch.zeros((batch, t_max), dtype=torch.long, device=device),
+        cache=init_kv_cache(config, batch, t_max, dtype, device),
+        pos=torch.zeros((), dtype=torch.long, device=device),
+        finished=torch.zeros(batch, dtype=torch.bool, device=device),
+        sum_lp=torch.zeros(batch, dtype=torch.float32, device=device),
+        prompt_len=torch.zeros(batch, dtype=torch.long, device=device),
+        suppress=const(_suppress_mask(config)),
+        begin_blank=const(_sample_begin_mask(config)),
+        begin=torch.zeros(config.n_vocab, dtype=torch.float32, device=device),
+    )
+
+
+def start_decode(dec: TextDecoder, state: DecodeState, prompt: torch.Tensor,
+                 prompt_len: torch.Tensor, cross_kv: CrossKV, *,
+                 suppress_blank: bool = True, sot_pos: int = 0) -> torch.Tensor:
+    """Reset ``state`` for a new group: the prompt (B, P) right-padded with
+    eot, eot past it, position P, no row finished; then the prefill fills
+    cache positions [0, P - 1). Returns p(no_speech) at ``sot_pos``."""
+    layout = token_layout(dec.tok.shape[0])
+    p_len = prompt.shape[1]
+    state.tokens.fill_(layout.eot)
+    state.tokens[:, :p_len].copy_(prompt)
+    state.prompt_len.copy_(prompt_len)
+    state.pos.fill_(p_len)
+    state.finished.zero_()
+    state.sum_lp.zero_()
+    if suppress_blank:
+        state.begin.copy_(state.begin_blank)
+    else:
+        state.begin.zero_()
+    return _prefill(dec, state.tokens, p_len, state.cache, cross_kv, sot_pos, layout)
+
+
+def _decode_chunk(dec: TextDecoder, state: DecodeState, cross_kv: CrossKV,
+                  n_steps: int = FINISH_CHECK_EVERY) -> None:
+    """``n_steps`` greedy steps on ``state`` in place, reading and writing
+    only its buffers and ``cross_kv`` (no host read, no allocation that
+    outlives the call): the body of the JAX package's ``greedy_decode``
+    while-loop, ``n_steps`` times. The caller keeps ``pos + n_steps`` within
+    the state's T_max."""
+    eot = token_layout(dec.tok.shape[0]).eot
+    pos = state.pos
+    for _ in range(n_steps):
+        last = state.tokens.index_select(1, pos.reshape(1) - 1)[:, 0]
+        logits = _decoder_step(dec, last, pos - 1, state.cache, cross_kv)
+        logits = logits + state.suppress + torch.where(
+            (state.prompt_len == pos)[:, None], state.begin, 0.0
+        )
+        logprobs = torch.log_softmax(logits, dim=-1)
+        next_tok = torch.where(state.finished, eot, torch.argmax(logits, dim=-1))
+        tok_lp = torch.gather(logprobs, 1, next_tok[:, None])[:, 0]
+        state.sum_lp.add_(torch.where(state.finished, 0.0, tok_lp))
+        state.tokens.index_copy_(1, pos.reshape(1), next_tok[:, None])
+        state.finished.logical_or_(next_tok == eot)
+        pos.add_(1)
+
+
+def finish_decode(state: DecodeState, p_len: int,
+                  no_speech_prob: torch.Tensor) -> DecodeResult:
+    """The result of a decode on ``state``, copied out of its buffers:
+    length = index of the first eot at/after the prompt, or ``pos`` if a
+    row has none (the JAX package's ``first_eot``)."""
+    tokens = state.tokens
+    b, t_max = tokens.shape
+    eot = token_layout(state.suppress.shape[0]).eot
+    is_eot = (tokens == eot) & (torch.arange(t_max, device=tokens.device)[None, :] >= p_len)
+    first_eot = torch.where(is_eot.any(dim=1), torch.argmax(is_eot.to(torch.int32), dim=1),
+                            state.pos.expand(b))
+    return DecodeResult(tokens.clone(), first_eot, state.sum_lp.clone(), no_speech_prob)
+
+
 def greedy_decode(
     model: Whisper,
     enc_out: torch.Tensor,
@@ -678,61 +826,30 @@ def greedy_decode(
     sot_pos: int = 0,
     cross_kv: Optional[CrossKV] = None,
 ) -> DecodeResult:
-    """Batched greedy decode with per-row early stop.
+    """Batched greedy decode with per-row early stop, uncaptured.
 
     prompt: (B, P) integer, right-padded with eot past ``prompt_len``;
     enc_out: (B, T_a, d). Same contract as the JAX package's
-    ``greedy_decode`` without repetition penalty or n-gram bans.
+    ``greedy_decode`` without repetition penalty or n-gram bans. Runs
+    chunks of ``FINISH_CHECK_EVERY`` steps (the last one shorter when
+    ``max_new_tokens`` is not a multiple) and stops after the first chunk
+    that leaves every row finished.
     """
-    config = model.config
     dec = model.decoder
-    layout = token_layout(config.n_vocab)
     device = enc_out.device
     b, p_len = prompt.shape
-    t_max = p_len + max_new_tokens
-    cache = init_kv_cache(config, b, t_max, enc_out.dtype, device)
+    state = init_decode_state(model.config, b, p_len, max_new_tokens, enc_out.dtype, device)
     if cross_kv is None:
         cross_kv = precompute_cross_kv(dec, enc_out)
-    suppress = torch.from_numpy(_suppress_mask(config)).to(device)
-    begin = torch.from_numpy(
-        _sample_begin_mask(config) if suppress_blank
-        else np.zeros(config.n_vocab, np.float32)
-    ).to(device)
-    prompt_len = prompt_len.to(device)
-
-    tokens = torch.full((b, t_max), layout.eot, dtype=torch.long, device=device)
-    tokens[:, :p_len] = prompt.to(device=device, dtype=torch.long)
-    no_speech_prob = _prefill(dec, tokens, p_len, cache, cross_kv, sot_pos, layout)
-
-    finished = torch.zeros(b, dtype=torch.bool, device=device)
-    sum_lp = torch.zeros(b, dtype=torch.float32, device=device)
-    zero = torch.zeros((), device=device)
-    pos = p_len
-    while pos < t_max:
-        logits = _decoder_step(dec, tokens[:, pos - 1], pos - 1, cache, cross_kv)
-        logits = logits + suppress + torch.where(
-            (prompt_len == pos)[:, None], begin[None, :], zero
-        )
-        logprobs = torch.log_softmax(logits, dim=-1)
-        next_tok = torch.argmax(logits, dim=-1)
-        next_tok = torch.where(finished, layout.eot, next_tok)
-        tok_lp = torch.gather(logprobs, 1, next_tok[:, None])[:, 0]
-        sum_lp = sum_lp + torch.where(finished, zero, tok_lp)
-        tokens[:, pos] = next_tok
-        finished = finished | (next_tok == layout.eot)
-        pos += 1
-        if (pos - p_len) % FINISH_CHECK_EVERY == 0 and bool(finished.all()):
+    no_speech_prob = start_decode(
+        dec, state, prompt.to(device=device, dtype=torch.long), prompt_len.to(device),
+        cross_kv, suppress_blank=suppress_blank, sot_pos=sot_pos,
+    )
+    for done in range(0, max_new_tokens, FINISH_CHECK_EVERY):
+        _decode_chunk(dec, state, cross_kv, min(FINISH_CHECK_EVERY, max_new_tokens - done))
+        if bool(state.finished.all()):
             break
-
-    # length = index of the first eot at/after the prompt (or pos if none)
-    is_eot = (tokens == layout.eot) & (
-        torch.arange(t_max, device=device)[None, :] >= p_len
-    )
-    first_eot = torch.where(
-        is_eot.any(dim=1), torch.argmax(is_eot.to(torch.int32), dim=1),
-        torch.full((b,), pos, device=device, dtype=torch.long),
-    )
-    return DecodeResult(tokens, first_eot, sum_lp, no_speech_prob)
+    return finish_decode(state, p_len, no_speech_prob)
 
 
 def detect_language(model: Whisper, enc_out: torch.Tensor,
@@ -771,6 +888,7 @@ __all__ = [
     "AttentionPolicy",
     "CrossKV",
     "DecodeResult",
+    "DecodeState",
     "KVCache",
     "TokenLayout",
     "WHISPER_LANG_CODES",
@@ -780,10 +898,14 @@ __all__ = [
     "build_prompt",
     "decoder_forward",
     "detect_language",
+    "empty_cross_kv",
+    "finish_decode",
     "get_config",
     "greedy_decode",
+    "init_decode_state",
     "init_kv_cache",
     "init_params",
     "precompute_cross_kv",
+    "start_decode",
     "token_layout",
 ]

@@ -432,3 +432,150 @@ def test_float32_engine_with_flash_serves_30s_on_the_card(cuda_device):
         tokens[flash] = out._tokens[out._p_len: out._p_len + out._n_gen].tolist()
     assert launches == {"auto": 12, "off": 0}
     assert tokens["auto"] == tokens["off"] and len(tokens["auto"]) > 0
+
+
+# -- decode graphs ------------------------------------------------------------------
+#
+# The engine serves the greedy decode by replaying a captured CUDA graph of
+# `_decode_chunk` per shape (stt_tpu_torch/engine/graphs.py). The replay runs
+# the kernels the uncaptured chunk launches, in the same order, on the same
+# buffers, so the two must agree bit for bit.
+
+
+def _graph_audio(seconds, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    f0 = 120.0 + 35.0 * seed + 25.0 * np.sin(2 * np.pi * 0.5 * t)
+    sig = 0.2 * np.sin(2 * np.pi * np.cumsum(f0) / 16000.0)
+    return (sig + 0.02 * rng.normal(0, 1, t.shape)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def graph_engines():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    from stt_tpu_torch.engine.engine import WhisperEngine
+
+    engines = {
+        "int8": WhisperEngine("small", device="cuda", compute_type="bfloat16",
+                              batch_buckets=(1, 4, 16)),
+        "fp8": WhisperEngine("small", device="cuda", compute_type="bfloat16",
+                             batch_buckets=(1, 4, 16), cross_kv_dtype="fp8", xattn_kernel="mm",
+                             flash_attention="auto"),
+        "float32": WhisperEngine("small", device="cuda", compute_type="float32",
+                                 batch_buckets=(1, 4, 16)),
+    }
+    yield engines
+    for engine in engines.values():
+        engine.close()
+
+
+def _decode_both(engine, seconds, rows):
+    """One group of ``rows`` requests of ``seconds`` decoded on its entry by
+    replaying the graph and by the same chunk uncaptured."""
+    from stt_tpu_torch.engine import engine as E
+    from stt_tpu_torch.models import whisper as W
+
+    bucket = engine._bucket_for(int(seconds * 16000))
+    pcm = np.zeros((rows, int(bucket * 16000)), np.int16)
+    for i in range(rows):
+        audio = _graph_audio(seconds * (0.5 + 0.5 * (i + 1) / rows), seed=i)
+        pcm[i, : len(audio)] = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    prompt = torch.tensor([W.build_prompt(engine.config, "en")] * rows, device="cuda")
+    auto = torch.arange(rows, device="cuda") % 2 == 1
+    with torch.inference_mode():
+        rows_dev = torch.from_numpy(E._encode_wire_rows(pcm, engine.audio_wire)).cuda()
+        enc = E._mel_encode(engine.model, rows_dev, engine._dtype)
+        entry = engine.graphs.entry(bucket, rows, prompt.shape[1],
+                                    engine._max_new_for(bucket), enc.shape[1])
+        ckv = W.precompute_cross_kv(engine.model.decoder, enc, out=entry.cross_kv)
+        prompt, _, _ = E._detect_and_patch_lang(engine.model, enc, prompt, auto, ckv, 1)
+        plen = torch.full((rows,), prompt.shape[1], device="cuda")
+        return entry, [engine.graphs.decode(entry, prompt, plen, captured=c)
+                       for c in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,rows,seconds",
+                         [("int8", r, s) for r in (1, 4, 16) for s in (1.0, 10.0, 30.0)]
+                         + [("fp8", 4, 30.0), ("fp8", 16, 10.0), ("float32", 4, 10.0),
+                            ("float32", 1, 30.0)])
+def test_captured_decode_is_bitwise_the_uncaptured_one(graph_engines, policy, rows, seconds):
+    engine = graph_engines[policy]
+    replays = engine.graph_replays
+    entry, (captured, eager) = _decode_both(engine, seconds, rows)
+    torch.cuda.synchronize()
+    assert entry.graph is not None and entry.replays > 0
+    assert engine.graph_replays > replays
+    assert torch.equal(captured.tokens, eager.tokens)
+    assert torch.equal(captured.lengths, eager.lengths)
+    assert torch.equal(captured.sum_logprob, eager.sum_logprob)
+    assert torch.equal(captured.no_speech_prob, eager.no_speech_prob)
+    assert torch.isfinite(captured.sum_logprob).all()
+    if policy == "fp8":  # the cross-attention kernel runs inside the graph
+        assert entry.launches["xattn_decode"] == 12 * 8
+    else:
+        assert entry.launches["xattn_decode"] == 0
+
+
+@pytest.fixture
+def serving_engine():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    from stt_tpu_torch.engine.engine import WhisperEngine
+
+    engine = WhisperEngine("small", device="cuda", compute_type="bfloat16",
+                           batch_buckets=(1, 4), max_batch=1, batch_window_ms=0.0,
+                           pipeline_depth=2, max_decode_tokens=64)
+    yield engine
+    engine.close()
+
+
+@pytest.mark.cuda
+def test_pipelined_groups_of_one_shape_keep_their_own_tokens(serving_engine):
+    """Groups of one shape queued back to back, two in flight, each replay
+    the shape's graph before the one before it is harvested; each request
+    still gets the tokens it gets alone."""
+    from stt_tpu_torch.engine.engine import DecodeRequest
+
+    engine = serving_engine
+    engine.prewarm([2.0], [1])
+    requests = [DecodeRequest(_graph_audio(1.5, seed=10 + i), language="en") for i in range(6)]
+    alone = [engine.transcribe_sync(r)._tokens.tolist() for r in requests]
+    assert len({tuple(t) for t in alone}) > 1
+    futures = [engine.submit(r) for r in requests]
+    served = [f.result(timeout=300) for f in futures]
+    assert [o._tokens.tolist() for o in served] == alone
+    assert max(o.batch_rows for o in served) == 1
+
+
+@pytest.mark.cuda
+def test_prewarmed_shapes_capture_nothing_when_served(serving_engine):
+    from stt_tpu_torch.engine.engine import DecodeRequest
+
+    engine = serving_engine
+    engine.max_batch = 4
+    engine.prewarm([1.0, 2.0], [1, 4])
+    captures, replays = engine.graph_captures, engine.graph_replays
+    assert captures == 4
+    futures = [engine.submit(DecodeRequest(_graph_audio(0.6 + 0.25 * i, seed=i), language=None))
+               for i in range(6)]
+    for f in futures:
+        f.result(timeout=300)
+    assert engine.graph_captures == captures
+    assert engine.graph_replays > replays
+
+
+@pytest.mark.cuda
+def test_unwarmed_shape_is_captured_once_then_reused(serving_engine):
+    from stt_tpu_torch.engine.engine import DecodeRequest
+
+    engine = serving_engine
+    assert engine.graph_captures == 0
+    request = DecodeRequest(_graph_audio(4.0, seed=3), language="en")
+    first = engine.transcribe_sync(request)
+    assert engine.graph_captures == 1 and len(engine.graphs) == 1
+    replays = engine.graph_replays
+    again = engine.transcribe_sync(request)
+    assert engine.graph_captures == 1 and engine.graph_replays > replays
+    assert again._tokens.tolist() == first._tokens.tolist()
