@@ -67,7 +67,25 @@ PyTorch built for CUDA. In order:
    30 s window, against the same model on the CPU through the plain
    versions (encoder output within max abs 0.05, three teacher-forced
    decode steps' logits within 1e-2);
-5. closes the engines, then prints one JSON line describing each kernel
+5. serves the gRPC streaming path (run after 3d, before 4's references):
+   the port's server built in-process with the calls ``serve()`` makes
+   (``ApplicationRuntime``, ``build_grpc_server``, ``STTGrpcServicer``,
+   ``bind_grpc_port``) from the shipped YAML files with the shape matrix
+   narrowed as the bench's end-to-end phase narrows it (audio buckets 5
+   and 10 s, batch buckets 1 and 16, max batch 16, no ``accurate``
+   profile), whisper-small bf16 on the shipped attention policy, language
+   en; 8 concurrent sessions through the port's own stubs, each streaming
+   5 s of the load tool's synthetic audio (tone bursts with a mid-stream
+   silence gap, ending in speech) in 100 ms chunks at 2x real time with
+   partials on, then ``is_final``. It fails unless every session gets a
+   final with text, language en and ``0 <= start <= end <= 5.5``, a
+   trailing ``stt-decode-inference-sec`` above 0 and no error status, no
+   decode graph was captured after boot, and the log-mel kernel was
+   launched (its count set to 0 just before the traffic). It prints the
+   boot time, the shapes prewarmed, the client's first-partial and final
+   latency p50/p95 and the medians of the four trailing
+   ``stt-decode-*-sec`` values over the finals, then stops the server;
+6. closes the engines, then prints one JSON line describing each kernel
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the final line; so does a host
@@ -750,6 +768,165 @@ def bench_phase() -> None:
     log(json.dumps(result))
 
 
+def load_tool_audio(seconds: float, seed: int) -> bytes:
+    """PCM16 of ``tools/bench/grpc_load_test.py``'s synthetic audio (its
+    ``synthetic_audio``, seeded per session): a tone with noise and a
+    mid-stream silence gap that trips VAD endpointing, ending in speech."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000
+    sig = 0.25 * np.sin(2 * np.pi * 220 * t) + 0.02 * rng.normal(0, 1, t.shape)
+    gap = int(16000 * min(1.0, seconds * 0.2))
+    mid = int(len(sig) * 0.55)
+    sig[mid:mid + gap] = 0.0
+    return (sig * 32767).astype(np.int16).tobytes()
+
+
+def grpc_session(grpc, stt_pb2, stt_pb2_grpc, port: int, sid: str, pcm: bytes) -> dict:
+    """One streaming session as the load tool runs it: CreateSession with
+    partials on and language en, 100 ms chunks at 2x real time, then
+    ``is_final``. Returns the client's latencies, the finals and the
+    trailing metadata, or the error."""
+    out = {"finals": [], "first_partial_s": None, "final_s": None, "error": None}
+    step = 1600 * 2
+    last_sent = [0.0]
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+        stub = stt_pb2_grpc.STTBackendStub(channel)
+        try:
+            stub.CreateSession(stt_pb2.SessionRequest(
+                session_id=sid, attributes={"partial": "true"}, language_code="en"),
+                timeout=60)
+
+            def chunks():
+                for i in range(0, len(pcm), step):
+                    last_sent[0] = time.perf_counter()
+                    yield stt_pb2.AudioChunk(session_id=sid, pcm16=pcm[i:i + step],
+                                             sample_rate=16000)
+                    time.sleep(0.05)
+                last_sent[0] = time.perf_counter()
+                yield stt_pb2.AudioChunk(session_id=sid, is_final=True, sample_rate=16000)
+
+            start = time.perf_counter()
+            call = stub.StreamingRecognize(chunks(), metadata=(("session-id", sid),),
+                                           timeout=120)
+            for result in call:
+                now = time.perf_counter()
+                if result.is_final:
+                    out["finals"].append(result)
+                    out["final_s"] = now - last_sent[0]
+                elif out["first_partial_s"] is None:
+                    out["first_partial_s"] = now - start
+            out["trailing"] = dict(call.trailing_metadata())
+        except grpc.RpcError as exc:
+            out["error"] = f"{exc.code().name} {exc.details()}"
+    return out
+
+
+def grpc_phase(torch, card: str) -> int:
+    """Phase 5: the port's gRPC server in-process, 8 concurrent streaming
+    sessions, checked as the docstring says. Returns the log-mel launches
+    of the traffic."""
+    import tempfile
+
+    import grpc
+
+    from stt_tpu_torch import bench as B
+    from stt_tpu_torch.gen import stt_pb2, stt_pb2_grpc
+    from stt_tpu_torch.ops.kernels.mel import mel_logspec
+    from stt_tpu_torch.server import main as S
+    from stt_tpu_torch.server.runtime.runtime import ApplicationRuntime
+    from stt_tpu_torch.server.transport.grpc_servicer import STTGrpcServicer
+
+    with tempfile.TemporaryDirectory(prefix="smoke_grpc_") as tmp:
+        server_yaml, model_yaml = B.e2e_configs(Path(tmp))
+        config = S.configure_from_args(S.parse_args([
+            "--config", str(server_yaml), "--model-config", str(model_yaml),
+            "--model", "small", "--compute-type", "bfloat16", "--language", "en",
+            "--port", "0", "--ws-port", "0"]))
+    t0 = time.monotonic()
+    server = S.build_grpc_server(config)
+    runtime = ApplicationRuntime(config)
+    try:
+        stt_pb2_grpc.add_STTBackendServicer_to_server(STTGrpcServicer(runtime), server)
+        port = S.bind_grpc_port(server, config)
+        server.start()
+        boot = time.monotonic() - t0
+        engine = runtime.model_registry._pools["default"].engines[0]
+        shapes = engine.graph_captures
+        log(f"grpc: server booted in {boot:.2f} s on port {port} (device {config.device} -> "
+            f"{engine.device}, backend {config.model_backend}, whisper-{engine.model_size} "
+            f"{engine._dtype}, policy {engine.policy}); {shapes} shapes prewarmed "
+            f"({engine.audio_buckets_sec} s x {engine.batch_buckets} rows)")
+        n = 8
+        sessions = [None] * n
+
+        def run(i: int) -> None:
+            sessions[i] = grpc_session(grpc, stt_pb2, stt_pb2_grpc, port, f"smoke-grpc-{i}",
+                                       load_tool_audio(5.0, seed=i))
+
+        before = runtime.metrics.render()
+        if before["engine_compile_count"] != shapes:
+            fail(f"grpc: the engine's metrics hook recorded {before['engine_compile_count']} "
+                 f"captures at boot, the engine {shapes}")
+        mel_logspec.launches = 0
+        threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(n)]
+        t1 = time.monotonic()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=180)
+        wall = time.monotonic() - t1
+        launches = mel_logspec.launches
+        served_captures = engine.graph_captures - shapes
+        after = runtime.metrics.render()
+    finally:
+        server.stop(5.0).wait()
+        runtime.shutdown()
+    if any(th.is_alive() for th in threads) or None in sessions:
+        fail("grpc: a session did not finish")
+    for i, s in enumerate(sessions):
+        if s["error"]:
+            fail(f"grpc session {i}: ended in {s['error']}")
+        if not s["finals"]:
+            fail(f"grpc session {i}: no final")
+        for r in s["finals"]:
+            if not (r.text.strip() and r.language_code == "en"
+                    and 0.0 <= r.start_sec <= r.end_sec <= 5.5):
+                fail(f"grpc session {i}: bad final {r.text[:40]!r} {r.language_code!r} "
+                     f"{r.start_sec}-{r.end_sec}")
+        if not float(s["trailing"].get("stt-decode-inference-sec", 0)) > 0:
+            fail(f"grpc session {i}: trailing metadata {s['trailing']}")
+    if served_captures:
+        fail(f"grpc: {served_captures} decode graphs captured while serving")
+    if launches <= 0:
+        fail("grpc: the served sessions never launched the log-mel kernel")
+
+    def pcts(values):
+        return f"p50 {np.percentile(values, 50):.3f} s, p95 {np.percentile(values, 95):.3f} s"
+
+    firsts = [s["first_partial_s"] for s in sessions if s["first_partial_s"] is not None]
+    finals = [s["final_s"] for s in sessions]
+    # the trailing values are sums over every decode of the session
+    medians = {key: float(np.median([float(s["trailing"][f"stt-decode-{key}-sec"])
+                                     for s in sessions]))
+               for key in ("buffer-wait", "queue-wait", "inference", "response-emit")}
+    decodes = float(np.median([int(s["trailing"]["stt-decode-count"]) for s in sessions]))
+    groups = after["engine_step_count"] - before["engine_step_count"]
+    group_s = (after["engine_step_total"] - before["engine_step_total"]) / max(1, groups)
+    rows = (after["engine_batch_rows_total"] - before["engine_batch_rows_total"]) / max(1, groups)
+    log(f"grpc: {n} sessions x 5 s at 2x in {wall:.2f} s, every one with a final; "
+        f"{launches} log-mel launches, no decode graph captured while serving; "
+        f"first partial ({len(firsts)} sessions) {pcts(firsts) if firsts else 'none'}; "
+        f"final {pcts(finals)}; trailing medians over finals (sums over a session's "
+        f"{decodes:g} decodes): "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in medians.items()) + f" ({card})")
+    log(f"grpc: per session, first partial (s) "
+        f"{[None if s['first_partial_s'] is None else round(s['first_partial_s'], 3) for s in sessions]}"
+        f", decodes {[int(s['trailing']['stt-decode-count']) for s in sessions]}; engine: "
+        f"{groups} groups of {rows:.2f} rows on average, {group_s:.4f} s a group from its "
+        f"device phase to its harvest (max {after['engine_step_max']:.4f} s)")
+    return launches
+
+
 def reference_f32_phase(torch, E, W, dev, clips, flash: str) -> None:
     """Phase 4a: the ``test`` model in float32 on the card against the CPU,
     on ``clips`` of (seconds, language), flash attention ``flash``: encoder
@@ -1011,12 +1188,15 @@ def main() -> None:
     graphs_f32_phase(torch, E, W)
     bench_phase()
 
+    # -- 5. the gRPC streaming path (before 4: the server's engine is shut down first)
+    grpc_phase(torch, card)
+
     # -- 4. reference on small inputs -------------------------------------------
     reference_f32_phase(torch, E, W, dev, [(1.5, "en"), (0.7, None)], flash="off")
     reference_f32_phase(torch, E, W, dev, [(30.0, "en"), (24.0, None)], flash="auto")
     reference_30s_phase(torch, E, W, dev)
 
-    # -- 5. result -------------------------------------------------------------
+    # -- 6. result -------------------------------------------------------------
     kernels = [{
         "name": "mel_logspec",
         "route": "cuda",

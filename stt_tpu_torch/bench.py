@@ -22,27 +22,51 @@ the profiler records) and prints to stderr the top device operations by
 total time, with counts, their sums by kind, and the device's idle share
 of the round.
 
+Then the end-to-end phase (``run_e2e_phase``, counterpart of
+``bench.py:87-257``; ``--no-e2e`` skips it): it boots ``python3 -m
+stt_tpu_torch.server.main`` as a subprocess on the same device with the
+shipped YAML files, the shape matrix narrowed to the shapes the phase
+reaches (``e2e_configs``: audio buckets 5 and 10 s, batch buckets 1 and 16,
+max batch 16, the beam-5 ``accurate`` profile dropped), waits for its gRPC
+channel (the HTTP plane is not ported yet), drives it with the repo's load
+tool unchanged (``tools/bench/grpc_load_test.py``: 16 sessions x 2
+iterations after 2 warm-up sessions, 5 s of synthetic audio paced at 2x in
+100 ms chunks, partials on, language en) in a process of its own, and adds
+``e2e_boot_s``, ``e2e_sessions``, ``e2e_error_rate``, ``e2e_create_p95_ms``,
+``e2e_first_partial_p95_s`` and ``e2e_final_p95_s`` to the line. If the phase
+fails, the line carries ``e2e_error`` instead, still prints, and the bench
+exits 1.
+
 Diagnostics go to stderr; the last line of stdout is the JSON result. The
-served-partial, drafted and gRPC end-to-end phases of ``bench.py`` need
-modules the port does not have yet and are left out. ``--device cpu
---model test`` runs on the CPU (for the tests); its times are the host's,
-and the device-only fields are null.
+served-partial and drafted phases of ``bench.py`` need modules the port
+does not have yet and are left out. ``--device cpu --model test`` runs on
+the CPU (for the tests); its times are the host's, and the device-only
+fields are null.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import os
+import signal
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent import futures
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
+import grpc
 import numpy as np
 import torch
+import yaml
 
+from .config.loader import DEFAULT_CONFIG_PATH, DEFAULT_MODEL_CONFIG_PATH, PROJECT_ROOT
 from .engine import engine as E
 from .models import whisper as W
 
@@ -52,6 +76,10 @@ RTFX_BASELINE = 20.0       # bench.py's north-star threshold, RTFx > 20 a chip
 BATCH_BUCKETS = (1, 4, 16, 64, 128)  # bench.py's: the served rungs + the 128-row batch
 PROMPT_LEN = 4             # sot, language, task, no-timestamps
 TIMED_CHUNKS = 12          # decode chunks timed per reading, after 2 of warm-up
+E2E_BOOT_WAIT_SEC = 600.0  # whisper-small boots and prewarms its 4 shapes in well under this
+E2E_LOAD_ARGS = ["--sessions", "16", "--iterations", "2", "--warmup", "2",
+                 "--synthetic-sec", "5", "--speed", "2.0", "--language", "en",
+                 "--chunk-ms", "100"]
 
 
 def log(msg: str) -> None:
@@ -282,8 +310,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         raise RuntimeError("--profile reads the card's operations; it needs --device cuda")
     card = card_name_and_power() if on_card else "cpu"
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    log("left out: the served-partial, drafted and gRPC end-to-end phases of bench.py "
-        "(their modules are not ported yet; ROADMAP.md Queue 1 items 4 and 6)")
+    log("left out: the served-partial and drafted phases of bench.py "
+        "(their modules are not ported yet; ROADMAP.md Queue 1 item 6)")
     t0 = time.monotonic()
     engine = E.WhisperEngine(
         args.model, device=args.device, compute_type="bfloat16", max_batch=args.streams,
@@ -368,6 +396,108 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         engine.close()
 
 
+def e2e_configs(directory: Path) -> Tuple[Path, Path]:
+    """Writes into ``directory`` the shipped ``config/server.yaml`` and
+    ``config/model.yaml`` with the shape matrix narrowed as ``bench.py``
+    narrows it (``bench.py:145-158``): audio buckets 5 and 10 s, batch
+    buckets 1 and 16, max batch 16, and the beam-5 ``accurate`` profile
+    dropped. Returns (server config, model config)."""
+    server_cfg = yaml.safe_load(DEFAULT_CONFIG_PATH.read_text())
+    server_cfg.setdefault("server", {})["max_decode_batch_size"] = 16
+    server_cfg.setdefault("tpu", {})["audio_buckets_sec"] = [5.0, 10.0]
+    server_cfg["tpu"]["batch_buckets"] = [1, 16]
+    model_cfg = yaml.safe_load(DEFAULT_MODEL_CONFIG_PATH.read_text())
+    model_cfg["model"]["decode_profiles"].pop("accurate", None)
+    paths = directory / "server.yaml", directory / "model.yaml"
+    for path, cfg in zip(paths, (server_cfg, model_cfg)):
+        path.write_text(yaml.safe_dump(cfg))
+    return paths
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_e2e_phase(args: argparse.Namespace) -> Dict[str, Any]:
+    """The serving stack end to end: the port's server as a subprocess on
+    the bench's device, driven by the load tool in a process of its own;
+    returns the ``e2e_*`` fields. Raises if the server does not boot, the
+    load tool fails or the server does not stop on SIGTERM with exit 0."""
+    with tempfile.TemporaryDirectory(prefix="stt_torch_e2e_") as tmp:
+        tmp = Path(tmp)
+        cfg_path, model_cfg_path = e2e_configs(tmp)
+        port = _free_port()
+        log_path = tmp / "server.log"
+        cmd = [sys.executable, "-m", "stt_tpu_torch.server.main",
+               "--config", str(cfg_path), "--model-config", str(model_cfg_path),
+               "--model", args.model, "--model-backend", "torch_whisper",
+               "--device", args.device, "--compute-type", "bfloat16",
+               "--port", str(port), "--ws-port", "0"]
+        log(f"e2e: starting the server on port {port}")
+        with open(log_path, "w") as server_log:
+            proc = subprocess.Popen(cmd, cwd=PROJECT_ROOT, stdout=server_log,
+                                    stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            t0 = time.monotonic()
+            with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+                while True:
+                    if proc.poll() is not None:
+                        raise RuntimeError(f"server exited rc={proc.returncode} during boot: "
+                                           f"{log_path.read_text()[-1500:]}")
+                    try:
+                        grpc.channel_ready_future(channel).result(timeout=2.0)
+                        break
+                    except grpc.FutureTimeoutError:
+                        if time.monotonic() - t0 > E2E_BOOT_WAIT_SEC:
+                            raise RuntimeError(
+                                f"server not ready after {E2E_BOOT_WAIT_SEC:g} s") from None
+            boot_sec = time.monotonic() - t0
+            log(f"e2e: server ready in {boot_sec:.1f} s; driving load")
+            out_dir = tmp / "load"
+            load = subprocess.run(
+                [sys.executable, str(PROJECT_ROOT / "tools" / "bench" / "grpc_load_test.py"),
+                 "--target", f"127.0.0.1:{port}", *E2E_LOAD_ARGS, "--out-dir", str(out_dir)],
+                cwd=PROJECT_ROOT, capture_output=True, text=True, timeout=420,
+            )
+            if load.returncode != 0:
+                raise RuntimeError(f"load tool rc={load.returncode}: {load.stderr[-800:]}")
+            summary = json.loads((out_dir / "summary.json").read_text())
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=10)
+                raise RuntimeError("server did not stop within 60 s of SIGTERM") from None
+            for line in log_path.read_text().splitlines():
+                if "prewarmed" in line or "WARNING" in line:
+                    log(f"e2e server: {line}")
+        if rc != 0:
+            raise RuntimeError(f"server exited rc={rc} on SIGTERM: "
+                               f"{log_path.read_text()[-1500:]}")
+
+    def p95(section: str) -> Optional[float]:
+        val = (summary.get(section) or {}).get("p95")
+        return None if val is None else float(val)
+
+    create, first_partial, final = (p95(s) for s in (
+        "create_latency_sec", "first_partial_sec", "final_latency_sec"))
+    out = {
+        "e2e_boot_s": round(boot_sec, 1),
+        "e2e_sessions": summary.get("sessions"),
+        "e2e_error_rate": summary.get("error_rate"),
+        "e2e_create_p95_ms": None if create is None else round(create * 1000, 1),
+        "e2e_first_partial_p95_s": None if first_partial is None else round(first_partial, 3),
+        "e2e_final_p95_s": None if final is None else round(final, 3),
+    }
+    log(f"e2e: {out}; summary: {json.dumps(summary)}")
+    return out
+
+
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--streams", type=int, default=64)
@@ -379,12 +509,28 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--profile", action="store_true",
                         help="profile one more steady round (stderr)")
+    parser.add_argument("--no-e2e", dest="e2e", action="store_false",
+                        help="skip the end-to-end phase (the server and the load tool)")
     return parser.parse_args(argv)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    result = run(parse_args(argv))
+    args = parse_args(argv)
+    result = run(args)
+    if args.e2e:
+        # the engine phase is over: hand the card's cached memory back
+        # before the server process takes its own
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        try:
+            result.update(run_e2e_phase(args))
+        except Exception as exc:  # recorded in the line, which still prints
+            log(f"e2e phase failed: {exc}")
+            result["e2e_error"] = str(exc)[:300]
     print(json.dumps(result), flush=True)
+    if "e2e_error" in result:
+        sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -41,6 +41,16 @@ Both threads are daemon threads, and :meth:`WhisperEngine.close` joins
 them with timeouts and fails any request still queued, so no future is
 left pending and no thread outlives the interpreter.
 
+The model registry builds engines with the JAX engine's keywords
+(``stt_tpu/engine/engine.py:947-966``): ``device_index`` picks the card
+of a replica; ``metrics`` receives ``record_engine_batch`` once per group
+and ``record_engine_compile`` once per decode-graph capture (the port's
+compile); ``pad_to_30s`` pads every window to the 30 s bucket;
+``use_pallas`` (default True) is the hand-written log-mel kernel, and
+False on the card raises, since nothing swaps in the plain version there;
+``weights_path`` other than None raises (deterministic init from ``seed``
+only, for now).
+
 Left for later slices (a request asking for them raises
 ``NotImplementedError`` naming the option): beam search, timestamps,
 sampling and the temperature ladder, repetition penalty and n-gram bans,
@@ -296,7 +306,17 @@ class WhisperEngine:
         flash_attention: Optional[str] = None,
         audio_wire: Optional[str] = None,
         pipeline_depth: Optional[int] = None,
+        device_index: Optional[int] = None,
+        metrics=None,
+        pad_to_30s: bool = False,
+        use_pallas: bool = True,
+        weights_path: Optional[str] = None,
     ) -> None:
+        if weights_path is not None:
+            raise NotImplementedError(
+                f"weights_path={weights_path!r} is not served by stt_tpu_torch yet "
+                f"(deterministic init from the seed only; the checkpoint loader is a "
+                f"later slice)")
         if compute_type not in _DTYPES:
             raise ValueError(f"compute_type must be one of {sorted(_DTYPES)}, "
                              f"got {compute_type!r}")
@@ -307,6 +327,14 @@ class WhisperEngine:
                              f"multiple of {W.FINISH_CHECK_EVERY}")
         self.model_size = model_size
         self.device = resolve_device(device)
+        if device_index is not None and self.device.type == "cuda":
+            self.device = torch.device("cuda", int(device_index))
+        if not use_pallas and self.device.type == "cuda":
+            raise NotImplementedError(
+                "use_pallas=False is not served by stt_tpu_torch on the card: its "
+                "log-mel is the hand-written kernel (the plain version runs only on "
+                "CPU tensors)")
+        self._metrics = metrics
         self._dtype = _DTYPES[compute_type]
         config = W.get_config(model_size)
         self.config = config
@@ -318,12 +346,19 @@ class WhisperEngine:
             config, W.init_params(config, seed=seed), self.device, self._dtype,
             self.policy,
         )
-        self.graphs = DecodeGraphs(self.model, self.device, self._dtype)
+        self.graphs = DecodeGraphs(
+            self.model, self.device, self._dtype,
+            on_capture=None if metrics is None else metrics.record_engine_compile,
+        )
         self.audio_wire = _audio_wire(audio_wire)
         self.pipeline_depth = _pipeline_depth(pipeline_depth)
         self.tokenizer = load_tokenizer(tokenizer_path, config.n_vocab)
         self.layout = W.token_layout(config.n_vocab)
 
+        if pad_to_30s:
+            # every window pads to the full 30 s receptive field, as the JAX
+            # engine's accuracy-parity mode does
+            audio_buckets_sec = (30.0,)
         self.audio_buckets_sec = tuple(sorted(audio_buckets_sec))
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.max_decode_tokens = int(max_decode_tokens)
@@ -452,6 +487,11 @@ class WhisperEngine:
                     self._queue.put(task)
                     return task.future
             # close() finished between start() and the lock; retry
+
+    def pending(self) -> int:
+        """Requests queued and not yet batched (the registry sends each task
+        to the replica with the fewest)."""
+        return self._queue.qsize()
 
     def transcribe_sync(self, request: DecodeRequest) -> DecodeOutput:
         """Run one request on the calling thread (no batching)."""
@@ -697,6 +737,8 @@ class WhisperEngine:
                 _tokens=arr[i, :t_max].astype(np.int32), _p_len=p_len, _n_gen=n_gen,
             ))
         elapsed = time.monotonic() - ctx["t_start"]
+        if self._metrics is not None:
+            self._metrics.record_engine_batch(ctx["n"], ctx["batch_n"], elapsed)
         for out in outputs:
             out.inference_sec = elapsed
         return outputs

@@ -34,8 +34,9 @@ its replays, and :meth:`DecodeGraphs.replayed_launches` multiplies them out.
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass, field
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -78,10 +79,13 @@ class DecodeGraphs:
     """The entries of one model on one device, built on first use (or by
     the engine's ``prewarm``) and kept for the life of the cache."""
 
-    def __init__(self, model: W.Whisper, device: torch.device, dtype: torch.dtype) -> None:
+    def __init__(self, model: W.Whisper, device: torch.device, dtype: torch.dtype, *,
+                 on_capture: Optional[Callable[[float], None]] = None) -> None:
         self.model = model
         self.device = device
         self.dtype = dtype
+        # called with the seconds of each warm-up and capture (a metrics hook)
+        self.on_capture = on_capture
         self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
         self._entries: Dict[GraphKey, DecodeEntry] = {}
         self._lock = threading.Lock()
@@ -139,6 +143,7 @@ class DecodeGraphs:
             return entry
         # a state the warm-up and the capture can step from: position p_len
         # with an eot prompt (any start a chunk of steps stays inside T_max)
+        t0 = time.monotonic()
         st = entry.state
         st.tokens.fill_(W.token_layout(self.model.config.n_vocab).eot)
         st.prompt_len.fill_(key.p_len)
@@ -156,6 +161,8 @@ class DecodeGraphs:
         entry.launches = {name: fn.launches - before[name] for name, fn in KERNELS.items()}
         entry.graph = graph
         self.graph_captures += 1
+        if self.on_capture is not None:
+            self.on_capture(time.monotonic() - t0)
         return entry
 
     @torch.no_grad()

@@ -5,7 +5,9 @@ numbers for every preset and audio bucket (``bench.py``'s top level imports
 only numpy, so the test loads it from its file). ``--device cpu --model
 test`` runs the whole engine phase at a tiny size and prints one JSON line
 with the keys of ``bench.py``'s headline plus the port's own; the fields
-that only a card can give are null there. Nothing here times a card.
+that only a card can give are null there. With its end-to-end phase it also
+boots the port's server on the CPU, drives it with the load tool and adds
+the ``e2e_*`` fields. Nothing here times a card.
 """
 
 import importlib.util
@@ -17,6 +19,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import yaml
 
 from stt_tpu_torch import bench as B
 from stt_tpu_torch.engine import engine as TE
@@ -49,7 +52,7 @@ def test_bench_prints_one_json_line_on_the_cpu():
     env = {**os.environ, "OMP_NUM_THREADS": "2"}
     out = subprocess.run(
         [sys.executable, "-m", "stt_tpu_torch.bench", "--device", "cpu", "--model", "test",
-         "--streams", "4", "--rounds", "1"],
+         "--streams", "4", "--rounds", "1", "--no-e2e"],
         cwd=REPO, capture_output=True, text=True, timeout=600, env=env,
     )
     assert out.returncode == 0, out.stderr[-2000:]
@@ -65,7 +68,40 @@ def test_bench_prints_one_json_line_on_the_cpu():
     assert result["card"] == "cpu" and result["device"] == "cpu"
     assert result["mfu_pct"] is None and result["ms_per_decode_step"] is None
     assert result["graph_captures_serving"] == 0
-    assert "left out: the served-partial, drafted and gRPC end-to-end phases" in out.stderr
+    assert "left out: the served-partial and drafted phases" in out.stderr
+    assert not any(key.startswith("e2e_") for key in result)
+
+
+E2E_KEYS = {"e2e_boot_s", "e2e_sessions", "e2e_error_rate", "e2e_create_p95_ms",
+            "e2e_first_partial_p95_s", "e2e_final_p95_s"}
+
+
+def test_bench_e2e_phase_on_the_cpu():
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    out = subprocess.run(
+        [sys.executable, "-m", "stt_tpu_torch.bench", "--device", "cpu", "--model", "test",
+         "--streams", "2", "--rounds", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=900, env=env,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert E2E_KEYS <= set(result) and "e2e_error" not in result
+    assert result["e2e_sessions"] == 32 and result["e2e_error_rate"] == 0.0
+    assert result["e2e_boot_s"] > 0 and result["e2e_create_p95_ms"] > 0
+    assert result["e2e_first_partial_p95_s"] > 0 and result["e2e_final_p95_s"] > 0
+
+
+def test_e2e_configs_narrow_the_shipped_matrix(tmp_path):
+    server_path, model_path = B.e2e_configs(tmp_path)
+    server = yaml.safe_load(server_path.read_text())
+    model = yaml.safe_load(model_path.read_text())
+    shipped = yaml.safe_load((REPO / "config" / "server.yaml").read_text())
+    assert server["tpu"]["audio_buckets_sec"] == [5.0, 10.0]
+    assert server["tpu"]["batch_buckets"] == [1, 16]
+    assert server["server"]["max_decode_batch_size"] == 16
+    assert sorted(model["model"]["decode_profiles"]) == ["realtime"]
+    for section in ("vad", "auth", "health"):
+        assert server[section] == shipped[section]
 
 
 def test_bench_refuses_the_card_without_one(monkeypatch):
@@ -81,8 +117,8 @@ def test_profile_needs_the_card():
 
 def test_defaults_are_the_headline_setup():
     args = B.parse_args([])
-    assert (args.model, args.streams, args.secs, args.rounds, args.device, args.profile) == (
-        "small", 64, 10.0, 9, "cuda", False)
+    assert (args.model, args.streams, args.secs, args.rounds, args.device, args.profile,
+            args.e2e) == ("small", 64, 10.0, 9, "cuda", False, True)
     assert B.BATCH_BUCKETS == (1, 4, 16, 64, 128)
 
 

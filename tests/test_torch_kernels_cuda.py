@@ -579,3 +579,123 @@ def test_unwarmed_shape_is_captured_once_then_reused(serving_engine):
     again = engine.transcribe_sync(request)
     assert engine.graph_captures == 1 and engine.graph_replays > replays
     assert again._tokens.tolist() == first._tokens.tolist()
+
+
+def _card_server_configs(directory):
+    """The shipped YAML files with the shape matrix cut to the card tests'
+    (audio buckets 1 and 2 s, batch buckets 1 and 4, max batch 4)."""
+    import yaml
+
+    from stt_tpu_torch.config.loader import DEFAULT_CONFIG_PATH, DEFAULT_MODEL_CONFIG_PATH
+
+    server = yaml.safe_load(DEFAULT_CONFIG_PATH.read_text())
+    server["server"]["max_decode_batch_size"] = 4
+    server["tpu"]["audio_buckets_sec"] = [1.0, 2.0]
+    server["tpu"]["batch_buckets"] = [1, 4]
+    paths = directory / "server.yaml", directory / "model.yaml"
+    paths[0].write_text(yaml.safe_dump(server))
+    paths[1].write_text(DEFAULT_MODEL_CONFIG_PATH.read_text())
+    return paths
+
+
+def _card_session(port, sid, seconds, seed):
+    """One session with partials off: 100 ms chunks, then is_final; returns
+    the results and the trailing metadata."""
+    import grpc
+
+    from stt_tpu_torch.gen import stt_pb2, stt_pb2_grpc
+
+    pcm = (np.clip(_graph_audio(seconds, seed), -1, 1) * 32767).astype(np.int16).tobytes()
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+        stub = stt_pb2_grpc.STTBackendStub(channel)
+        stub.CreateSession(stt_pb2.SessionRequest(session_id=sid, language_code="en"),
+                           timeout=60)
+        chunks = [stt_pb2.AudioChunk(session_id=sid, pcm16=pcm[i:i + 3200], sample_rate=16000)
+                  for i in range(0, len(pcm), 3200)]
+        chunks.append(stt_pb2.AudioChunk(session_id=sid, is_final=True, sample_rate=16000))
+        call = stub.StreamingRecognize(iter(chunks), metadata=(("session-id", sid),),
+                                       timeout=120)
+        return list(call), dict(call.trailing_metadata())
+
+
+@pytest.mark.cuda
+def test_server_serves_two_sessions_after_prewarm(cuda_device, tmp_path):
+    """The port's server in-process (the calls serve() makes), the test
+    model in bf16: boot prewarms 2 buckets x 2 row buckets, and two
+    concurrent sessions get their finals with no capture while serving."""
+    import threading
+
+    from stt_tpu_torch.gen import stt_pb2_grpc
+    from stt_tpu_torch.server import main as S
+    from stt_tpu_torch.server.runtime.runtime import ApplicationRuntime
+    from stt_tpu_torch.server.transport.grpc_servicer import STTGrpcServicer
+
+    server_yaml, model_yaml = _card_server_configs(tmp_path)
+    config = S.configure_from_args(S.parse_args([
+        "--config", str(server_yaml), "--model-config", str(model_yaml), "--model", "test",
+        "--device", "cuda", "--compute-type", "bfloat16", "--language", "en",
+        "--port", "0", "--ws-port", "0"]))
+    server = S.build_grpc_server(config)
+    runtime = ApplicationRuntime(config)
+    try:
+        stt_pb2_grpc.add_STTBackendServicer_to_server(STTGrpcServicer(runtime), server)
+        port = S.bind_grpc_port(server, config)
+        server.start()
+        engine = runtime.model_registry._pools["default"].engines[0]
+        assert engine.device.type == "cuda" and engine.graph_captures == 4
+        got = [None, None]
+
+        def run(i):
+            got[i] = _card_session(port, f"card-{i}", 1.2 + 0.5 * i, seed=20 + i)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        assert not any(th.is_alive() for th in threads)
+        assert engine.graph_captures == 4
+    finally:
+        server.stop(5.0).wait()
+        runtime.shutdown()
+    for results, trailing in got:
+        finals = [r for r in results if r.is_final]
+        assert finals and all(r.text.strip() and r.language_code == "en" for r in finals)
+        assert float(trailing["stt-decode-inference-sec"]) > 0
+
+
+@pytest.mark.cuda
+def test_server_process_exits_0_on_sigterm(cuda_device, tmp_path):
+    """``python3 -m stt_tpu_torch.server.main`` on the card boots, serves a
+    session, and SIGTERM ends it gracefully with exit 0."""
+    import signal
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import grpc
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    server_yaml, model_yaml = _card_server_configs(tmp_path)
+    with open(tmp_path / "server.log", "w") as server_log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "stt_tpu_torch.server.main", "--config", str(server_yaml),
+             "--model-config", str(model_yaml), "--model", "test", "--device", "cuda",
+             "--compute-type", "bfloat16", "--language", "en", "--port", str(port),
+             "--ws-port", "0"],
+            cwd=Path(__file__).resolve().parents[1], stdout=server_log,
+            stderr=subprocess.STDOUT)
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+            grpc.channel_ready_future(channel).result(timeout=300)
+        results, _ = _card_session(port, "card-sigterm", 1.5, seed=30)
+        assert any(r.is_final for r in results)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0, (tmp_path / "server.log").read_text()[-2000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
