@@ -27,6 +27,14 @@ PyTorch built for CUDA. In order:
    until the host has enqueued the call (``cuda_ms_cold``); log-mel also
    prints each call's host enqueue time and, in a second column, the
    back-to-back reading of earlier versions;
+   then (2b) holds the model's products with narrow operands and float32
+   accumulation, the route the card takes (``bmm``/``mm`` with
+   ``out_dtype=float32``), against the float32 route (operands upcast,
+   the CPU's route) on the same inputs at the served decode's shapes (4
+   and 64 rows x 10 s: self-attention over 84 cache slots, cross attention
+   over 500 int8 positions with their scales, the 51865 x 768 logits) and
+   the 10 s encode's (500 x 500), attention atol 1e-3 / rtol 1e-2, logits
+   1e-4 / 1e-4, and times both routes;
 3. serves two paths with whisper-small in bfloat16 at full width and
    random weights from seed 0, each with the launch counts set to 0 just
    before and read just after:
@@ -67,10 +75,13 @@ PyTorch built for CUDA. In order:
    30 s window, against the same model on the CPU through the plain
    versions (encoder output within max abs 0.05, three teacher-forced
    decode steps' logits within 1e-2);
-5. serves the gRPC streaming path (run after 3d, before 4's references):
-   the port's server built in-process with the calls ``serve()`` makes
-   (``ApplicationRuntime``, ``build_grpc_server``, ``STTGrpcServicer``,
-   ``bind_grpc_port``) from the shipped YAML files with the shape matrix
+5. serves the gRPC streaming path, the HTTP plane and the WebSocket
+   bridge (run after 3d, before 4's references): the port's server built
+   in-process with the calls ``serve()`` makes (``ApplicationRuntime``,
+   ``build_grpc_server``, ``STTGrpcServicer``, ``bind_grpc_port``,
+   ``start_http_server`` and, when ``websockets`` imports,
+   ``start_ws_server``; else one line says the bridge was not started)
+   from the shipped YAML files with the shape matrix
    narrowed as the bench's end-to-end phase narrows it (audio buckets 5
    and 10 s, batch buckets 1 and 16, max batch 16, no ``accurate``
    profile), whisper-small bf16 on the shipped attention policy, language
@@ -84,9 +95,17 @@ PyTorch built for CUDA. In order:
    launched (its count set to 0 just before the traffic). It prints the
    boot time, the shapes prewarmed, the client's first-partial and final
    latency p50/p95 and the medians of the four trailing
-   ``stt-decode-*-sec`` values over the finals, then stops the server;
+   ``stt-decode-*-sec`` values over the finals. On the HTTP plane it
+   requires ``/health`` to answer 500 before the gRPC server starts (the
+   model loaded and every shape prewarmed) and 200 after; ``/metrics`` and
+   ``/metrics.json`` to carry the engine's counters as the runtime holds
+   them; ``/system`` with ``STT_ENABLE_TPU_METRICS=1`` to name the card;
+   a REST transcription of 5 s (realtime profile) to answer 200 with text
+   and segments and launch the log-mel kernel; and one WS session to end
+   in ``done`` with a final that has text. Then it stops the planes;
 6. closes the engines, then prints one JSON line describing each kernel
-   and, last, ``{"ok": true, "device": {...}}``.
+   body (log-mel, cross-attention decode, flash attention's bf16 and
+   float32 bodies) and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the final line; so does a host
 without CUDA, and a directory that holds this script but not the package.
@@ -119,6 +138,13 @@ FLASH_ATOL, FLASH_RTOL = 2e-3, 1e-2
 # the float32 body rounds nothing below float32: kernel and plain version
 # differ only in the order of float32 sums over up to 1500 keys
 FLASH_F32_ATOL, FLASH_F32_RTOL = 1e-5, 1e-5
+# narrow operands vs the float32 route: both multiply the same bf16 values,
+# exactly in float32, and sum in float32 in another order (a few ulps); the
+# attention weights round to bf16 on both routes, so a weight whose float32
+# value falls on the other side of a rounding step moves the output by one
+# bf16 step of that weight, as for xattn_decode
+NARROW_ATTN_TOL = (XATTN_ATOL, XATTN_RTOL)
+NARROW_LOGITS_TOL = (1e-4, 1e-4)         # logits |x| < ~3, sums of 768 terms
 BF16_REF_ATOL = 0.05                     # encoder, tests/test_torch_whisper.py:31
 BF16_LOGITS_ATOL = 1e-2                  # decode-step logits, |logits| < 1 here
 H100_F32_FLOPS = 67e12                   # CUDA-core float32 peak, SXM, 700 W
@@ -517,6 +543,82 @@ def flash_phase(torch, dev):
     return worst, headline, headline32
 
 
+def narrow_phase(torch, W, dev) -> None:
+    """Phase 2b: the model's products with narrow operands and float32
+    accumulation (``bmm``/``mm`` with ``out_dtype=float32``, the route the
+    card takes) against the float32 route (operands upcast, then multiplied
+    in float32: the CPU's route), on the same inputs at the shapes of the
+    served decode (4 and 64 rows x 10 s: self-attention over all 84 cache
+    slots under the mask, cross attention over 500 int8 positions with their
+    scales, the logits against the 51865 x 768 table) and of the 10 s
+    encode (500 x 500 self-attention). Times both routes (cold)."""
+    import types
+
+    import torch.nn.functional as F
+
+    def upcast_attn(q, k, v, mask=None):
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        if mask is not None:
+            logits = logits + mask
+        weights = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.matmul(weights.float(), v.to(q.dtype).float())
+
+    h, dh, d, vocab, t_max, ta = 12, 64, 768, 51865, 84, 500
+    scale = dh ** -0.25
+    for rows in (4, 64):
+        gen = torch.Generator(device=dev).manual_seed(rows)
+
+        def randn(*shape, sc=1.0):
+            return (torch.randn(shape, generator=gen, device=dev) * sc).to(torch.bfloat16)
+
+        def randq(*shape):
+            return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+
+        q = randn(rows, h, 1, dh, sc=scale)
+        k, v = randn(rows, h, t_max, dh, sc=scale), randn(rows, h, t_max, dh)
+        mask = torch.where(torch.arange(t_max, device=dev) <= 40, 0.0, -torch.inf)
+        ks = torch.rand((1, rows, h, 1, 1), generator=gen, device=dev) * 0.01 + 0.005
+        vs = torch.rand((1, rows, h, 1, 1), generator=gen, device=dev) * 0.01 + 0.005
+        ckv = W.CrossKV(randq(1, rows, h, ta, dh), randq(1, rows, h, ta, dh), ks, vs)
+        dec = types.SimpleNamespace(tok=randn(vocab, d, sc=0.02))
+        x = randn(rows, d)
+        eq, ek, ev = (randn(rows, h, ta, dh, sc=sc) for sc in (scale, scale, 1.0))
+        cases = {
+            "self-attention, 84 slots": (
+                lambda: W._attn_cached(q, k, v, mask), lambda: upcast_attn(q, k, v, mask),
+                (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4, NARROW_ATTN_TOL),
+            "cross attention, 500 int8": (
+                lambda: W._cross_layer_attn(q, ckv, 0),
+                lambda: upcast_attn(q * ks[0].to(q.dtype), ckv.k[0], ckv.v[0]) * vs[0],
+                q.numel() * 2 + ckv.k.numel() * 2 + q.numel() * 4, NARROW_ATTN_TOL),
+            "logits, 51865 x 768": (
+                lambda: W._tok_logits(dec, x), lambda: F.linear(x.float(), dec.tok.float()),
+                (x.numel() + dec.tok.numel()) * 2 + rows * vocab * 4, NARROW_LOGITS_TOL),
+            "encoder self-attention, 500 x 500": (
+                lambda: W._attn_cached(eq, ek, ev), lambda: upcast_attn(eq, ek, ev),
+                eq.numel() * 2 * 3 + eq.numel() * 4, NARROW_ATTN_TOL),
+        }
+        for name, (narrow, upcast, nbytes, (atol, rtol)) in cases.items():
+            tag = f"narrow operands {rows} rows, {name}"
+            got, ref = narrow(), upcast()
+            torch.cuda.synchronize()
+            if got.dtype != torch.float32 or got.shape != ref.shape \
+                    or not torch.isfinite(got).all():
+                fail(f"{tag}: {got.dtype} {tuple(got.shape)} or non-finite values")
+            err = (got - ref).abs().max().item()
+            used = limit_used(got, ref, atol, rtol)
+            try:
+                torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+            except AssertionError as exc:
+                fail(f"{tag}: out_dtype route disagrees with the float32 route: {exc}")
+            n_ms, u_ms = cuda_ms_cold(torch, narrow), cuda_ms_cold(torch, upcast)
+            log(f"{tag}: max_abs_err {err:.3g}, {used:.3g} of the limit (atol {atol:g}, "
+                f"rtol {rtol:g}), max |ref| {ref.abs().max().item():.3g}; out_dtype route "
+                f"{n_ms:.4f} ms, float32 route {u_ms:.4f} ms, bound {nbytes / H100_HBM_BYTES * 1e3:.4f}"
+                f" ms (bytes, narrow operands)")
+
+
 def front_end_share(torch, E, engine, seconds_list, wire: str) -> None:
     """Prints the log-mel kernel's device time against the whole encode
     (``_mel_encode``: log-mel, normalisation, encoder) on 4 rows (the batch
@@ -821,10 +923,109 @@ def grpc_session(grpc, stt_pb2, stt_pb2_grpc, port: int, sid: str, pcm: bytes) -
     return out
 
 
+def http_get(port: int, path: str):
+    """(status, body) of a GET on the HTTP plane; an error status too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def wav_bytes(pcm: bytes) -> bytes:
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(16000)
+        wf.writeframes(pcm)
+    return buf.getvalue()
+
+
+def rest_transcribe(port: int, pcm: bytes):
+    """(status, JSON payload) of one REST transcription of ``pcm`` with the
+    realtime profile and language en."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/audio/transcriptions?decode_profile=realtime"
+        f"&language=en&response_format=verbose_json", data=wav_bytes(pcm), method="POST",
+        headers={"content-type": "audio/wav"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def ws_session(port: int, sid: str, pcm: bytes) -> list:
+    """One WebSocket session through the bridge: the start frame (language
+    en, partials on), 100 ms binary frames, then ``end``; returns the
+    frames received up to ``done``."""
+    from websockets.sync.client import connect
+
+    frames = []
+    with connect(f"ws://127.0.0.1:{port}/ws/stream", open_timeout=30) as ws:
+        ws.send(json.dumps({"type": "start", "session_id": sid, "sample_rate": 16000,
+                            "language_code": "en", "attributes": {"partial": "true"}}))
+        for i in range(0, len(pcm), 3200):
+            ws.send(pcm[i:i + 3200])
+            time.sleep(0.05)
+        ws.send(json.dumps({"type": "end"}))
+        while True:
+            frames.append(json.loads(ws.recv(timeout=120)))
+            if frames[-1]["type"] in ("done", "error"):
+                return frames
+
+
+def http_checks(torch, port: int, metrics: dict, shapes: int) -> None:
+    """Phase 5's reads of the HTTP plane after the gRPC traffic: /metrics
+    carries the engine's counters as the runtime holds them, /metrics.json
+    the same values, and /system (with ``STT_ENABLE_TPU_METRICS=1``) names
+    the card."""
+    import os
+
+    status, text = http_get(port, "/metrics")
+    values = dict(line.split(" ", 1) for line in text.splitlines()
+                  if line.startswith("stt_engine_"))
+    want = {f"stt_{k}": float(metrics[k]) for k in
+            ("engine_step_count", "engine_compile_count", "engine_batch_rows_total")}
+    got = {k: float(values.get(k, "nan")) for k in want}
+    if status != 200 or got != want or not got["stt_engine_step_count"] > 0 \
+            or got["stt_engine_compile_count"] != shapes:
+        fail(f"http: /metrics {status}, engine counters {got}, runtime {want}")
+    status, body = http_get(port, "/metrics.json")
+    if status != 200 or json.loads(body)["engine_compile_count"] != shapes:
+        fail(f"http: /metrics.json {status} {body[:200]}")
+    os.environ["STT_ENABLE_TPU_METRICS"] = "1"
+    try:
+        status, body = http_get(port, "/system")
+    finally:
+        del os.environ["STT_ENABLE_TPU_METRICS"]
+    card = json.loads(body).get("tpu", {}) if status == 200 else {}
+    devices = card.get("devices") or [{}]
+    if card.get("platform") != "gpu" or devices[0].get("kind") != torch.cuda.get_device_name(0):
+        fail(f"http: /system {status} card section {card}")
+    log(f"http: /metrics engine counters {got}; /system card section: "
+        f"{card['device_count']} device(s), {devices[0]['kind']}, "
+        f"{devices[0]['bytes_in_use'] / 2**30:.3f} GiB allocated of "
+        f"{devices[0]['bytes_limit'] / 2**30:.1f} GiB")
+
+
 def grpc_phase(torch, card: str) -> int:
-    """Phase 5: the port's gRPC server in-process, 8 concurrent streaming
-    sessions, checked as the docstring says. Returns the log-mel launches
-    of the traffic."""
+    """Phase 5: the port's server in-process, gRPC, HTTP plane and (when
+    ``websockets`` imports) WebSocket bridge, 8 concurrent streaming gRPC
+    sessions, the HTTP plane's reads, one REST transcription and one WS
+    session, checked as the docstring says. Returns the log-mel launches
+    of the gRPC traffic."""
+    import socket
     import tempfile
 
     import grpc
@@ -835,6 +1036,7 @@ def grpc_phase(torch, card: str) -> int:
     from stt_tpu_torch.server import main as S
     from stt_tpu_torch.server.runtime.runtime import ApplicationRuntime
     from stt_tpu_torch.server.transport.grpc_servicer import STTGrpcServicer
+    from stt_tpu_torch.server.transport.http_server import start_http_server
 
     with tempfile.TemporaryDirectory(prefix="smoke_grpc_") as tmp:
         server_yaml, model_yaml = B.e2e_configs(Path(tmp))
@@ -845,13 +1047,41 @@ def grpc_phase(torch, card: str) -> int:
     t0 = time.monotonic()
     server = S.build_grpc_server(config)
     runtime = ApplicationRuntime(config)
+    # the planes as serve() starts them: HTTP (and WS) once the runtime is
+    # built, so the model is loaded and every shape prewarmed; /health says
+    # ready only once the gRPC server has started
+    server_state = {"grpc_running": False}
+    http = start_http_server(runtime, server_state, "127.0.0.1", 0)
+    ws = ws_port = None
+    try:
+        import websockets  # noqa: F401
+    except ImportError:
+        log("ws: websockets does not import on this host; the WebSocket bridge was not "
+            "started (serve() logs the same and serves gRPC + HTTP)")
+    else:
+        from stt_tpu_torch.server.transport.ws_server import start_ws_server
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ws_port = sock.getsockname()[1]
+        ws = start_ws_server(runtime, "127.0.0.1", ws_port)
     try:
         stt_pb2_grpc.add_STTBackendServicer_to_server(STTGrpcServicer(runtime), server)
         port = S.bind_grpc_port(server, config)
-        server.start()
-        boot = time.monotonic() - t0
         engine = runtime.model_registry._pools["default"].engines[0]
         shapes = engine.graph_captures
+        early, _ = http_get(http.port, "/health")
+        server.start()
+        server_state["grpc_running"] = True
+        boot = time.monotonic() - t0
+        ready, health = http_get(http.port, "/health")
+        if early != 500 or ready != 200 or json.loads(health)["status"] != "ok":
+            fail(f"http: /health answered {early} before the gRPC server started and "
+                 f"{ready} {health[:200]} after")
+        if not shapes:
+            fail("http: /health answered 200 with no shape prewarmed")
+        log(f"http: /health {early} before the gRPC server started (model loaded, "
+            f"{shapes} shapes prewarmed), {ready} after; HTTP plane on port {http.port}")
         log(f"grpc: server booted in {boot:.2f} s on port {port} (device {config.device} -> "
             f"{engine.device}, backend {config.model_backend}, whisper-{engine.model_size} "
             f"{engine._dtype}, policy {engine.policy}); {shapes} shapes prewarmed "
@@ -878,8 +1108,34 @@ def grpc_phase(torch, card: str) -> int:
         launches = mel_logspec.launches
         served_captures = engine.graph_captures - shapes
         after = runtime.metrics.render()
+        http_checks(torch, http.port, after, shapes)
+        mel_logspec.launches = 0
+        t2 = time.monotonic()
+        status, payload = rest_transcribe(http.port, load_tool_audio(5.0, seed=100))
+        rest_s, rest_launches = time.monotonic() - t2, mel_logspec.launches
+        if status != 200 or not payload.get("text", "").strip() \
+                or not payload.get("segments"):
+            fail(f"rest: {status} {str(payload)[:300]}")
+        if rest_launches <= 0:
+            fail("rest: the transcription never launched the log-mel kernel")
+        log(f"rest: POST /v1/audio/transcriptions (5 s, realtime, verbose_json) 200 in "
+            f"{rest_s:.3f} s, {len(payload['segments'])} segment(s), text "
+            f"{payload['text'][:60]!r}, {rest_launches} log-mel launch(es)")
+        if ws is not None:
+            t3 = time.monotonic()
+            frames = ws_session(ws_port, "smoke-ws", load_tool_audio(5.0, seed=101))
+            finals = [f for f in frames if f["type"] == "result" and f.get("is_final")]
+            if frames[-1]["type"] != "done" or not finals or not finals[-1]["text"].strip():
+                fail(f"ws: frames {[f['type'] for f in frames]}, last {str(frames[-1])[:300]}")
+            log(f"ws: one session through the bridge in {time.monotonic() - t3:.2f} s, "
+                f"{len(frames)} frames ({', '.join(sorted({f['type'] for f in frames}))}), "
+                f"final {finals[-1]['text'][:60]!r}")
     finally:
+        server_state["grpc_running"] = False
         server.stop(5.0).wait()
+        http.stop(timeout=6.0)
+        if ws is not None:
+            ws.stop(timeout=6.0)
         runtime.shutdown()
     if any(th.is_alive() for th in threads) or None in sessions:
         fail("grpc: a session did not finish")
@@ -927,13 +1183,13 @@ def grpc_phase(torch, card: str) -> int:
     return launches
 
 
-def reference_f32_phase(torch, E, W, dev, clips, flash: str) -> None:
+def reference_f32_phase(torch, E, W, dev, clips, flash: str) -> int:
     """Phase 4a: the ``test`` model in float32 on the card against the CPU,
     on ``clips`` of (seconds, language), flash attention ``flash``: encoder
     output and teacher-forced decoder logits within ``REF_ATOL``. With flash
     on at the 30 s bucket the card runs the kernel's float32 body once per
     encoder layer per encode (two encodes here) and the CPU never launches
-    it. TF32 stays off in cuBLAS and cuDNN (set in main), so the card's
+    it; returns the card's flash launches. TF32 stays off in cuBLAS and cuDNN (set in main), so the card's
     matrix products and convolutions are float32 like the CPU's."""
     from stt_tpu_torch.ops.kernels.flash_attention import flash_attention
 
@@ -953,6 +1209,8 @@ def reference_f32_phase(torch, E, W, dev, clips, flash: str) -> None:
         outs[name] = (ctx["packed"].cpu().numpy(), enc.cpu(), model)
         eng.close()
         ran = flash_attention.launches - f0
+        if name == "cuda":
+            card_launches = ran
         routed = eng.policy.flash_on(enc.shape[1])
         if flash != "off" and not routed:
             fail(f"float32 reference: {enc.shape[1]} encoder positions never reach flash")
@@ -977,6 +1235,7 @@ def reference_f32_phase(torch, E, W, dev, clips, flash: str) -> None:
         f"positions): encoder max abs err {enc_err:.3g}, teacher-forced logits max abs err "
         f"{logit_err:.3g}, token rows {'identical' if same_tokens else 'differ'} on the card "
         f"and the CPU")
+    return card_launches
 
 
 def reference_30s_phase(torch, E, W, dev) -> None:
@@ -1177,6 +1436,9 @@ def main() -> None:
     xattn_err, xattn_headline = xattn_phase(torch, dev)
     flash_err, flash_headline, flash32_headline = flash_phase(torch, dev)
 
+    # -- 2b. narrow operands, float32 accumulation -------------------------------
+    narrow_phase(torch, W, dev)
+
     # -- 3a. served requests, default path (int8 cross K/V, einsum attention) ---
     launches = serve_default_phase(torch, E, W, "mulaw")
     serve_default_phase(torch, E, W, "int16")
@@ -1193,7 +1455,8 @@ def main() -> None:
 
     # -- 4. reference on small inputs -------------------------------------------
     reference_f32_phase(torch, E, W, dev, [(1.5, "en"), (0.7, None)], flash="off")
-    reference_f32_phase(torch, E, W, dev, [(30.0, "en"), (24.0, None)], flash="auto")
+    f32_launches = reference_f32_phase(torch, E, W, dev, [(30.0, "en"), (24.0, None)],
+                                       flash="auto")
     reference_30s_phase(torch, E, W, dev)
 
     # -- 6. result -------------------------------------------------------------
@@ -1221,7 +1484,13 @@ def main() -> None:
         "launches": counts_30s["flash_attention"],
         "max_abs_err": flash_err,
         **flash_headline,
-        "float32": flash32_headline,
+    }, {
+        "name": "flash_attention_f32",
+        "route": "cuda",
+        "source": "stt_tpu_torch/ops/cuda/flash_attention.cu",
+        "replaces": "stt_tpu/models/whisper.py:378",
+        "launches": f32_launches,
+        **flash32_headline,
     }]
     log(card)
     log(json.dumps({"kernels": kernels}))

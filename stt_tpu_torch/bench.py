@@ -116,8 +116,9 @@ def whisper_request_flops(config, bucket_sec: float, p_len: int, gen_tokens: int
 def decode_step_bytes(engine: E.WhisperEngine, bucket_sec: float, rows: int) -> int:
     """Bytes one decode step at this shape must move, each read or written
     once: the decoder's weights but its embedding tables, the token table
-    in float32 for the logits product, the cross K/V (with int8 scales) and
-    the whole self cache (the step attends over every slot), and the logits
+    as stored for the logits product (its rows read by the embedding gather
+    are a few of them), the cross K/V (with int8 scales) and the whole self
+    cache (the step attends over every slot), and the float32 logits
     written."""
     cfg, dec = engine.config, engine.model.decoder
     skip = {id(dec.tok), id(dec.pos)}
@@ -125,7 +126,7 @@ def decode_step_bytes(engine: E.WhisperEngine, bucket_sec: float, rows: int) -> 
     entry = engine.graphs.lookup(bucket_sec, rows, PROMPT_LEN, engine._max_new_for(bucket_sec))
     cross = sum(t.numel() * t.element_size() for t in entry.cross_kv if t is not None)
     self_kv = sum(t.numel() * t.element_size() for t in entry.state.cache)
-    return int(weights + cfg.n_vocab * cfg.n_text_state * 4 + cross + self_kv
+    return int(weights + dec.tok.numel() * dec.tok.element_size() + cross + self_kv
                + rows * cfg.n_vocab * 4)
 
 
@@ -200,10 +201,11 @@ def steady_walls(engine: E.WhisperEngine, audio: np.ndarray, streams: int,
 
 def kind_of(name: str) -> str:
     """A device operation's kind, from its kernel name: the port's kernels,
-    matrix products (cuBLAS's ``nvjet`` kernels and split-K reductions on
-    bf16 are the decoder's bf16 linear layers; ``gemv``/``gemm`` kernels on
-    float32 are the attention products and the float32 logits product),
-    copies and type conversions, and the rest."""
+    matrix products by operand type (cuBLAS's ``nvjet`` kernels and every
+    ``gemm``/``gemv``/split-K kernel that names bf16 operands: the linear
+    layers, and the attention and logits products, which take bf16 and
+    accumulate in float32; other ``gemm``/``gemv`` kernels take float32
+    operands), copies and type conversions, and the rest."""
     low = name.lower()
     if "xattn" in low:
         return "xattn_decode"
@@ -211,7 +213,7 @@ def kind_of(name: str) -> str:
         return "flash_attention"
     if "mel" in low and "kernel" in low:
         return "log-mel"
-    if low.startswith("nvjet") or (("gemm" in low or "splitk" in low)
+    if low.startswith("nvjet") or (any(k in low for k in ("gemm", "gemv", "xmma", "splitk"))
                                    and ("bf16" in low or "bfloat16" in low)):
         return "matrix products, bf16"
     if any(k in low for k in ("gemm", "gemv", "xmma")):
@@ -311,7 +313,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     card = card_name_and_power() if on_card else "cpu"
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log("left out: the served-partial and drafted phases of bench.py "
-        "(their modules are not ported yet; ROADMAP.md Queue 1 item 6)")
+        "(not ported yet; ROADMAP.md Queue 1 items 2 and 4)")
     t0 = time.monotonic()
     engine = E.WhisperEngine(
         args.model, device=args.device, compute_type="bfloat16", max_batch=args.streams,
@@ -434,7 +436,7 @@ def run_e2e_phase(args: argparse.Namespace) -> Dict[str, Any]:
                "--config", str(cfg_path), "--model-config", str(model_cfg_path),
                "--model", args.model, "--model-backend", "torch_whisper",
                "--device", args.device, "--compute-type", "bfloat16",
-               "--port", str(port), "--ws-port", "0"]
+               "--port", str(port), "--metrics-port", "0", "--ws-port", "0"]
         log(f"e2e: starting the server on port {port}")
         with open(log_path, "w") as server_log:
             proc = subprocess.Popen(cmd, cwd=PROJECT_ROOT, stdout=server_log,

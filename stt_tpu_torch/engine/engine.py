@@ -51,6 +51,15 @@ False on the card raises, since nothing swaps in the plain version there;
 ``weights_path`` other than None raises (deterministic init from ``seed``
 only, for now).
 
+Five switches of the JAX package select behaviour the port does not have
+yet; they are read at engine build, parsed as the JAX package parses them,
+and a value that asks for that behaviour raises ``NotImplementedError``
+naming the variable and its value: ``STT_DRAFT_PARTIALS`` on/always,
+``STT_DECODER_WEIGHTS_DTYPE`` int8/int8_native (under bfloat16),
+``STT_FUSED_QKV`` on, ``STT_SELF_KV_DTYPE`` fp8 (under bfloat16) and
+``STT_PREFILL=seq``. The shipped ``STT_DRAFT_PARTIALS=adaptive`` logs one
+warning that partials are served plain.
+
 Left for later slices (a request asking for them raises
 ``NotImplementedError`` naming the option): beam search, timestamps,
 sampling and the temperature ladder, repetition penalty and n-gram bans,
@@ -130,6 +139,52 @@ def _pipeline_depth(given: Optional[int]) -> int:
         except ValueError:
             given = PIPELINE_DEPTH
     return max(1, int(given))
+
+
+def _refuse_ignored_switches(dtype: torch.dtype) -> None:
+    """Read the five switches of the JAX package that the port does not
+    serve, each parsed as the JAX package parses it, and raise
+    ``NotImplementedError`` naming the variable and its value for any value
+    whose behaviour the port lacks. Values that mean the port's behaviour
+    pass; ``STT_DRAFT_PARTIALS=adaptive`` (the shipped default) logs one
+    warning that partials are served plain."""
+    def env(name: str, default: str) -> str:
+        return os.getenv(name, default).strip().lower()
+
+    def refuse(name: str, value: str, what: str) -> None:
+        raise NotImplementedError(
+            f"{name}={value!r} ({what}) is not served by stt_tpu_torch yet")
+
+    # stt_tpu/engine/engine.py:116-133
+    draft = env("STT_DRAFT_PARTIALS", "adaptive")
+    if draft in ("on", "1", "true", "yes", "always"):
+        refuse("STT_DRAFT_PARTIALS", draft, "drafted partials")
+    if draft not in ("off", "0", "false", "no", "adaptive", "auto"):
+        LOGGER.warning("unrecognized STT_DRAFT_PARTIALS=%r; using 'adaptive' "
+                       "(valid: on/off/adaptive)", draft)
+    if draft not in ("off", "0", "false", "no"):
+        LOGGER.warning("STT_DRAFT_PARTIALS=%s: drafted partials are not ported; "
+                       "partials are served plain", draft)
+    bf16 = dtype == torch.bfloat16
+    # stt_tpu/models/whisper.py:571-580, applied at engine.py:1064-1079
+    weights = env("STT_DECODER_WEIGHTS_DTYPE", "bf16")
+    if weights in ("int8", "i8", "int8_native", "i8n"):
+        if bf16:
+            refuse("STT_DECODER_WEIGHTS_DTYPE", weights, "int8 decoder weights")
+        LOGGER.warning("STT_DECODER_WEIGHTS_DTYPE=%s requires bfloat16 compute; "
+                       "ignored (compute_type=float32)", weights)
+    # stt_tpu/models/whisper.py:362-366
+    fused = env("STT_FUSED_QKV", "off")
+    if fused in ("1", "on", "true", "yes"):
+        refuse("STT_FUSED_QKV", fused, "fused decoder q/k/v projection")
+    # stt_tpu/models/whisper.py:504-512: fp8 only under bfloat16 compute
+    self_kv = env("STT_SELF_KV_DTYPE", "bf16")
+    if bf16 and self_kv in ("fp8", "f8", "float8", "fp8_e4m3"):
+        refuse("STT_SELF_KV_DTYPE", self_kv, "fp8 self-attention cache")
+    # stt_tpu/models/whisper.py:353, 967: anything but "seq" is parallel
+    prefill = env("STT_PREFILL", "parallel")
+    if prefill == "seq":
+        refuse("STT_PREFILL", prefill, "sequential prompt prefill")
 
 
 def max_new_for(bucket_sec: float, max_decode_tokens: int) -> int:
@@ -336,6 +391,7 @@ class WhisperEngine:
                 "CPU tensors)")
         self._metrics = metrics
         self._dtype = _DTYPES[compute_type]
+        _refuse_ignored_switches(self._dtype)
         config = W.get_config(model_size)
         self.config = config
         self.policy = W.AttentionPolicy.from_env(

@@ -10,9 +10,14 @@ that the two can be held against each other on identical weights:
   packages. ``stt_tpu_torch.convert`` maps the JAX tree onto the modules.
 - Layer norm takes float32 statistics (eps 1e-5); linear layers
   accumulate in float32 and add the bias before rounding to the compute
-  type (``addmm``); attention logits, softmax and the weighted mix run in
-  float32, with the softmax weights rounded to the compute type first,
-  as the JAX package's ``preferred_element_type=float32`` einsums do.
+  type (``addmm``); the attention products and the vocabulary logits take
+  operands in the compute type and give float32 (on the card the
+  ``out_dtype`` overloads of ``bmm``/``mm``; on the CPU, which has no
+  kernel for them, upcast operands), with softmax in float32 and its
+  weights rounded to the compute type first, as the JAX package's
+  ``preferred_element_type=float32`` einsums do. Stored K/V narrower than
+  the compute type (int8, fp8) are converted to it, exactly, and no
+  further; no float32 copy of a cache or of the token table is made.
 - The KV caches are head-split with k pre-scaled by ``d_head**-0.25``.
   Under bfloat16 compute the cross K/V is stored int8 with per-(layer,
   row, head) scales (the default, folded into q and the output as in
@@ -339,18 +344,6 @@ class TextDecoder(nn.Module):
             Block(d, cross=True) for _ in range(config.n_text_layer)
         )
         self.ln = LayerNorm(d)
-        self._tok_f32: Optional[torch.Tensor] = None
-
-    def tok_f32(self) -> torch.Tensor:
-        """The token table in float32 for the tied logits product (made
-        once under a narrower compute type; the weights are fixed after
-        loading). Its values are the stored ones, so the float32 product
-        equals the JAX package's float32-accumulated one."""
-        if self.tok.dtype == torch.float32:
-            return self.tok
-        if self._tok_f32 is None or self._tok_f32.device != self.tok.device:
-            self._tok_f32 = self.tok.float()
-        return self._tok_f32
 
 
 class Whisper(nn.Module):
@@ -408,16 +401,40 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * dh)
 
 
+def _narrow_f32(a: torch.Tensor) -> bool:
+    """True when a product with operand ``a`` takes the card route: narrow
+    operands in, float32 out (the ``out_dtype`` overloads, the JAX
+    package's ``preferred_element_type=float32``). Chosen by the tensor's
+    device: the CPU has no kernel for those overloads, so there the
+    operands are upcast and multiplied in float32. Products of bf16 values
+    are exact in float32, so the two routes differ only in summation
+    order. Under float32 compute both routes are the float32 product."""
+    return a.device.type != "cpu" and a.dtype != torch.float32
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N) with float32 accumulation and a
+    float32 result; a and b share their leading dims and their type."""
+    if not _narrow_f32(a):
+        return torch.matmul(a.float(), b.float())
+    out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                    out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], out.shape[-1])
+
+
 def _attn_cached(qh, kh, vh, mask=None) -> torch.Tensor:
     """Attention over pre-split, pre-scaled q and K: qh (B, H, Tq, Dh),
-    kh/vh (B, H, Tk, Dh), possibly stored narrower (int8 cross K/V).
-    float32 logits and softmax; the weights round to q's type before the
-    float32 mix. Returns float32 (B, H, Tq, Dh)."""
-    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    kh/vh (B, H, Tk, Dh), possibly stored narrower (int8 or fp8 cross K/V),
+    which are converted to q's type (exactly) and not further. float32
+    logits and softmax; the weights round to q's type before the mix.
+    Both products take q's type in and give float32 out
+    (:func:`_bmm_f32`). Returns float32 (B, H, Tq, Dh)."""
+    kh, vh = kh.to(qh.dtype), vh.to(qh.dtype)
+    logits = _bmm_f32(qh, kh.transpose(-1, -2))
     if mask is not None:
         logits = logits + mask
     weights = torch.softmax(logits, dim=-1).to(qh.dtype)
-    return torch.matmul(weights.float(), vh.to(qh.dtype).float())
+    return _bmm_f32(weights, vh)
 
 
 def _attention(q, k, v, n_head: int, mask=None, flash: bool = False) -> torch.Tensor:
@@ -579,8 +596,13 @@ def _cross_layer_attn(qx: torch.Tensor, ckv: CrossKV, li: int,
 
 
 def _tok_logits(dec: TextDecoder, x: torch.Tensor) -> torch.Tensor:
-    """float32 vocab logits against the tied token table."""
-    return F.linear(x.float(), dec.tok_f32())
+    """float32 vocab logits against the tied token table as stored: x in
+    the compute type, float32 out (the route as :func:`_narrow_f32` says),
+    so no float32 copy of the table is made on the card."""
+    if not _narrow_f32(x):
+        return F.linear(x.float(), dec.tok.float())
+    y = torch.mm(x.reshape(-1, x.shape[-1]), dec.tok.t(), out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def _decoder_step(dec: TextDecoder, tokens: torch.Tensor, pos: Union[int, torch.Tensor],

@@ -5,13 +5,15 @@
 Counterpart of ``stt_tpu/server/main.py`` for the port, with the same flags
 and the same shipped YAML files. It serves ``CreateSession`` and
 ``StreamingRecognize`` over gRPC, with Whisper on the card (``--device
-cpu`` serves on the host). The runtime is built first, so the model is
-loaded and every configured shape prewarmed before ``server.start()``:
-until the HTTP plane is ported, a client's ``grpc.channel_ready_future``
-is the readiness signal. The HTTP (``metrics_port``) and WebSocket
-(``ws_port``) planes are not served yet; boot logs one warning naming
-them. XLA's compilation cache and the JAX platform pin have no
-counterpart here.
+cpu`` serves on the host); the HTTP plane on ``metrics_port`` (``/health``,
+``/metrics``, ``/metrics.json``, ``/system``, the admin API, ``/v1/models``
+and REST transcription at ``/v1/audio/transcriptions`` and
+``/v1/audio/translations``); and the WebSocket bridge on ``ws_port`` when it
+is above 0 and ``websockets`` imports (else one warning, and gRPC + HTTP).
+The runtime is built first, so the model is loaded and every configured
+shape prewarmed before the planes start, and ``/health`` answers 200 only
+once ``server.start()`` has run. XLA's compilation cache and the JAX
+platform pin have no counterpart here.
 
 Parity with the reference entrypoint (``stt_server/main.py:34-653``):
 - CLI flags mirror the reference set (model/backend/device/ports/limits/TLS/
@@ -49,6 +51,7 @@ from ..gen import stt_pb2_grpc
 from ..utils.logging import LOGGER, configure_logging
 from .runtime.runtime import ApplicationRuntime
 from .transport.grpc_servicer import STTGrpcServicer
+from .transport.http_server import start_http_server
 
 
 def _binds_public_host(host: str) -> bool:
@@ -154,9 +157,10 @@ def bind_grpc_port(server: grpc.Server, config: ServerConfig) -> int:
 
 
 def serve(config: ServerConfig, *, ready_event: Optional[threading.Event] = None) -> None:
-    """Launch the gRPC server and block until shutdown."""
+    """Launch gRPC + HTTP + WS servers and block until shutdown."""
     enforce_ws_auth_guard(config)
 
+    server_state = {"grpc_running": False}
     stop_event = threading.Event()
     shutdown_once = threading.Event()
     shutdown_done = threading.Event()
@@ -167,11 +171,31 @@ def serve(config: ServerConfig, *, ready_event: Optional[threading.Event] = None
     servicer = STTGrpcServicer(runtime)
     stt_pb2_grpc.add_STTBackendServicer_to_server(servicer, server)
     bind_grpc_port(server, config)
-    LOGGER.warning(
-        "metrics_port=%s (HTTP plane) and ws_port=%s (WebSocket bridge) are not "
-        "served by stt_tpu_torch yet; gRPC only",
-        config.metrics_port, config.ws_port,
+
+    http_handle = start_http_server(
+        runtime=runtime,
+        server_state=server_state,
+        host=config.http_host,
+        port=config.metrics_port,
+        http_rate_limit_rps=config.http_rate_limit_rps,
+        http_rate_limit_burst=config.http_rate_limit_burst,
+        http_trusted_proxies=config.http_trusted_proxies,
     )
+    ws_handle = None
+    if config.ws_port and config.ws_port > 0:
+        try:
+            from .transport.ws_server import start_ws_server
+
+            ws_handle = start_ws_server(
+                runtime=runtime,
+                host=config.ws_host,
+                port=config.ws_port,
+                ws_rate_limit_rps=config.http_rate_limit_rps,
+                ws_rate_limit_burst=config.http_rate_limit_burst,
+                ws_trusted_proxies=config.http_trusted_proxies,
+            )
+        except ImportError:
+            LOGGER.warning("websockets not available; WS bridge disabled")
 
     LOGGER.info(
         "STT server started on port %s (model=%s, device=%s, backend=%s)",
@@ -187,6 +211,7 @@ def serve(config: ServerConfig, *, ready_event: Optional[threading.Event] = None
                     LOGGER.exception("failed to request immediate gRPC stop")
             return
         shutdown_once.set()
+        server_state["grpc_running"] = False
         runtime.stop_accepting_sessions()
         if grace_override is None:
             grace = config.decode_timeout_sec if config.decode_timeout_sec > 0 else 5.0
@@ -196,6 +221,10 @@ def serve(config: ServerConfig, *, ready_event: Optional[threading.Event] = None
         try:
             server.stop(grace).wait()
         finally:
+            stop_timeout = max(1.0, grace + 1.0)
+            http_handle.stop(timeout=stop_timeout)
+            if ws_handle is not None:
+                ws_handle.stop(timeout=stop_timeout)
             runtime.shutdown()
             shutdown_done.set()
 
@@ -230,6 +259,7 @@ def serve(config: ServerConfig, *, ready_event: Optional[threading.Event] = None
         LOGGER.warning("signal handlers not installed (not on the main thread)")
 
     server.start()
+    server_state["grpc_running"] = True
     if ready_event is not None:
         ready_event.set()
     try:

@@ -132,6 +132,13 @@ def test_defaults_are_the_headline_setup():
     ("std::enable_if<!(false), void>::type internal::gemvx::kernel<int, int, float>",
      "matrix products, float32"),
     ("void gemmSN_TN_kernel<float, 128, 16, 2, 4, 4, 4, true>", "matrix products, float32"),
+    # bf16 operands, float32 accumulation and result (the out_dtype products)
+    ("internal::gemvx::kernel<int, int, __nv_bfloat16, float, float, float, true, true>",
+     "matrix products, bf16"),
+    ("sm90_xmma_gemm_bf16f32_bf16f32_f32_nn_n_tilesize128x128x64_cgasize1x1x1",
+     "matrix products, bf16"),
+    ("void cutlass::Kernel2<cutlass_75_tensorop_s1688gemm_bf16_64x64_tn_align1>",
+     "matrix products, bf16"),
     ("void at::native::unrolled_elementwise_kernel<at::native::direct_copy_kernel_cuda>",
      "copies and type conversions"),
     ("Memcpy HtoD (Pageable -> Device)", "copies and type conversions"),
@@ -152,5 +159,6 @@ def test_decode_step_bytes_counts_each_buffer_once():
     t_max = 4 + TE.max_new_for(1.0, 16)
     cross = 2 * layers * 4 * 50 * d + 2 * layers * 4 * cfg.n_text_head * 4   # int8 + scales
     self_kv = 2 * 2 * layers * 4 * t_max * d                               # bf16
-    expect = weights + cfg.n_vocab * d * 4 + cross + self_kv + 4 * cfg.n_vocab * 4
+    table = 2 * cfg.n_vocab * d                                            # bf16, as stored
+    expect = weights + table + cross + self_kv + 4 * cfg.n_vocab * 4
     assert B.decode_step_bytes(eng, 1.0, 4) == expect

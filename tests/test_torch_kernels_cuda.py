@@ -685,7 +685,7 @@ def test_server_process_exits_0_on_sigterm(cuda_device, tmp_path):
             [sys.executable, "-m", "stt_tpu_torch.server.main", "--config", str(server_yaml),
              "--model-config", str(model_yaml), "--model", "test", "--device", "cuda",
              "--compute-type", "bfloat16", "--language", "en", "--port", str(port),
-             "--ws-port", "0"],
+             "--metrics-port", "0", "--ws-port", "0"],
             cwd=Path(__file__).resolve().parents[1], stdout=server_log,
             stderr=subprocess.STDOUT)
     try:

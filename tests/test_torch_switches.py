@@ -1,0 +1,134 @@
+"""The five switches of the JAX package that the port does not serve.
+
+``STT_DRAFT_PARTIALS``, ``STT_DECODER_WEIGHTS_DTYPE``, ``STT_FUSED_QKV``,
+``STT_SELF_KV_DTYPE`` and ``STT_PREFILL`` are parsed at engine build as
+the JAX package parses them (``stt_tpu/engine/engine.py:116-133``,
+``stt_tpu/models/whisper.py:353-366,504-512,571-580``). A value whose JAX
+behaviour the port lacks raises ``NotImplementedError`` naming the
+variable and its value; a value that means the port's behaviour builds the
+engine; ``adaptive`` (the shipped default) warns once that partials are
+served plain. A ``test``-model engine on the CPU.
+"""
+
+import logging
+
+import pytest
+
+from stt_tpu_torch.engine import engine as TE
+
+SWITCHES = ("STT_DRAFT_PARTIALS", "STT_DECODER_WEIGHTS_DTYPE", "STT_FUSED_QKV",
+            "STT_SELF_KV_DTYPE", "STT_PREFILL")
+
+REFUSED = [
+    ("STT_DRAFT_PARTIALS", "on", "bfloat16"),
+    ("STT_DRAFT_PARTIALS", "always", "bfloat16"),
+    ("STT_DRAFT_PARTIALS", "1", "float32"),
+    ("STT_DRAFT_PARTIALS", " Yes ", "float32"),
+    ("STT_DECODER_WEIGHTS_DTYPE", "int8", "bfloat16"),
+    ("STT_DECODER_WEIGHTS_DTYPE", "int8_native", "bfloat16"),
+    ("STT_DECODER_WEIGHTS_DTYPE", "i8", "bfloat16"),
+    ("STT_DECODER_WEIGHTS_DTYPE", "I8N", "bfloat16"),
+    ("STT_FUSED_QKV", "on", "bfloat16"),
+    ("STT_FUSED_QKV", "true", "float32"),
+    ("STT_SELF_KV_DTYPE", "fp8", "bfloat16"),
+    ("STT_SELF_KV_DTYPE", "fp8_e4m3", "bfloat16"),
+    ("STT_PREFILL", "seq", "bfloat16"),
+    ("STT_PREFILL", "SEQ", "float32"),
+]
+
+PASSING = [
+    ("STT_DRAFT_PARTIALS", "off", "bfloat16"),
+    ("STT_DRAFT_PARTIALS", "no", "float32"),
+    ("STT_DECODER_WEIGHTS_DTYPE", "bf16", "bfloat16"),
+    ("STT_DECODER_WEIGHTS_DTYPE", "", "bfloat16"),
+    ("STT_DECODER_WEIGHTS_DTYPE", "fp16", "bfloat16"),
+    ("STT_FUSED_QKV", "off", "bfloat16"),
+    ("STT_FUSED_QKV", "0", "float32"),
+    ("STT_SELF_KV_DTYPE", "bf16", "bfloat16"),
+    ("STT_SELF_KV_DTYPE", "fp8", "float32"),
+    ("STT_PREFILL", "parallel", "bfloat16"),
+    ("STT_PREFILL", "anything", "float32"),
+]
+
+
+@pytest.fixture
+def env(monkeypatch):
+    for name in SWITCHES:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("STT_DRAFT_PARTIALS", "off")
+    return monkeypatch
+
+
+def _engine(compute_type):
+    engine = TE.WhisperEngine("test", device="cpu", compute_type=compute_type)
+    engine.close()
+    return engine
+
+
+def _warnings(caplog):
+    return [r.getMessage() for r in caplog.records
+            if r.levelno == logging.WARNING and r.name == "stt_tpu_torch"]
+
+
+@pytest.mark.parametrize("name,value,compute_type", REFUSED)
+def test_refused_values_raise_naming_the_switch(env, name, value, compute_type):
+    env.setenv(name, value)
+    with pytest.raises(NotImplementedError) as exc:
+        _engine(compute_type)
+    message = str(exc.value)
+    assert name in message and repr(value.strip().lower()) in message
+
+
+@pytest.mark.parametrize("name,value,compute_type", PASSING)
+def test_passing_values_build_silently(env, caplog, name, value, compute_type):
+    env.setenv(name, value)
+    caplog.set_level(logging.WARNING, logger="stt_tpu_torch")
+    assert _engine(compute_type).model is not None
+    assert _warnings(caplog) == []
+
+
+@pytest.mark.parametrize("value", ["adaptive", "auto", None])
+def test_adaptive_warns_once_and_serves(env, caplog, value):
+    if value is None:
+        env.delenv("STT_DRAFT_PARTIALS")  # the shipped default is adaptive
+    else:
+        env.setenv("STT_DRAFT_PARTIALS", value)
+    caplog.set_level(logging.WARNING, logger="stt_tpu_torch")
+    engine = TE.WhisperEngine("test", device="cpu", compute_type="float32")
+    try:
+        warned = _warnings(caplog)
+        assert len(warned) == 1 and "served plain" in warned[0]
+        engine.start()
+        out = engine.submit(TE.DecodeRequest(audio=_tone(), language="en")).result(120)
+        assert out.segments is not None
+    finally:
+        engine.close()
+
+
+def test_unrecognised_draft_value_falls_back_to_adaptive(env, caplog):
+    """As the JAX package: a warning naming the value, then ``adaptive``
+    (served plain here, with its one warning)."""
+    env.setenv("STT_DRAFT_PARTIALS", "sometimes")
+    caplog.set_level(logging.WARNING, logger="stt_tpu_torch")
+    _engine("float32")
+    warned = _warnings(caplog)
+    assert len(warned) == 2
+    assert "unrecognized STT_DRAFT_PARTIALS='sometimes'" in warned[0]
+    assert "served plain" in warned[1]
+
+
+def test_int8_weights_under_float32_warn_and_serve(env, caplog):
+    """The JAX package ignores int8 decoder weights under float32 compute
+    with a warning; so does the port."""
+    env.setenv("STT_DECODER_WEIGHTS_DTYPE", "int8")
+    caplog.set_level(logging.WARNING, logger="stt_tpu_torch")
+    _engine("float32")
+    warned = _warnings(caplog)
+    assert len(warned) == 1 and "requires bfloat16" in warned[0]
+
+
+def _tone():
+    import numpy as np
+
+    t = np.arange(16000) / 16000
+    return (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
