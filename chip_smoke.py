@@ -22,7 +22,11 @@ PyTorch built for CUDA. In order:
    split planner picks (1, 2, 4, 8 and 16 blocks) and Ta above the
    one-block cap of earlier versions; the float32 flash cases include the
    served 1/4/16/64 rows x 12 heads x 1500, each naming its key split and
-   the grid's waves, and at 1 and 4 rows every key split is timed too.
+   the grid's waves, and at 1 and 4 rows every key split is timed too; the
+   cross-attention decode also runs, in fp8 and int8 over 1500 keys, every
+   row count the shipped matrix serves (each batch bucket of
+   ``config/server.yaml`` times each beam width of ``config/model.yaml``'s
+   profiles, so the beam path's rows x beam rows too).
    Every time is read with the L2 cache flushed and the device spinning
    until the host has enqueued the call (``cuda_ms_cold``); log-mel also
    prints each call's host enqueue time and, in a second column, the
@@ -66,6 +70,23 @@ PyTorch built for CUDA. In order:
    bound (its bytes over the card's memory rate);
    d. one round of the port's bench (``stt_tpu_torch/bench.py``) at 64
    streams of 10 s, printing its JSON line;
+   e. beam search, the shipped ``accurate`` profile (beam 5, patience 1),
+   on two engines: int8 cross K/V with einsum attention (4 requests of
+   6-10 s, one 10 s bucket), and fp8 cross K/V with both attention
+   kernels (4 requests of 12-30 s, the 30 s bucket); each engine first
+   prewarms its bucket at beam 5 (1 and 4 rows; 64 too on the int8 one),
+   and the phase fails if a graph is captured while the requests are
+   served; it checks every output and counts the launches as 3b does (on
+   the 30 s engine flash once per encoder layer per encode, cross-attention
+   decode once per decoder layer per step over the rows x beams rows); then
+   one group of 4 decoded on its beam entry by replaying the captured
+   chunk, by the same chunk uncaptured (tokens, lengths and logprob sums
+   bitwise identical) and by the uncaptured ``beam_decode`` (tokens and
+   lengths identical); and the ms per beam step, captured and eager,
+   beside the step's bound (the bytes it needs: the cross K/V once a row,
+   the self cache once) and beside the bytes this design moves (the cross
+   K/V once a beam, the self cache once more for the reorder by parent
+   beam) at 4 rows, and at 64 rows of 10 s;
 4. checks the outputs against references on small inputs: the ``test``
    model in float32 on the card against the CPU (encoder output and
    teacher-forced logits within max abs 1e-3), once at 1.5 s with flash
@@ -83,9 +104,9 @@ PyTorch built for CUDA. In order:
    ``start_ws_server``; else one line says the bridge was not started)
    from the shipped YAML files with the shape matrix
    narrowed as the bench's end-to-end phase narrows it (audio buckets 5
-   and 10 s, batch buckets 1 and 16, max batch 16, no ``accurate``
-   profile), whisper-small bf16 on the shipped attention policy, language
-   en; 8 concurrent sessions through the port's own stubs, each streaming
+   and 10 s, batch buckets 1 and 16, max batch 16) but the ``accurate``
+   profile kept, so the boot prewarms beams 1 and 5, whisper-small bf16 on
+   the shipped attention policy, language en; 8 concurrent sessions through the port's own stubs, each streaming
    5 s of the load tool's synthetic audio (tone bursts with a mid-stream
    silence gap, ending in speech) in 100 ms chunks at 2x real time with
    partials on, then ``is_final``. It fails unless every session gets a
@@ -102,7 +123,12 @@ PyTorch built for CUDA. In order:
    them; ``/system`` with ``STT_ENABLE_TPU_METRICS=1`` to name the card;
    a REST transcription of 5 s (realtime profile) to answer 200 with text
    and segments and launch the log-mel kernel; and one WS session to end
-   in ``done`` with a final that has text. Then it stops the planes;
+   in ``done`` with a final that has text. Then ``accurate`` three ways:
+   one gRPC session with ``DECODE_PROFILE_ACCURATE`` (as above, every
+   final with text), one REST transcription naming no profile (200 with
+   text) and one ``python3 -m stt_tpu_torch.client.batch_file`` run on the
+   bundled clip (``accurate`` by default; exit 0 and a final with text),
+   each timed, with no decode graph captured. Then it stops the planes;
 6. closes the engines, then prints one JSON line describing each kernel
    body (log-mel, cross-attention decode, flash attention's bf16 and
    float32 bodies) and, last, ``{"ok": true, "device": {...}}``.
@@ -153,6 +179,12 @@ H100_HBM_BYTES = 3.35e12                 # HBM3 bytes/s
 L2_FLUSH_BYTES = 256 * 1024 * 1024       # > the 50 MB L2: a cold cache per timed call
 SPIN_CYCLES = 1_000_000                  # device spin after each flush, ~0.5 ms
 KERNELS = ("mel", "xattn_decode", "flash_attention")
+BEAM = 5
+# config/model.yaml's accurate profile, as the server passes it to a decode
+ACCURATE = {"beam_size": BEAM, "best_of": 5, "patience": 1.0, "temperature": 0.0,
+            "length_penalty": 1.0, "without_timestamps": True,
+            "compression_ratio_threshold": 2.4, "no_speech_threshold": 0.6,
+            "log_prob_threshold": -1.0}
 
 
 def log(msg: str) -> None:
@@ -325,6 +357,20 @@ def check_served(E, W, engine, requests, results) -> None:
         fail("no two requests shared a batch")
 
 
+def served_decode_rows() -> list:
+    """Decoder rows of every served shape: each batch bucket of the shipped
+    ``config/server.yaml`` times each beam width of the shipped
+    ``config/model.yaml`` profiles (1 and 5: 1, 4, 16, 64, 5, 20, 80, 320)."""
+    import yaml
+
+    from stt_tpu_torch.config.loader import DEFAULT_CONFIG_PATH, DEFAULT_MODEL_CONFIG_PATH
+
+    buckets = yaml.safe_load(DEFAULT_CONFIG_PATH.read_text())["tpu"]["batch_buckets"]
+    profiles = yaml.safe_load(DEFAULT_MODEL_CONFIG_PATH.read_text())["model"]["decode_profiles"]
+    beams = sorted({int(p.get("beam_size", 1)) for p in profiles.values()})
+    return sorted({rows * beam for beam in beams for rows in buckets})
+
+
 def xattn_phase(torch, dev):
     """Phase 2 for the cross-attention decode kernel; returns the largest
     error and the numbers of the served path's case (4 rows x 1500 fp8)."""
@@ -358,6 +404,10 @@ def xattn_phase(torch, dev):
 
     cases = [(st, b, ta, 12) for b, ta in [(1, 50), (4, 500), (4, 1500), (16, 1500), (64, 500)]
              for st in ("bf16", "fp8", "int8")]
+    # every served shape over the 30 s bucket's keys (the beam path's among
+    # them: rows x beam) in the two narrow storages the policies select
+    cases += [(st, b, 1500, 12) for b in served_decode_rows() if b not in (4, 16)
+              for st in ("fp8", "int8")]
     cases += [("float32", 4, 500, 12), ("bf16", 4, 1500, 20)]
     # Ta above the one-block cap of the earlier kernel (8,128 fp8 keys), then
     # above 8 x CHUNK_MAX, which takes a non-portable cluster of 16
@@ -847,6 +897,158 @@ def serve_30s_phase(torch, E, W):
     return counts
 
 
+def beam_graphs_check(torch, E, W, engine, seconds: float, rows: int, tag: str) -> None:
+    """Phase 3e on one prewarmed beam entry: a group of ``rows`` requests
+    of ``seconds`` (alternately a fixed and a detected language, detected on
+    the rows before the beams replicate them) decoded at beam 5 by replaying
+    the captured chunk, by the same chunk uncaptured and by the uncaptured
+    ``beam_decode``; the first two must agree bit for bit, the third in
+    tokens and lengths."""
+    bucket = engine._bucket_for(int(seconds * 16000))
+    pcm = np.zeros((rows, int(bucket * 16000)), np.int16)
+    for i in range(rows):
+        audio = synth_audio(seconds * (0.6 + 0.4 * i / max(1, rows - 1)), seed=70 + i)
+        pcm[i, : len(audio)] = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    prompt = np.array([W.build_prompt(engine.config, "en")] * rows, np.int64)
+    auto = np.arange(rows) % 2 == 1
+    max_new = engine._max_new_for(bucket)
+    dev = engine.device
+    with engine._device_lock, torch.inference_mode():
+        rows_dev = torch.from_numpy(E._encode_wire_rows(pcm, engine.audio_wire)).to(dev)
+        enc = E._mel_encode(engine.model, rows_dev, engine._dtype)
+        entry = engine.graphs.lookup(bucket, rows, prompt.shape[1], max_new, BEAM)
+        ckv = W.precompute_cross_kv(engine.model.decoder, enc)
+        prompt_dev, _, _ = E._detect_and_patch_lang(
+            engine.model, enc, torch.from_numpy(prompt).to(dev), torch.from_numpy(auto).to(dev),
+            ckv, 1)
+        W.repeat_cross_kv(ckv, BEAM, out=entry.cross_kv)
+        plen = torch.full((rows,), prompt.shape[1], dtype=torch.long, device=dev)
+        got = {captured: engine.graphs.decode(entry, prompt_dev, plen, captured=captured)
+               for captured in (True, False)}
+        plain = W.beam_decode(engine.model, enc, prompt_dev, plen, max_new, beam_size=BEAM)
+        torch.cuda.synchronize()
+    a, b = got[True], got[False]
+    for name in ("tokens", "lengths", "sum_logprob"):
+        x, y = getattr(a, name), getattr(b, name)
+        if not torch.equal(x, y):
+            fail(f"beam graphs ({tag}): captured and uncaptured {name} differ: "
+                 f"{x.tolist()} vs {y.tolist()}")
+    for name in ("tokens", "lengths"):
+        if not torch.equal(getattr(a, name), getattr(plain, name)):
+            fail(f"beam graphs ({tag}): captured and beam_decode {name} differ: "
+                 f"{getattr(a, name).tolist()} vs {getattr(plain, name).tolist()}")
+    if not torch.isfinite(a.sum_logprob).all():
+        fail(f"beam graphs ({tag}): non-finite logprob sums {a.sum_logprob.tolist()}")
+    log(f"beam graphs ({tag}, {rows} x {bucket:g} s, beam {BEAM}, max_new {max_new}, "
+        f"{entry.launches.get('xattn_decode', 0)} xattn_decode launches a chunk): captured and "
+        f"uncaptured tokens, lengths and logprob sums bitwise identical, beam_decode's tokens "
+        f"and lengths identical (lengths {a.lengths.tolist()}, logprob sums "
+        f"{[round(x, 4) for x in a.sum_logprob.tolist()]}; beam_decode's differ by at most "
+        f"{(a.sum_logprob - plain.sum_logprob).abs().max().item():.3g})")
+
+
+def beam_step_times(torch, engine, bucket: float, rows: int, tag: str) -> dict:
+    """ms per beam-5 step, captured and eager (CUDA events), beside the
+    step's bound (the bytes it needs over the card's memory rate: the cross
+    K/V once a row, the self cache once) and beside the bytes this design
+    moves (the cross K/V once a beam, the self cache once more for the
+    reorder by parent beam)."""
+    from stt_tpu_torch import bench as B
+
+    ms = {c: B.decode_step_ms(engine, bucket, rows, captured=c, beam=BEAM) for c in (True, False)}
+    nbytes = B.decode_step_bytes(engine, bucket, rows, beam=BEAM)
+    entry = engine.graphs.lookup(bucket, rows, B.PROMPT_LEN, engine._max_new_for(bucket), BEAM)
+    cache = sum(t.numel() * t.element_size() for t in entry.state.cache)
+    cross = sum(t.numel() * t.element_size() for t in entry.cross_kv if t is not None)
+    design = nbytes + cross - cross // BEAM + cache
+    bound_ms = nbytes / H100_HBM_BYTES * 1e3
+    design_ms = design / H100_HBM_BYTES * 1e3
+    log(f"beam step ({tag}, {rows} x {bucket:g} s x beam {BEAM}): captured {ms[True]:.4f} ms, "
+        f"eager {ms[False]:.4f} ms; {nbytes / 1e6:.1f} MB a step needs (cross K/V once a row, "
+        f"self cache {cache / 1e6:.1f} MB once), bound {bound_ms:.4f} ms (bytes), captured at "
+        f"{bound_ms / ms[True]:.1%} of it; bytes of the repeated-cross, reorder design "
+        f"{design / 1e6:.1f} MB, {design_ms:.4f} ms")
+    return {"rows": rows, "captured_ms": ms[True], "eager_ms": ms[False],
+            "bytes": nbytes, "bound_ms": bound_ms, "design_bytes": design,
+            "design_ms": design_ms}
+
+
+def serve_beam_phase(torch, E, W, tag: str, policy: dict, durations, timing_rows):
+    """Phase 3e on one attention path: whisper-small bf16 at beam 5 (the
+    ``accurate`` profile), 4 concurrent requests of ``durations`` in one
+    bucket after a prewarm of that bucket at beam 5; returns the launch
+    counts of the run (counted as phase 3b counts them) and the step times
+    at ``timing_rows``."""
+    from stt_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from stt_tpu_torch.ops.kernels.mel import mel_logspec
+    from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode
+
+    engine = E.WhisperEngine(
+        "small", device="cuda", compute_type="bfloat16",
+        batch_buckets=(1, 4, 16, 64), batch_window_ms=50.0, max_decode_tokens=224, **policy,
+    )
+    cfg = engine.config
+    bucket = engine._bucket_for(int(max(durations) * 16000))
+    step = W._decoder_step
+    steps = [0]
+
+    def counted_step(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    try:
+        sizes = sorted({1, 4, *timing_rows})
+        sec = engine.prewarm([bucket], sizes, beam_sizes=[BEAM])
+        captures = engine.graph_captures
+        log(f"beam prewarm ({tag}, policy {engine.policy}): {bucket:g} s x "
+            f"{'/'.join(map(str, sizes))} rows at beam {BEAM} in {sec:.2f} s, {captures} beam "
+            f"graphs captured, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+        requests = [
+            E.DecodeRequest(synth_audio(d, seed=60 + i), language=None if i % 2 else "en",
+                            options=dict(ACCURATE), session_id=f"smoke-beam-{i}",
+                            is_final=True)
+            for i, d in enumerate(durations)
+        ]
+        W._decoder_step = counted_step
+        replayed = engine.graphs.replayed_launches()
+        replays = engine.graph_replays
+        mel_logspec.launches = xattn_decode.launches = flash_attention.launches = 0
+        results, wall = serve_concurrently(engine, requests)
+        W._decoder_step = step
+        in_graphs = {k: v - replayed[k] for k, v in engine.graphs.replayed_launches().items()}
+        counts = {"mel_logspec": mel_logspec.launches + in_graphs["mel_logspec"],
+                  "xattn_decode": xattn_decode.launches + in_graphs["xattn_decode"],
+                  "flash_attention": flash_attention.launches + in_graphs["flash_attention"],
+                  "xattn_decode_in_graphs": in_graphs["xattn_decode"],
+                  "graph_replays": engine.graph_replays - replays,
+                  "decoder_steps": steps[0] + W.FINISH_CHECK_EVERY * (
+                      engine.graph_replays - replays)}
+        served_captures = engine.graph_captures - captures
+        check_served(E, W, engine, requests, results)
+        if served_captures:
+            fail(f"beam ({tag}): {served_captures} decode graphs captured while serving "
+                 f"prewarmed shapes")
+        encodes = counts["mel_logspec"]
+        flash_on = engine.policy.flash_on(1500) and bucket == 30.0
+        if encodes <= 0 or counts["graph_replays"] <= 0:
+            fail(f"beam ({tag}): launches {counts}")
+        if counts["flash_attention"] != (cfg.n_audio_layer * encodes if flash_on else 0):
+            fail(f"beam ({tag}): flash_attention launched {counts['flash_attention']} times "
+                 f"for {encodes} encodes")
+        if counts["xattn_decode"] != (cfg.n_text_layer * counts["decoder_steps"]
+                                      if engine.policy.xattn_on else 0):
+            fail(f"beam ({tag}): xattn_decode launched {counts['xattn_decode']} times for "
+                 f"{counts['decoder_steps']} decoder steps")
+        log(f"beam ({tag}): served {len(requests)} accurate requests ({bucket:g} s bucket) in "
+            f"{wall:.3f} s; launches {counts}; no decode graph captured while serving")
+        beam_graphs_check(torch, E, W, engine, max(durations), 4, tag)
+        times = [beam_step_times(torch, engine, bucket, rows, tag) for rows in timing_rows]
+    finally:
+        W._decoder_step = step
+        engine.close()
+    return counts, times
+
+
 def graphs_f32_phase(torch, E, W) -> None:
     """Phase 3c for the ``test`` model in float32 on the card."""
     engine = E.WhisperEngine("test", device="cuda", compute_type="float32",
@@ -883,11 +1085,13 @@ def load_tool_audio(seconds: float, seed: int) -> bytes:
     return (sig * 32767).astype(np.int16).tobytes()
 
 
-def grpc_session(grpc, stt_pb2, stt_pb2_grpc, port: int, sid: str, pcm: bytes) -> dict:
+def grpc_session(grpc, stt_pb2, stt_pb2_grpc, port: int, sid: str, pcm: bytes,
+                 profile: int = 0) -> dict:
     """One streaming session as the load tool runs it: CreateSession with
-    partials on and language en, 100 ms chunks at 2x real time, then
-    ``is_final``. Returns the client's latencies, the finals and the
-    trailing metadata, or the error."""
+    partials on, language en and the decode ``profile`` (0: the server's
+    default), 100 ms chunks at 2x real time, then ``is_final``. Returns the
+    client's latencies, the finals and the trailing metadata, or the
+    error."""
     out = {"finals": [], "first_partial_s": None, "final_s": None, "error": None}
     step = 1600 * 2
     last_sent = [0.0]
@@ -895,8 +1099,8 @@ def grpc_session(grpc, stt_pb2, stt_pb2_grpc, port: int, sid: str, pcm: bytes) -
         stub = stt_pb2_grpc.STTBackendStub(channel)
         try:
             stub.CreateSession(stt_pb2.SessionRequest(
-                session_id=sid, attributes={"partial": "true"}, language_code="en"),
-                timeout=60)
+                session_id=sid, attributes={"partial": "true"}, language_code="en",
+                decode_profile=profile), timeout=60)
 
             def chunks():
                 for i in range(0, len(pcm), step):
@@ -948,15 +1152,17 @@ def wav_bytes(pcm: bytes) -> bytes:
     return buf.getvalue()
 
 
-def rest_transcribe(port: int, pcm: bytes):
+def rest_transcribe(port: int, pcm: bytes, profile: str = "realtime"):
     """(status, JSON payload) of one REST transcription of ``pcm`` with the
-    realtime profile and language en."""
+    ``profile`` (empty: none named, the plane's default ``accurate``) and
+    language en."""
     import urllib.error
     import urllib.request
 
+    named = f"decode_profile={profile}&" if profile else ""
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/v1/audio/transcriptions?decode_profile=realtime"
-        f"&language=en&response_format=verbose_json", data=wav_bytes(pcm), method="POST",
+        f"http://127.0.0.1:{port}/v1/audio/transcriptions?{named}"
+        f"language=en&response_format=verbose_json", data=wav_bytes(pcm), method="POST",
         headers={"content-type": "audio/wav"})
     try:
         with urllib.request.urlopen(req, timeout=120) as r:
@@ -1019,6 +1225,51 @@ def http_checks(torch, port: int, metrics: dict, shapes: int) -> None:
         f"{devices[0]['bytes_limit'] / 2**30:.1f} GiB")
 
 
+def accurate_checks(grpc, stt_pb2, stt_pb2_grpc, port: int, http_port: int, card: str) -> dict:
+    """Phase 5's ``accurate`` traffic (beam 5) after the realtime traffic:
+    one gRPC session with ``DECODE_PROFILE_ACCURATE``, one REST
+    transcription naming no profile, one ``batch_file`` client run in a
+    process of its own (its default profile); each timed."""
+    out = {}
+    t0 = time.monotonic()
+    session = grpc_session(grpc, stt_pb2, stt_pb2_grpc, port, "smoke-accurate",
+                           load_tool_audio(5.0, seed=102),
+                           profile=stt_pb2.DECODE_PROFILE_ACCURATE)
+    out["grpc_s"] = time.monotonic() - t0
+    if session["error"] or not session["finals"] or not all(
+            r.text.strip() and r.language_code == "en" for r in session["finals"]):
+        fail(f"accurate grpc: error {session['error']}, finals "
+             f"{[r.text[:40] for r in session['finals']]}")
+    log(f"accurate grpc: one session (5 s at 2x, partials on) in {out['grpc_s']:.2f} s, "
+        f"final {session['final_s']:.3f} s after the last chunk, "
+        f"{int(session['trailing']['stt-decode-count'])} decodes, inference "
+        f"{float(session['trailing']['stt-decode-inference-sec']):.4f} s, final "
+        f"{session['finals'][-1].text[:60]!r} ({card})")
+    t0 = time.monotonic()
+    status, payload = rest_transcribe(http_port, load_tool_audio(5.0, seed=103), profile="")
+    out["rest_s"] = time.monotonic() - t0
+    if status != 200 or not payload.get("text", "").strip():
+        fail(f"accurate rest: {status} {str(payload)[:300]}")
+    log(f"accurate rest: POST /v1/audio/transcriptions (5 s, no profile: accurate) 200 in "
+        f"{out['rest_s']:.3f} s, text {payload['text'][:60]!r} ({card})")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "stt_tpu_torch.client.batch_file", "--target",
+         f"127.0.0.1:{port}", "--language", "en", "--no-metrics"],
+        cwd=ROOT, capture_output=True, text=True, timeout=180)
+    out["batch_file_s"] = time.monotonic() - t0
+    lines = proc.stdout.splitlines()
+    texts = [lines[i + 2].split(" : ", 1)[1] for i, line in enumerate(lines)
+             if line == "[FINAL]" and lines[i + 2].lstrip().startswith("text")]
+    if proc.returncode != 0 or not texts or not all(t.strip() for t in texts):
+        fail(f"batch_file: exit {proc.returncode}, finals {texts}: "
+             f"{(proc.stdout + proc.stderr)[-1500:]}")
+    log(f"accurate batch_file: python3 -m stt_tpu_torch.client.batch_file (the bundled clip, "
+        f"its default profile accurate) exit 0 in {out['batch_file_s']:.2f} s (process "
+        f"included), {len(texts)} final(s), {texts[-1][:60]!r} ({card})")
+    return out
+
+
 def grpc_phase(torch, card: str) -> int:
     """Phase 5: the port's server in-process, gRPC, HTTP plane and (when
     ``websockets`` imports) WebSocket bridge, 8 concurrent streaming gRPC
@@ -1029,8 +1280,10 @@ def grpc_phase(torch, card: str) -> int:
     import tempfile
 
     import grpc
+    import yaml
 
     from stt_tpu_torch import bench as B
+    from stt_tpu_torch.config.loader import DEFAULT_MODEL_CONFIG_PATH
     from stt_tpu_torch.gen import stt_pb2, stt_pb2_grpc
     from stt_tpu_torch.ops.kernels.mel import mel_logspec
     from stt_tpu_torch.server import main as S
@@ -1040,6 +1293,13 @@ def grpc_phase(torch, card: str) -> int:
 
     with tempfile.TemporaryDirectory(prefix="smoke_grpc_") as tmp:
         server_yaml, model_yaml = B.e2e_configs(Path(tmp))
+        # the bench's narrowing drops the beam-5 accurate profile, which this
+        # phase serves: put the shipped profiles back, so the boot prewarms
+        # beams 1 and 5
+        model_cfg = yaml.safe_load(model_yaml.read_text())
+        model_cfg["model"]["decode_profiles"] = yaml.safe_load(
+            DEFAULT_MODEL_CONFIG_PATH.read_text())["model"]["decode_profiles"]
+        model_yaml.write_text(yaml.safe_dump(model_cfg))
         config = S.configure_from_args(S.parse_args([
             "--config", str(server_yaml), "--model-config", str(model_yaml),
             "--model", "small", "--compute-type", "bfloat16", "--language", "en",
@@ -1130,6 +1390,10 @@ def grpc_phase(torch, card: str) -> int:
             log(f"ws: one session through the bridge in {time.monotonic() - t3:.2f} s, "
                 f"{len(frames)} frames ({', '.join(sorted({f['type'] for f in frames}))}), "
                 f"final {finals[-1]['text'][:60]!r}")
+        accurate_checks(grpc, stt_pb2, stt_pb2_grpc, port, http.port, card)
+        if engine.graph_captures != shapes:
+            fail(f"accurate: {engine.graph_captures - shapes} decode graphs captured while "
+                 f"serving")
     finally:
         server_state["grpc_running"] = False
         server.stop(5.0).wait()
@@ -1450,6 +1714,16 @@ def main() -> None:
     graphs_f32_phase(torch, E, W)
     bench_phase()
 
+    # -- 3e. beam search at beam 5 (the accurate profile), both paths ----------
+    beam_int8, _ = serve_beam_phase(
+        torch, E, W, "int8 cross K/V, einsum",
+        dict(cross_kv_dtype="int8", xattn_kernel="off", flash_attention="off"),
+        [6.0, 7.5, 9.0, 10.0], (4, 64))
+    beam_30s, _ = serve_beam_phase(
+        torch, E, W, "fp8 cross K/V, both kernels",
+        dict(cross_kv_dtype="fp8", xattn_kernel="mm", flash_attention="auto"),
+        [12.0, 20.0, 25.0, 30.0], (4,))
+
     # -- 5. the gRPC streaming path (before 4: the server's engine is shut down first)
     grpc_phase(torch, card)
 
@@ -1465,7 +1739,7 @@ def main() -> None:
         "route": "cuda",
         "source": "stt_tpu_torch/ops/cuda/mel.cu",
         "replaces": "stt_tpu/ops/pallas/mel.py:84",
-        "launches": launches,
+        "launches": launches + beam_int8["mel_logspec"] + beam_30s["mel_logspec"],
         "max_abs_err": max(mel_err.values()),
         **headline,
     }, {
@@ -1473,7 +1747,7 @@ def main() -> None:
         "route": "cuda",
         "source": "stt_tpu_torch/ops/cuda/xattn_decode.cu",
         "replaces": "stt_tpu/ops/pallas/xattn_decode.py:186",
-        "launches": counts_30s["xattn_decode"],
+        "launches": counts_30s["xattn_decode"] + beam_30s["xattn_decode"],
         "max_abs_err": xattn_err,
         **xattn_headline,
     }, {
@@ -1481,7 +1755,7 @@ def main() -> None:
         "route": "cuda",
         "source": "stt_tpu_torch/ops/cuda/flash_attention.cu",
         "replaces": "stt_tpu/models/whisper.py:378",
-        "launches": counts_30s["flash_attention"],
+        "launches": counts_30s["flash_attention"] + beam_30s["flash_attention"],
         "max_abs_err": flash_err,
         **flash_headline,
     }, {

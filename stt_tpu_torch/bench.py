@@ -113,32 +113,39 @@ def whisper_request_flops(config, bucket_sec: float, p_len: int, gen_tokens: int
     return float(flops)
 
 
-def decode_step_bytes(engine: E.WhisperEngine, bucket_sec: float, rows: int) -> int:
+def decode_step_bytes(engine: E.WhisperEngine, bucket_sec: float, rows: int,
+                      beam: int = 1) -> int:
     """Bytes one decode step at this shape must move, each read or written
     once: the decoder's weights but its embedding tables, the token table
     as stored for the logits product (its rows read by the embedding gather
     are a few of them), the cross K/V (with int8 scales) and the whole self
     cache (the step attends over every slot), and the float32 logits
-    written."""
+    written. At ``beam`` above 1 the self cache and the logits are those of
+    rows x beam rows, but the cross K/V counts once a row: the beams of a
+    row share it, though the entry stores a copy a beam."""
     cfg, dec = engine.config, engine.model.decoder
     skip = {id(dec.tok), id(dec.pos)}
     weights = sum(p.numel() * p.element_size() for p in dec.parameters() if id(p) not in skip)
-    entry = engine.graphs.lookup(bucket_sec, rows, PROMPT_LEN, engine._max_new_for(bucket_sec))
+    entry = engine.graphs.lookup(bucket_sec, rows, PROMPT_LEN, engine._max_new_for(bucket_sec),
+                                 beam)
     cross = sum(t.numel() * t.element_size() for t in entry.cross_kv if t is not None)
     self_kv = sum(t.numel() * t.element_size() for t in entry.state.cache)
-    return int(weights + dec.tok.numel() * dec.tok.element_size() + cross + self_kv
-               + rows * cfg.n_vocab * 4)
+    return int(weights + dec.tok.numel() * dec.tok.element_size() + cross // beam + self_kv
+               + rows * beam * cfg.n_vocab * 4)
 
 
 def decode_step_ms(engine: E.WhisperEngine, bucket_sec: float, rows: int, *,
-                   captured: bool) -> float:
-    """Device ms per decode step at (``bucket_sec``, ``rows``) on the
-    shape's entry as the last group left it: CUDA events around each chunk,
-    replayed (``captured``) or run uncaptured, the first two chunks dropped
-    as warm-up, over ``FINISH_CHECK_EVERY`` steps a chunk. The position is
-    reset to the prompt's end before a chunk would pass T_max. The events
-    of an uncaptured chunk include the device's waits on the host."""
-    entry = engine.graphs.lookup(bucket_sec, rows, PROMPT_LEN, engine._max_new_for(bucket_sec))
+                   captured: bool, beam: int = 1) -> float:
+    """Device ms per decode step at (``bucket_sec``, ``rows``, ``beam``) on
+    the shape's entry as the last group left it: CUDA events around each
+    chunk, replayed (``captured``) or run uncaptured, the first two chunks
+    dropped as warm-up, over ``FINISH_CHECK_EVERY`` steps a chunk. The
+    position is reset to the prompt's end and every row (beam) marked
+    unfinished before a chunk would pass T_max; a beam step does its whole
+    work whether or not the search has stopped. The events of an uncaptured
+    chunk include the device's waits on the host."""
+    entry = engine.graphs.lookup(bucket_sec, rows, PROMPT_LEN, engine._max_new_for(bucket_sec),
+                                 beam)
     dec = engine.model.decoder
     st = entry.state
     pairs = []
@@ -152,7 +159,7 @@ def decode_step_ms(engine: E.WhisperEngine, bucket_sec: float, rows: int, *,
             if captured:
                 entry.graph.replay()
             else:
-                W._decode_chunk(dec, st, entry.cross_kv)
+                entry.chunk_fn(dec, st, entry.cross_kv)
             end.record()
             pairs.append((start, end))
         torch.cuda.synchronize()

@@ -1,12 +1,16 @@
 """WhisperEngine: one device-resident model serving many sessions.
 
-Counterpart of ``stt_tpu/engine/engine.py`` for the serving step at beam 1
-without timestamps — what every streaming partial and final takes:
+Counterpart of ``stt_tpu/engine/engine.py`` for the serving step without
+timestamps — greedy at beam 1, what every streaming partial and final
+takes, and beam search above it (the shipped ``accurate`` profile):
 
 - Requests enter a queue; the engine thread collects up to ``max_batch``
   of them within ``batch_window_ms``, groups compatible requests (same
-  audio bucket, same prompt shape and policy) and runs one batched
-  mel -> encode -> detect -> greedy-decode step per group.
+  audio bucket, same prompt shape and decode policy: suppress-blank, beam
+  width and, above beam 1, patience and length penalty) and runs one
+  batched mel -> encode -> detect -> decode step per group. Language
+  detection runs on the group's rows before the beams replicate them, as
+  the JAX package's ``_decode_serve`` detects before ``beam_decode``.
 - Audio pads to second buckets and rows to batch buckets, as in the JAX
   package, so the shapes a deployment sees stay few.
 - Rows travel to the device on the audio wire (``audio_wire``): 8-bit
@@ -24,13 +28,14 @@ without timestamps — what every streaming partial and final takes:
   ``audio_wire`` and ``pipeline_depth`` are read the same way from
   ``STT_AUDIO_WIRE`` (default mulaw) and ``STT_PIPELINE_DEPTH`` (default 2),
   parsed as the JAX package parses them.
-- The greedy decode of each group runs on its shape's entry in the decode
-  graph cache (:class:`~stt_tpu_torch.engine.graphs.DecodeGraphs`, the JAX
-  engine's exec cache): on the card a captured CUDA graph of the decode
-  chunk, replayed, and never an eager fallback; on the CPU the same chunk
-  uncaptured. :meth:`WhisperEngine.prewarm` builds the entries (and the
-  kernels, and cuBLAS's choices) of the shapes a deployment serves before
-  it serves them, so nothing is captured at serving time.
+- The decode of each group runs on its shape's entry in the decode graph
+  cache (:class:`~stt_tpu_torch.engine.graphs.DecodeGraphs`, the JAX
+  engine's exec cache), a greedy entry at beam 1 and a beam entry above
+  it: on the card a captured CUDA graph of the decode chunk, replayed, and
+  never an eager fallback; on the CPU the same chunk uncaptured.
+  :meth:`WhisperEngine.prewarm` builds the entries (and the kernels, and
+  cuBLAS's choices) of the shapes and beam widths a deployment serves
+  before it serves them, so nothing is captured at serving time.
 - The device phase returns one packed int32 array per group (tokens,
   lengths, logprob sum, p(no_speech), language index and probability);
   a harvester thread reads it back, detokenizes and resolves the futures,
@@ -60,11 +65,14 @@ naming the variable and its value: ``STT_DRAFT_PARTIALS`` on/always,
 ``STT_PREFILL=seq``. The shipped ``STT_DRAFT_PARTIALS=adaptive`` logs one
 warning that partials are served plain.
 
+Beam options are read as the JAX package reads them: ``beam_size``
+clamped to 1..8, ``patience`` (1..4, steps of 0.25; above 1 the pooled
+search), ``length_penalty`` (0..2, steps of 0.25) and ``suppress_blank``.
 Left for later slices (a request asking for them raises
-``NotImplementedError`` naming the option): beam search, timestamps,
-sampling and the temperature ladder, repetition penalty and n-gram bans,
-forced prefixes and conditioning prompts, clip ranges, word timestamps,
-drafted partials and the long-audio seek loop.
+``NotImplementedError`` naming the option): timestamps, sampling and the
+temperature ladder, repetition penalty and n-gram bans, forced prefixes and
+conditioning prompts, clip ranges, word timestamps, drafted partials and
+the long-audio seek loop.
 """
 
 from __future__ import annotations
@@ -229,15 +237,51 @@ class _Task:
         self.cancel_event = cancel_event
 
 
+def _beam_size_of(request: DecodeRequest) -> int:
+    """Effective beam width (``stt_tpu/engine/engine.py:222``): the
+    ``accurate`` profile sets 5, realtime 1; clamped to 1..8."""
+    try:
+        beam = int(request.options.get("beam_size", 1) or 1)
+    except (TypeError, ValueError):
+        beam = 1
+    return max(1, min(beam, W.MAX_BEAM))
+
+
+def _suppress_blank_of(request: DecodeRequest) -> bool:
+    """faster_whisper ``suppress_blank`` (default True): never start a
+    transcript with a lone space or an immediate eot (``:289``)."""
+    return bool(request.options.get("suppress_blank", True))
+
+
+def _length_penalty_of(request: DecodeRequest) -> float:
+    """CTranslate2's length-normalisation exponent, quantized to 0.25 and
+    clamped to 0..2 (``:295``); 1.0 is the plain average logprob."""
+    try:
+        p = float(request.options.get("length_penalty") or 1.0)
+    except (TypeError, ValueError):
+        p = 1.0
+    return max(0.0, min(round(p * 4) / 4, 2.0))
+
+
+def _patience_of(request: DecodeRequest) -> float:
+    """openai-whisper's beam patience, quantized to 0.25 and clamped to
+    1..4 (``:306``); only meaningful above beam 1."""
+    try:
+        p = float(request.options.get("patience") or 1.0)
+    except (TypeError, ValueError):
+        p = 1.0
+    return max(1.0, min(round(p * 4) / 4, 4.0))
+
+
 def _unsupported_option(options: Dict[str, Any]) -> Optional[str]:
     """The first option that asks for behaviour this slice does not serve,
-    as ``"name=value"``, or None. Values that mean "off" pass."""
+    as ``"name=value"``, or None. Values that mean "off" pass; beam options
+    are served."""
     def off(name, *defaults):
         value = options.get(name)
         return value is None or value in defaults
 
     checks = [
-        ("beam_size", off("beam_size", 0, 1, "1")),
         ("without_timestamps", bool(options.get("without_timestamps", True))),
         ("word_timestamps", not options.get("word_timestamps")),
         ("clip_timestamps", off("clip_timestamps", "", "0", 0, [0], [0.0])),
@@ -308,32 +352,45 @@ def _detect_and_patch_lang(model: W.Whisper, enc: torch.Tensor, prompt: torch.Te
 def _decode_serve(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
                   enc: torch.Tensor, prompt: torch.Tensor, prompt_len: torch.Tensor,
                   auto_mask: torch.Tensor, max_new_tokens: int,
-                  suppress_blank: bool = True, lang_pos: int = 1) -> torch.Tensor:
-    """Language detection -> greedy decode -> packed outputs, from an
-    encoder output, on the shape's entry of ``graphs``: the cross K/V is
-    computed once into the entry's buffers and shared by the detection step
-    and the decode. The packed result is a new tensor, enqueued after the
-    decode's last replay, so a next group of the same shape may reuse the
-    entry before this one is harvested."""
+                  suppress_blank: bool = True, lang_pos: int = 1, beam: int = 1,
+                  patience: float = 1.0, length_penalty: float = 1.0) -> torch.Tensor:
+    """Language detection -> decode -> packed outputs, from an encoder
+    output, on the shape's entry of ``graphs``: greedy at ``beam`` 1, beam
+    search above it (the JAX package's ``_decode_best``). At beam 1 the
+    cross K/V is computed once into the entry's buffers and shared by the
+    detection step and the decode; above it, computed once for the B rows,
+    used by the detection step, then repeated over the beams into the
+    entry's B*K rows, so the language is detected and patched into the
+    prompt before the beams replicate it. The packed result is a new
+    tensor, enqueued after the decode's last replay, so a next group of the
+    same shape may reuse the entry before this one is harvested."""
+    dec = model.decoder
     entry = graphs.entry(bucket_sec, enc.shape[0], prompt.shape[1], max_new_tokens,
-                         enc.shape[1])
-    cross_kv = W.precompute_cross_kv(model.decoder, enc, out=entry.cross_kv)
+                         enc.shape[1], beam, W.beam_candidates(beam, patience))
+    if beam == 1:
+        cross_kv = W.precompute_cross_kv(dec, enc, out=entry.cross_kv)
+    else:
+        cross_kv = W.precompute_cross_kv(dec, enc)
     prompt, lang_idx, lang_p = _detect_and_patch_lang(
         model, enc, prompt, auto_mask, cross_kv, lang_pos
     )
+    if beam > 1:
+        W.repeat_cross_kv(cross_kv, beam, out=entry.cross_kv)
     res = graphs.decode(entry, prompt, prompt_len, suppress_blank=suppress_blank,
-                        sot_pos=lang_pos - 1)
+                        sot_pos=lang_pos - 1, length_penalty=length_penalty)
     return _pack_result(res, lang_idx, lang_p)
 
 
 def _serve_step(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
                 rows: torch.Tensor, prompt: torch.Tensor, prompt_len: torch.Tensor,
                 auto_mask: torch.Tensor, dtype: torch.dtype, max_new_tokens: int,
-                suppress_blank: bool = True) -> torch.Tensor:
+                suppress_blank: bool = True, beam: int = 1, patience: float = 1.0,
+                length_penalty: float = 1.0) -> torch.Tensor:
     """The whole serving step: mel + encoder, then detect + decode + pack."""
     enc = _mel_encode(model, rows, dtype)
     return _decode_serve(model, graphs, bucket_sec, enc, prompt, prompt_len, auto_mask,
-                         max_new_tokens, suppress_blank)
+                         max_new_tokens, suppress_blank, beam=beam, patience=patience,
+                         length_penalty=length_penalty)
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -468,7 +525,7 @@ class WhisperEngine:
         if bad is not None:
             raise NotImplementedError(
                 f"option {bad} is not served by stt_tpu_torch yet "
-                f"(it serves greedy decodes without timestamps so far)"
+                f"(it serves greedy and beam decodes without timestamps so far)"
             )
         max_win = int(self.audio_buckets_sec[-1] * SAMPLE_RATE)
         max_win -= max_win % HOP_LENGTH
@@ -566,21 +623,22 @@ class WhisperEngine:
         mode: str = "execute",
         include_drafted: bool = False,
     ) -> float:
-        """Build every (audio bucket, batch bucket) shape up front; returns
-        the wall time in seconds (``stt_tpu/engine/engine.py:1293``).
+        """Build every (audio bucket, batch bucket, beam) shape up front;
+        returns the wall time in seconds (``stt_tpu/engine/engine.py:1293``).
 
         Each combination (``bucket_secs``, default every audio bucket, by
-        ``batch_sizes``, default the smallest batch bucket) runs one group
-        of zero-audio rows through the device phase: that builds the kernels
-        (``ops/cuda/build.py``), sets their function attributes, lets cuBLAS
-        and cuDNN pick their algorithms and captures the shape's decode
-        graph, so serving those shapes captures nothing. ``include_detect``
-        is accepted for call sites and unused (every group can detect);
-        ``parallelism`` is accepted and the shapes are built one after
-        another, since captures share one device and one memory pool. Raises
-        ``NotImplementedError`` for ``mode="aot"`` (ahead-of-time compiles
-        have no counterpart on the card), beam sizes above 1 and
-        ``include_drafted``: those belong to later slices.
+        ``batch_sizes``, default the smallest batch bucket, by
+        ``beam_sizes``, default beam 1, each clamped to 1..8) runs one group
+        of zero-audio rows through the device phase, at patience 1: that
+        builds the kernels (``ops/cuda/build.py``), sets their function
+        attributes, lets cuBLAS and cuDNN pick their algorithms and captures
+        the shape's decode graph, so serving those shapes captures nothing.
+        ``include_detect`` is accepted for call sites and unused (every group
+        can detect); ``parallelism`` is accepted and the shapes are built one
+        after another, since captures share one device and one memory pool.
+        Raises ``NotImplementedError`` for ``mode="aot"`` (ahead-of-time
+        compiles have no counterpart on the card) and ``include_drafted``
+        (a later slice).
         """
         del include_detect, parallelism
         if mode != "execute":
@@ -588,23 +646,21 @@ class WhisperEngine:
                 f"prewarm option mode={mode!r} is not served by stt_tpu_torch "
                 f"(only 'execute'; ahead-of-time compiles have no counterpart on the card)"
             )
-        if any(int(b) > 1 for b in (beam_sizes or ())):
-            raise NotImplementedError(
-                f"prewarm option beam_sizes={list(beam_sizes)!r} is not served by "
-                f"stt_tpu_torch yet (greedy decodes only)"
-            )
         if include_drafted:
             raise NotImplementedError(
                 "prewarm option include_drafted=True is not served by stt_tpu_torch yet "
                 "(drafted partials are a later slice)"
             )
+        beams = sorted({max(1, min(int(b), W.MAX_BEAM)) for b in (beam_sizes or (1,))})
         t0 = time.monotonic()
         for sec in bucket_secs or self.audio_buckets_sec:
             for rows in batch_sizes or (self.batch_buckets[0],):
-                audio = np.zeros(int(float(sec) * SAMPLE_RATE), np.float32)
-                group = [_Task(DecodeRequest(audio=audio, language="en"), None)
-                         for _ in range(int(rows))]
-                self._harvest(self._device_phase(group))
+                for beam in beams:
+                    audio = np.zeros(int(float(sec) * SAMPLE_RATE), np.float32)
+                    opts = {"beam_size": beam} if beam > 1 else {}
+                    group = [_Task(DecodeRequest(audio=audio, language="en", options=opts),
+                                   None) for _ in range(int(rows))]
+                    self._harvest(self._device_phase(group))
         return time.monotonic() - t0
 
     # -- threads --------------------------------------------------------------
@@ -637,12 +693,16 @@ class WhisperEngine:
 
     def _group_key(self, task: _Task) -> Tuple:
         """Two requests share a batch only when their audio bucket, prompt
-        length and group-wide decode policy match."""
+        length and group-wide decode policy match (``stt_tpu/engine/
+        engine.py:1617-1640``: patience and length penalty count only above
+        beam 1)."""
         request = task.request
         bucket = self._bucket_for(len(request.audio))
         p_len = len(self._prompt_for(request))
-        suppress_blank = bool(request.options.get("suppress_blank", True))
-        return (bucket, p_len, suppress_blank)
+        beam = _beam_size_of(request)
+        patience = _patience_of(request) if beam > 1 else 1.0
+        len_pen = _length_penalty_of(request) if beam > 1 else 1.0
+        return (bucket, p_len, beam, patience, len_pen, _suppress_blank_of(request))
 
     def _process(self, batch: List[_Task]) -> None:
         live: List[_Task] = []
@@ -737,9 +797,12 @@ class WhisperEngine:
         for i, p in enumerate(prompts):
             prompt_arr[i] = p
         max_new = self._max_new_for(bucket_sec)
-        suppress_blank = all(
-            bool(t.request.options.get("suppress_blank", True)) for t in group
-        )
+        # one policy per group (_group_key); a group built by hand takes its
+        # first request's beam options
+        suppress_blank = all(_suppress_blank_of(t.request) for t in group)
+        beam = _beam_size_of(group[0].request)
+        patience = _patience_of(group[0].request) if beam > 1 else 1.0
+        len_pen = _length_penalty_of(group[0].request) if beam > 1 else 1.0
 
         dev = self.device
         with self._device_lock, torch.inference_mode():
@@ -749,13 +812,15 @@ class WhisperEngine:
                 torch.from_numpy(prompt_arr).to(dev),
                 torch.full((batch_n,), p_len, dtype=torch.long, device=dev),
                 torch.from_numpy(auto_mask).to(dev),
-                self._dtype, max_new, suppress_blank,
+                self._dtype, max_new, suppress_blank, beam=beam, patience=patience,
+                length_penalty=len_pen,
             )
         return {
             "group": group, "packed": packed, "rows_dev": rows_dev,
             "durations": durations,
             "langs": langs, "p_len": p_len, "batch_n": batch_n, "n": n,
-            "bucket_sec": bucket_sec, "max_new": max_new, "t_start": t_start,
+            "bucket_sec": bucket_sec, "max_new": max_new, "beam": beam,
+            "t_start": t_start,
         }
 
     def _harvest(self, ctx: Dict[str, Any]) -> List[DecodeOutput]:

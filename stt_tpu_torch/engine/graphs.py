@@ -5,24 +5,31 @@ is a jitted ``lax.while_loop`` that decides on the device when to stop, its
 programs sit in an exec cache (``stt_tpu/engine/engine.py:794``,
 ``:1390-1530``) and ``prewarm`` builds them before serving. The port keeps
 one :class:`DecodeEntry` per (audio bucket, rows, prompt length, max_new,
-compute type, attention policy):
+compute type, attention policy, beam width, candidates):
 
-- the decode state (:class:`~stt_tpu_torch.models.whisper.DecodeState`:
-  self-KV cache, tokens, position, flags, logprob sums, the suppress and
-  begin masks built once from numpy) and the cross K/V in the policy's
-  storage (with int8 scales), allocated once;
-- on the card, one ``torch.cuda.CUDAGraph`` of
-  :func:`~stt_tpu_torch.models.whisper._decode_chunk` (``FINISH_CHECK_EVERY``
-  steps), captured after one uncaptured warm-up on a side stream (which
-  builds the kernels, sets their function attributes and lets cuBLAS pick
-  its algorithms). Every entry's graph draws on one memory pool.
+- the decode state, allocated once: at beam 1
+  (:class:`~stt_tpu_torch.models.whisper.DecodeState`: self-KV cache,
+  tokens, position, flags, logprob sums, the suppress and begin masks built
+  once from numpy), above it
+  (:class:`~stt_tpu_torch.models.whisper.BeamState`) the same for rows x
+  beams, with the pool of finished candidates when the candidate count
+  exceeds the beam (patience above 1); and the cross K/V in the policy's
+  storage (with int8 scales), for rows x beams rows, as the JAX package
+  repeats the encoder output over the beams before computing it;
+- on the card, one ``torch.cuda.CUDAGraph`` of one chunk of
+  ``FINISH_CHECK_EVERY`` steps (:func:`~stt_tpu_torch.models.whisper._decode_chunk`
+  or :func:`~stt_tpu_torch.models.whisper._beam_chunk`), captured after one
+  uncaptured warm-up on a side stream (which builds the kernels, sets their
+  function attributes and lets cuBLAS pick its algorithms). Every entry's
+  graph draws on one memory pool.
 
 :meth:`DecodeGraphs.decode` runs the prefill eagerly, then replays the
-chunk until every row has finished or ``max_new`` steps ran, reading
-all-rows-finished on the host once per chunk, as the uncaptured loop does.
+chunk until the loop's condition fails (every row finished; for beams,
+every beam finished or every pool full) or ``max_new`` steps ran, reading
+the condition on the host once per chunk, as the uncaptured loops do.
 On the card serving goes through the graph and nothing else: a capture or a
 replay that fails raises. On the CPU the entries hold the same buffers and
-the same ``_decode_chunk`` runs uncaptured.
+the same chunk runs uncaptured.
 
 Kernel wrappers count their launches in Python, so a replay adds nothing
 to them: each entry records the launches its capture made (one chunk's) and
@@ -36,7 +43,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import torch
 
@@ -57,6 +64,8 @@ class GraphKey(NamedTuple):
     max_new: int
     compute: torch.dtype
     policy: W.AttentionPolicy
+    beam: int = 1        # beams per row; 1 is the greedy decode
+    candidates: int = 1  # finished hypotheses kept per row (beam_candidates)
 
 
 @dataclass
@@ -64,8 +73,8 @@ class DecodeEntry:
     """The buffers, and on the card the graph, of one served shape."""
 
     key: GraphKey
-    state: W.DecodeState
-    cross_kv: W.CrossKV
+    state: Union[W.DecodeState, W.BeamState]
+    cross_kv: W.CrossKV  # rows x beams rows
     graph: Optional["torch.cuda.CUDAGraph"] = None
     launches: Dict[str, int] = field(default_factory=dict)  # per replay (one chunk)
     replays: int = 0
@@ -73,6 +82,11 @@ class DecodeEntry:
     @property
     def chunks(self) -> int:
         return self.key.max_new // W.FINISH_CHECK_EVERY
+
+    @property
+    def chunk_fn(self) -> Callable:
+        """The chunk this entry replays: greedy at beam 1, else beam."""
+        return W._decode_chunk if self.key.beam == 1 else W._beam_chunk
 
 
 class DecodeGraphs:
@@ -95,21 +109,27 @@ class DecodeGraphs:
     def __len__(self) -> int:
         return len(self._entries)
 
-    def key(self, bucket_sec: float, rows: int, p_len: int, max_new: int) -> GraphKey:
+    def key(self, bucket_sec: float, rows: int, p_len: int, max_new: int,
+            beam: int = 1, candidates: Optional[int] = None) -> GraphKey:
         """The entry key; ``max_new`` must be a positive multiple of
         ``FINISH_CHECK_EVERY`` (the engine's ``max_new_for`` always is), so
-        the chunks cover it exactly."""
+        the chunks cover it exactly. ``candidates`` defaults to the beam
+        (the frozen-slot search) and is at least the beam."""
         if max_new <= 0 or max_new % W.FINISH_CHECK_EVERY:
             raise ValueError(f"max_new={max_new} is not a positive multiple of "
                              f"{W.FINISH_CHECK_EVERY}, the steps of one captured chunk")
+        if not 1 <= int(beam) <= W.MAX_BEAM:
+            raise ValueError(f"beam={beam} is not within 1..{W.MAX_BEAM}")
+        beam = int(beam)
+        candidates = beam if candidates is None or beam == 1 else max(beam, int(candidates))
         return GraphKey(float(bucket_sec), int(rows), int(p_len), int(max_new), self.dtype,
-                        self.model.decoder.policy)
+                        self.model.decoder.policy, beam, candidates)
 
     def entry(self, bucket_sec: float, rows: int, p_len: int, max_new: int,
-              n_audio: int) -> DecodeEntry:
+              n_audio: int, beam: int = 1, candidates: Optional[int] = None) -> DecodeEntry:
         """The entry of this shape (``n_audio`` encoder positions at
         ``bucket_sec``), built and on the card captured on first use."""
-        key = self.key(bucket_sec, rows, p_len, max_new)
+        key = self.key(bucket_sec, rows, p_len, max_new, beam, candidates)
         with self._lock:
             found = self._entries.get(key)
             if found is None:
@@ -120,9 +140,10 @@ class DecodeGraphs:
                              f"positions, asked for {n_audio}")
         return found
 
-    def lookup(self, bucket_sec: float, rows: int, p_len: int, max_new: int) -> DecodeEntry:
+    def lookup(self, bucket_sec: float, rows: int, p_len: int, max_new: int,
+               beam: int = 1, candidates: Optional[int] = None) -> DecodeEntry:
         """The entry of this shape if it was built; KeyError otherwise."""
-        key = self.key(bucket_sec, rows, p_len, max_new)
+        key = self.key(bucket_sec, rows, p_len, max_new, beam, candidates)
         with self._lock:
             return self._entries[key]
 
@@ -133,31 +154,38 @@ class DecodeGraphs:
         caller is in inference mode), so they can be updated in place
         anywhere; on the card warms up and captures the chunk."""
         dec = self.model.decoder
+        config = self.model.config
+        if key.beam == 1:
+            state = W.init_decode_state(config, key.rows, key.p_len, key.max_new,
+                                        self.dtype, self.device)
+        else:
+            state = W.init_beam_state(config, key.rows, key.beam, key.candidates, key.p_len,
+                                      key.max_new, self.dtype, self.device)
         entry = DecodeEntry(
-            key=key,
-            state=W.init_decode_state(self.model.config, key.rows, key.p_len, key.max_new,
-                                      self.dtype, self.device),
-            cross_kv=W.empty_cross_kv(dec, key.rows, n_audio, self.dtype, self.device),
+            key=key, state=state,
+            cross_kv=W.empty_cross_kv(dec, key.rows * key.beam, n_audio, self.dtype,
+                                      self.device),
         )
         if self.device.type != "cuda":
             return entry
         # a state the warm-up and the capture can step from: position p_len
-        # with an eot prompt (any start a chunk of steps stays inside T_max)
+        # with an eot prompt (any start a chunk of steps stays inside T_max;
+        # a beam step launches the same kernels whether or not it is gated)
         t0 = time.monotonic()
         st = entry.state
-        st.tokens.fill_(W.token_layout(self.model.config.n_vocab).eot)
+        st.tokens.fill_(W.token_layout(config.n_vocab).eot)
         st.prompt_len.fill_(key.p_len)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             st.pos.fill_(key.p_len)
-            W._decode_chunk(dec, st, entry.cross_kv)
+            entry.chunk_fn(dec, st, entry.cross_kv)
         torch.cuda.current_stream(self.device).wait_stream(side)
         st.pos.fill_(key.p_len)
         before = {name: fn.launches for name, fn in KERNELS.items()}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
-            W._decode_chunk(dec, st, entry.cross_kv)
+            entry.chunk_fn(dec, st, entry.cross_kv)
         entry.launches = {name: fn.launches - before[name] for name, fn in KERNELS.items()}
         entry.graph = graph
         self.graph_captures += 1
@@ -167,15 +195,17 @@ class DecodeGraphs:
 
     @torch.no_grad()
     def decode(self, entry: DecodeEntry, prompt: torch.Tensor, prompt_len: torch.Tensor, *,
-               suppress_blank: bool = True, sot_pos: int = 0,
+               suppress_blank: bool = True, sot_pos: int = 0, length_penalty: float = 1.0,
                captured: Optional[bool] = None) -> W.DecodeResult:
-        """Greedy decode of one group on ``entry``, whose cross K/V already
-        holds the group's (``precompute_cross_kv(..., out=entry.cross_kv)``):
-        the prefill, then one chunk at a time until every row has finished.
-        On the card the chunks replay the graph; ``captured=False`` runs the
-        same chunks uncaptured instead (to hold the two against each other).
-        The result is copied out of the entry's buffers, so the next group
-        may reuse them once it is enqueued behind this one."""
+        """Decode of one group on ``entry``, whose cross K/V already holds
+        the group's (``precompute_cross_kv(..., out=entry.cross_kv)``, over
+        the beams for a beam entry: ``repeat_cross_kv``): the prefill, then
+        one chunk at a time until the loop's condition fails; a beam entry
+        returns each row's best beam under ``length_penalty``. On the card
+        the chunks replay the graph; ``captured=False`` runs the same chunks
+        uncaptured instead (to hold the two against each other). The result
+        is copied out of the entry's buffers, so the next group may reuse
+        them once it is enqueued behind this one."""
         key = entry.key
         if tuple(prompt.shape) != (key.rows, key.p_len):
             raise ValueError(f"{key}: prompt of shape {tuple(prompt.shape)}")
@@ -185,17 +215,21 @@ class DecodeGraphs:
             raise RuntimeError(f"{key}: no captured graph on {self.device}")
         dec = self.model.decoder
         st = entry.state
-        no_speech = W.start_decode(dec, st, prompt, prompt_len, entry.cross_kv,
-                                   suppress_blank=suppress_blank, sot_pos=sot_pos)
+        beam = key.beam > 1
+        start = W.start_beam if beam else W.start_decode
+        no_speech = start(dec, st, prompt, prompt_len, entry.cross_kv,
+                          suppress_blank=suppress_blank, sot_pos=sot_pos)
         for _ in range(entry.chunks):
             if captured:
                 entry.graph.replay()
                 entry.replays += 1
                 self.graph_replays += 1
             else:
-                W._decode_chunk(dec, st, entry.cross_kv)
-            if bool(st.finished.all()):
+                entry.chunk_fn(dec, st, entry.cross_kv)
+            if not bool(W.beam_running(st)) if beam else bool(st.finished.all()):
                 break
+        if beam:
+            return W.finish_beam(st, key.p_len, no_speech, length_penalty)
         return W.finish_decode(st, key.p_len, no_speech)
 
     def replayed_launches(self) -> Dict[str, int]:

@@ -7,8 +7,8 @@ where the card differs: ``load_model`` builds the port's
 ``cpu`` names the host and ``cuda``, ``cuda:N``, ``gpu`` and ``tpu`` (the
 accelerator name the shipped YAML uses) the card, which must be there; a
 ``mesh_shape`` other than 1x1 raises ``NotImplementedError``; prewarm runs
-the engine's one mode (``execute``) at beam 1, logging configured beams
-above 1 as not served; and :meth:`EnginePool._dispatch` turns a refusal
+the engine's one mode (``execute``) at every beam width of the configured
+decode profiles; and :meth:`EnginePool._dispatch` turns a refusal
 from ``engine.submit`` into the task's exception instead of losing the
 dispatcher thread.
 
@@ -442,7 +442,7 @@ class ModelRegistry:
                 engine_kwargs.pop("prewarm_batch_sizes", [1]),
             )
             # beam widths reachable through the configured decode profiles
-            # (e.g. `accurate` beam_size=5); the engine serves beam 1 only
+            # (e.g. `accurate` beam_size=5), each prewarmed at boot
             prewarm_beams = options.get(
                 "prewarm_beam_sizes",
                 engine_kwargs.pop("prewarm_beam_sizes", [1]),
@@ -511,21 +511,14 @@ class ModelRegistry:
                 beams = sorted({
                     max(1, min(int(bm), 8)) for bm in (prewarm_beams or [1])
                 })
-                if beams != [1]:
-                    LOGGER.warning(
-                        "beam sizes %s of the configured decode profiles are not "
-                        "served by stt_tpu_torch yet; a session asking for them "
-                        "gets a decode error; prewarming beam 1 only",
-                        [bm for bm in beams if bm > 1],
-                    )
                 for eng in engines:
                     eng.prewarm(
                         batch_sizes=sizes, include_detect=True,
-                        beam_sizes=[1], mode="execute", include_drafted=False,
+                        beam_sizes=beams, mode="execute", include_drafted=False,
                     )
                 LOGGER.info(
-                    "prewarmed model_id=%s shapes=%sx%s (%d decode graphs) in %.1fs",
-                    model_id, engines[0].audio_buckets_sec, sizes,
+                    "prewarmed model_id=%s shapes=%sx%sx beams %s (%d decode graphs) "
+                    "in %.1fs", model_id, engines[0].audio_buckets_sec, sizes, beams,
                     engines[0].graph_captures, time.monotonic() - t0,
                 )
         else:

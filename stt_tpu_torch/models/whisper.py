@@ -1,8 +1,10 @@
-"""Whisper encoder/decoder in PyTorch with KV-cached greedy decoding.
+"""Whisper encoder/decoder in PyTorch with KV-cached greedy decoding and
+beam search.
 
-Counterpart of ``stt_tpu/models/whisper.py`` for the serving step at
-beam 1 without timestamps. Layouts and numerics follow the JAX package so
-that the two can be held against each other on identical weights:
+Counterpart of ``stt_tpu/models/whisper.py`` for the serving step without
+timestamps, greedy at beam 1 and beam search above it. Layouts and
+numerics follow the JAX package so that the two can be held against each
+other on identical weights:
 
 - Parameters keep the JAX layouts (linear weights (d_in, d_out), conv
   kernels (K, C_in, C_out)); :func:`init_params` draws them with the same
@@ -49,6 +51,15 @@ result is the JAX package's. No step reads a value back to the host, so
 the card can capture a chunk once as a CUDA graph and replay it
 (``stt_tpu_torch/engine/graphs.py``); on the CPU the same function runs
 uncaptured.
+
+Beam search (:func:`beam_decode`, the ``accurate`` profile) is split the
+same way over a :class:`BeamState` of rows x beams: :func:`start_beam`,
+then :func:`_beam_chunk` (the frozen-slot search, or the pooled one when
+patience asks for more finished candidates than beams), then
+:func:`finish_beam`. The host reads the JAX loop's condition
+(:func:`beam_running`) once a chunk; since each step is gated on that
+condition on the device, steps past the stop change nothing. The top-K
+keeps ``lax.top_k``'s order among equal scores (:func:`_top_k`).
 """
 
 from __future__ import annotations
@@ -606,7 +617,8 @@ def _tok_logits(dec: TextDecoder, x: torch.Tensor) -> torch.Tensor:
 
 
 def _decoder_step(dec: TextDecoder, tokens: torch.Tensor, pos: Union[int, torch.Tensor],
-                  cache: KVCache, cross_kv: CrossKV) -> torch.Tensor:
+                  cache: KVCache, cross_kv: CrossKV,
+                  gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode position for the whole batch at scalar position ``pos``
     (a 0-d int64 tensor on the tokens' device; a Python int is filled in
     there, with no host-to-device copy): tokens (B,) -> logits (B, V)
@@ -614,7 +626,9 @@ def _decoder_step(dec: TextDecoder, tokens: torch.Tensor, pos: Union[int, torch.
     all T_max slots under the mask ``slot <= pos``, as the JAX package's
     scalar-``pos`` step does. Every shape is the same at every position and
     nothing is read back to the host, so the step can be captured in a CUDA
-    graph."""
+    graph. With ``gate`` (a 0-d bool tensor) false, the slot keeps what it
+    held: the step runs and writes nothing (the beam loop's steps past its
+    stop)."""
     n_head = dec.n_head
     if not torch.is_tensor(pos):
         pos = torch.full((), pos, dtype=torch.long, device=tokens.device)
@@ -628,8 +642,12 @@ def _decoder_step(dec: TextDecoder, tokens: torch.Tensor, pos: Union[int, torch.
         qh = _split_heads(block.attn.q(hn), n_head) * scale
         k_new = _split_heads(block.attn.k(hn), n_head) * scale
         v_new = _split_heads(block.attn.v(hn), n_head)
-        cache.k[li].index_copy_(2, slot, k_new.to(cache.k.dtype))
-        cache.v[li].index_copy_(2, slot, v_new.to(cache.v.dtype))
+        k_new, v_new = k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)
+        if gate is not None:
+            k_new = torch.where(gate, k_new, cache.k[li].index_select(2, slot))
+            v_new = torch.where(gate, v_new, cache.v[li].index_select(2, slot))
+        cache.k[li].index_copy_(2, slot, k_new)
+        cache.v[li].index_copy_(2, slot, v_new)
         attn_out = _attn_cached(qh, cache.k[li], cache.v[li], mask).to(h.dtype)
         h = h + block.attn.o(_merge_heads(attn_out))
         qx = _split_heads(block.xattn.q(block.ln_x(h)), n_head) * scale
@@ -874,6 +892,335 @@ def greedy_decode(
     return finish_decode(state, p_len, no_speech_prob)
 
 
+# ---------------------------------------------------------------------------
+# Beam search (the `accurate` decode profile)
+# ---------------------------------------------------------------------------
+
+# the JAX package's score of a beam that may not be chosen and of an empty
+# pool entry (``neg_inf = float32(-1e9)`` in ``beam_decode``)
+BEAM_NEG = -1e9
+MAX_BEAM = 8  # stt_tpu/engine/engine.py:_beam_size_of clamps to 1..8
+
+
+def beam_candidates(beam_size: int, patience: float) -> int:
+    """Finished hypotheses collected per row: ``round(beam_size *
+    patience)``, at least the beam (openai-whisper's patience). Equal to the
+    beam, the frozen-slot search runs; above it, the pooled one."""
+    return max(beam_size, int(round(beam_size * float(patience))))
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: the ``k`` largest values in
+    descending order with their indices, a tie going to the lower index.
+    ``torch.topk`` promises no order among equal values, and beam scores tie
+    (-1e9 plus a log-probability rounds to -1e9; empty pool entries all read
+    -1e9), so the selection runs on unique int64 keys: the float's bits
+    mapped to an order-preserving integer (-0.0 below 0.0, as in XLA's
+    total order), then the index reversed in the low bits."""
+    n = x.shape[-1]
+    shift = 1 << max(1, (n - 1).bit_length())
+    bits = x.contiguous().view(torch.int32)
+    mono = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).long()
+    key = mono * shift + (n - 1 - torch.arange(n, device=x.device))
+    idx = torch.topk(key, k, dim=-1).indices
+    return torch.gather(x, -1, idx), idx
+
+
+class BeamState(NamedTuple):
+    """Everything a beam search reads and writes, allocated once for a
+    (rows B, beam K, candidates C, prompt length, max_new) shape and updated
+    in place, so a CUDA graph of :func:`_beam_chunk` can be replayed against
+    it. Beam rows are ordered (B, K), as the JAX package repeats them. The
+    pool exists only for the pooled search (C > K)."""
+
+    tokens: torch.Tensor       # (B, K, T_max) int64: prompt + generated, eot-padded
+    cache: KVCache             # self-attention K/V, (L, B*K, H, T_max, Dh)
+    pos: torch.Tensor          # () int64: the position the next step writes
+    p_len: torch.Tensor        # () int64: the prompt's width
+    finished: torch.Tensor     # (B, K) bool (frozen-slot search)
+    sum_lp: torch.Tensor       # (B, K) float32: beam scores
+    prompt_len: torch.Tensor   # (B,) int64: each row's logical prompt length
+    suppress: torch.Tensor     # (V,) float32: :func:`_suppress_mask`
+    begin_blank: torch.Tensor  # (V,) float32: :func:`_sample_begin_mask`
+    begin: torch.Tensor        # (V,) float32: ``begin_blank`` or zeros, per call
+    eot_only: torch.Tensor     # (V,) float32: a finished beam's continuation
+    pool_tokens: Optional[torch.Tensor]  # (B, C, T_max) int64
+    pool_lp: Optional[torch.Tensor]      # (B, C) float32, BEAM_NEG when empty
+    pool_len: Optional[torch.Tensor]     # (B, C) int64: index of the eot
+
+
+def init_beam_state(config: WhisperConfig, batch: int, beam: int, candidates: int,
+                    p_len: int, max_new: int, dtype: torch.dtype,
+                    device: torch.device) -> BeamState:
+    """Zeroed beam state for ``batch`` rows of ``beam`` beams, with a pool
+    of ``candidates`` entries when that exceeds the beam."""
+    t_max = p_len + max_new
+    layout = token_layout(config.n_vocab)
+    eot_only = np.full(config.n_vocab, BEAM_NEG, np.float32)
+    eot_only[layout.eot] = 0.0
+    pooled = candidates > beam
+
+    def const(mask: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(mask).to(device)
+
+    def zeros(*shape, dtype=torch.long):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return BeamState(
+        tokens=zeros(batch, beam, t_max),
+        cache=init_kv_cache(config, batch * beam, t_max, dtype, device),
+        pos=zeros(),
+        p_len=zeros(),
+        finished=zeros(batch, beam, dtype=torch.bool),
+        sum_lp=zeros(batch, beam, dtype=torch.float32),
+        prompt_len=zeros(batch),
+        suppress=const(_suppress_mask(config)),
+        begin_blank=const(_sample_begin_mask(config)),
+        begin=zeros(config.n_vocab, dtype=torch.float32),
+        eot_only=const(eot_only),
+        pool_tokens=zeros(batch, candidates, t_max) if pooled else None,
+        pool_lp=zeros(batch, candidates, dtype=torch.float32) if pooled else None,
+        pool_len=zeros(batch, candidates) if pooled else None,
+    )
+
+
+def repeat_cross_kv(ckv: CrossKV, beam: int, out: Optional[CrossKV] = None) -> CrossKV:
+    """Cross K/V of B rows repeated over ``beam`` beams, rows in (B, K)
+    order: what the JAX package computes from ``jnp.repeat(enc_out, k)``,
+    since every row's K/V (and int8 scales) depend on that row alone. With
+    ``out`` (buffers of B*K rows) written in place and returned."""
+    if out is None:
+        return CrossKV(*(None if t is None else t.repeat_interleave(beam, dim=1)
+                         for t in ckv))
+    for src, dst in zip(ckv, out):
+        if src is not None:
+            l, b = src.shape[:2]
+            dst.view(l, b, beam, *src.shape[2:]).copy_(src[:, :, None])
+    return out
+
+
+def start_beam(dec: TextDecoder, state: BeamState, prompt: torch.Tensor,
+               prompt_len: torch.Tensor, cross_kv: CrossKV, *,
+               suppress_blank: bool = True, sot_pos: int = 0) -> torch.Tensor:
+    """Reset ``state`` for a new group (``stt_tpu/models/whisper.py:
+    2157-2173``): every beam holds the prompt (B, P), eot past it; position
+    P; beam 0 scores 0 and the others -1e9, so the first expansion
+    diversifies; the pool empty. The prefill runs on all B*K rows
+    (``cross_kv`` of B*K rows); returns p(no_speech) of beam 0 at
+    ``sot_pos``."""
+    layout = token_layout(dec.tok.shape[0])
+    b, k, t_max = state.tokens.shape
+    p_len = prompt.shape[1]
+    state.tokens.fill_(layout.eot)
+    state.tokens[:, :, :p_len].copy_(prompt[:, None, :])
+    state.prompt_len.copy_(prompt_len)
+    state.pos.fill_(p_len)
+    state.p_len.fill_(p_len)
+    state.finished.zero_()
+    state.sum_lp.fill_(BEAM_NEG)
+    state.sum_lp[:, 0] = 0.0
+    if suppress_blank:
+        state.begin.copy_(state.begin_blank)
+    else:
+        state.begin.zero_()
+    if state.pool_lp is not None:
+        state.pool_tokens.fill_(layout.eot)
+        state.pool_lp.fill_(BEAM_NEG)
+        state.pool_len.fill_(p_len)
+    nsp = _prefill(dec, state.tokens.view(b * k, t_max), p_len, state.cache, cross_kv,
+                   sot_pos, layout)
+    return nsp.view(b, k)[:, 0]
+
+
+def beam_running(state: BeamState) -> torch.Tensor:
+    """0-d bool: whether the JAX loop's condition holds, i.e. the next step
+    runs. Frozen-slot: a position is left and some beam is unfinished
+    (``:2204-2208``); pooled: a position is left and some row's pool has a
+    free entry (``:1946-1952``)."""
+    left = state.pos < state.tokens.shape[2]
+    if state.pool_lp is None:
+        return left & ~state.finished.all()
+    full = (state.pool_lp > BEAM_NEG / 2).sum(dim=1) >= state.pool_lp.shape[1]
+    return left & ~full.all()
+
+
+def _beam_logprobs(dec: TextDecoder, st: BeamState, cross_kv: CrossKV,
+                   run: torch.Tensor, begin_at: torch.Tensor) -> torch.Tensor:
+    """One decoder step over every beam row at ``pos - 1`` (its cache write
+    gated by ``run``), the suppress mask and, where ``begin_at``, the begin
+    mask: log-probabilities (B, K, V)."""
+    b, k, t_max = st.tokens.shape
+    last = st.tokens.view(b * k, t_max).index_select(1, st.pos.reshape(1) - 1)[:, 0]
+    logits = _decoder_step(dec, last, st.pos - 1, st.cache, cross_kv, gate=run)
+    logits = logits.view(b, k, -1) + st.suppress + torch.where(begin_at, st.begin, 0.0)
+    return torch.log_softmax(logits, dim=-1)
+
+
+def _gather_beams(x: torch.Tensor, parent: torch.Tensor) -> torch.Tensor:
+    """Rows of x (B, K', ...) picked by ``parent`` (B, N): (B, N, ...)."""
+    index = parent.reshape(*parent.shape, *([1] * (x.dim() - 2)))
+    return torch.gather(x, 1, index.expand(*parent.shape, *x.shape[2:]))
+
+
+def _commit_beams(st: BeamState, run: torch.Tensor, parent: torch.Tensor,
+                  new_tok: torch.Tensor) -> None:
+    """Reorder the beams by ``parent`` (B, K) and append ``new_tok`` at
+    ``pos``, where ``run``; the self cache is gathered by parent on the
+    flattened B*K axis and written back in place (an identity gather when
+    not running). Advances ``pos`` by ``run``."""
+    b, k, t_max = st.tokens.shape
+    parent = torch.where(run, parent, torch.arange(k, device=parent.device))
+    tokens = _gather_beams(st.tokens, parent)
+    at = st.pos.clamp(max=t_max - 1).reshape(1)  # past T_max only when not running
+    tokens.index_copy_(2, at, new_tok[:, :, None])
+    st.tokens.copy_(torch.where(run, tokens, st.tokens))
+    rows = (torch.arange(b, device=parent.device)[:, None] * k + parent).reshape(-1)
+    for buf in st.cache:
+        buf.copy_(buf.index_select(1, rows))
+    st.pos.add_(run.to(st.pos.dtype))
+
+
+def _beam_step(dec: TextDecoder, st: BeamState, cross_kv: CrossKV) -> None:
+    """One step of the frozen-slot search (``stt_tpu/models/whisper.py:
+    2210-2270``), every update gated on the loop's condition at the step's
+    start: a finished beam continues with ``eot_only`` (its score frozen),
+    the best K of the K*V candidates become the beams."""
+    b, k, _ = st.tokens.shape
+    v = st.suppress.shape[0]
+    eot = token_layout(v).eot
+    run = beam_running(st)
+    logprobs = _beam_logprobs(dec, st, cross_kv, run,
+                              (st.pos == st.prompt_len)[:, None, None])
+    step_lp = torch.where(st.finished[:, :, None], st.eot_only, logprobs)
+    top_vals, top_idx = _top_k((st.sum_lp[:, :, None] + step_lp).view(b, k * v), k)
+    parent, new_tok = top_idx // v, top_idx % v
+    finished = torch.gather(st.finished, 1, parent) | (new_tok == eot)
+    st.finished.copy_(torch.where(run, finished, st.finished))
+    st.sum_lp.copy_(torch.where(run, top_vals, st.sum_lp))
+    _commit_beams(st, run, parent, new_tok)
+
+
+def _beam_pooled_step(dec: TextDecoder, st: BeamState, cross_kv: CrossKV) -> None:
+    """One step of the pooled search (``stt_tpu/models/whisper.py:
+    1954-2042``), gated as :func:`_beam_step`: the best 2K candidates; those
+    ending in eot are banked into the pool (the best C of pool and
+    newcomers stay), the best K others stay live."""
+    b, k, t_max = st.tokens.shape
+    c = st.pool_lp.shape[1]
+    v = st.suppress.shape[0]
+    eot = token_layout(v).eot
+    run = beam_running(st)
+    logprobs = _beam_logprobs(dec, st, cross_kv, run, st.pos == st.p_len)
+    top_vals, top_idx = _top_k((st.sum_lp[:, :, None] + logprobs).view(b, k * v), 2 * k)
+    parent, new_tok = top_idx // v, top_idx % v
+    is_eot = new_tok == eot
+
+    cand_tokens = _gather_beams(st.tokens, parent)
+    cand_tokens.index_fill_(2, st.pos.clamp(max=t_max - 1).reshape(1), eot)
+    merged_lp = torch.cat([st.pool_lp, torch.where(is_eot, top_vals, BEAM_NEG)], dim=1)
+    merged_len = torch.cat([st.pool_len, st.pos.expand(b, 2 * k)], dim=1)
+    pool_lp, keep = _top_k(merged_lp, c)
+    pool_tokens = _gather_beams(torch.cat([st.pool_tokens, cand_tokens], dim=1), keep)
+    st.pool_tokens.copy_(torch.where(run, pool_tokens, st.pool_tokens))
+    st.pool_len.copy_(torch.where(run, torch.gather(merged_len, 1, keep), st.pool_len))
+    st.pool_lp.copy_(torch.where(run, pool_lp, st.pool_lp))
+
+    sum_lp, live = _top_k(torch.where(is_eot, BEAM_NEG, top_vals), k)
+    st.sum_lp.copy_(torch.where(run, sum_lp, st.sum_lp))
+    _commit_beams(st, run, torch.gather(parent, 1, live), torch.gather(new_tok, 1, live))
+
+
+def _beam_chunk(dec: TextDecoder, state: BeamState, cross_kv: CrossKV,
+                n_steps: int = FINISH_CHECK_EVERY) -> None:
+    """``n_steps`` beam steps on ``state`` in place (the pooled search when
+    the state has a pool), reading and writing only its buffers and
+    ``cross_kv`` of B*K rows, with no host read. A step after the loop's
+    condition fails changes nothing, so the host may read
+    :func:`beam_running` once a chunk and get the JAX loop's result."""
+    step = _beam_step if state.pool_lp is None else _beam_pooled_step
+    for _ in range(n_steps):
+        step(dec, state, cross_kv)
+
+
+def finish_beam(state: BeamState, p_len: int, no_speech_prob: torch.Tensor,
+                length_penalty: float = 1.0) -> DecodeResult:
+    """The best hypothesis per row, copied out of the state, in
+    :class:`DecodeResult`'s layout. Scores are ``sum / gen_len **
+    length_penalty`` (CTranslate2's normalisation). Frozen-slot
+    (``:2283-2309``): a beam's length is its first eot at or after the
+    prompt, else ``pos``; finished beams are preferred. Pooled
+    (``:2053-2078``): the pool's entries, the live beams only when a row's
+    pool is empty."""
+    tokens, sum_lp, pos = state.tokens, state.sum_lp, state.pos
+    b, k, t_max = tokens.shape
+    eot = token_layout(state.suppress.shape[0]).eot
+    live_len = pos.expand(b, k)
+    if state.pool_lp is None:
+        is_eot = (tokens == eot) & (torch.arange(t_max, device=tokens.device) >= p_len)
+        lengths = torch.where(is_eot.any(dim=2),
+                              torch.argmax(is_eot.to(torch.int32), dim=2), live_len)
+        gen = torch.clamp_min(lengths - p_len, 1).to(torch.float32)
+        avg = sum_lp / gen ** length_penalty
+        blocked = state.finished.any(dim=1, keepdim=True) & ~state.finished
+        score, lp = torch.where(blocked, BEAM_NEG, avg), sum_lp
+    else:
+        banked = state.pool_lp > BEAM_NEG / 2
+        pool_gen = torch.clamp_min(state.pool_len - p_len, 1).to(torch.float32)
+        pool_avg = torch.where(banked, state.pool_lp / pool_gen ** length_penalty, BEAM_NEG)
+        live_gen = torch.clamp_min(live_len - p_len, 1).to(torch.float32)
+        live_avg = torch.where(banked.any(dim=1, keepdim=True), BEAM_NEG,
+                               sum_lp / live_gen ** length_penalty)
+        score = torch.cat([pool_avg, live_avg], dim=1)
+        lp = torch.cat([state.pool_lp, sum_lp], dim=1)
+        lengths = torch.cat([state.pool_len, live_len], dim=1)
+        tokens = torch.cat([state.pool_tokens, tokens], dim=1)
+    best = torch.argmax(score, dim=1)
+    rows = torch.arange(b, device=tokens.device)
+    return DecodeResult(tokens[rows, best].clone(), lengths[rows, best].clone(),
+                        lp[rows, best].clone(), no_speech_prob)
+
+
+def beam_decode(
+    model: Whisper,
+    enc_out: torch.Tensor,
+    prompt: torch.Tensor,
+    prompt_len: torch.Tensor,
+    max_new_tokens: int,
+    *,
+    beam_size: int = 5,
+    patience: float = 1.0,
+    length_penalty: float = 1.0,
+    suppress_blank: bool = True,
+    sot_pos: int = 0,
+    cross_kv: Optional[CrossKV] = None,
+) -> DecodeResult:
+    """Batched beam search, uncaptured: the JAX package's ``beam_decode``
+    without repetition penalty, n-gram bans or timestamps. The frozen-slot
+    search when ``round(beam_size * patience) <= beam_size``, else the
+    pooled one. enc_out (B, T_a, d); prompt (B, P) right-padded with eot
+    past ``prompt_len``; ``cross_kv``, when given, holds B*K rows (else it
+    is computed from ``enc_out`` and repeated over the beams). Runs chunks
+    of ``FINISH_CHECK_EVERY`` steps and stops after the first chunk after
+    which the loop's condition fails. Returns the best beam per row."""
+    dec = model.decoder
+    device = enc_out.device
+    b, p_len = prompt.shape
+    k = beam_size
+    state = init_beam_state(model.config, b, k, beam_candidates(k, patience), p_len,
+                            max_new_tokens, enc_out.dtype, device)
+    if cross_kv is None:
+        cross_kv = repeat_cross_kv(precompute_cross_kv(dec, enc_out), k)
+    no_speech_prob = start_beam(
+        dec, state, prompt.to(device=device, dtype=torch.long), prompt_len.to(device),
+        cross_kv, suppress_blank=suppress_blank, sot_pos=sot_pos,
+    )
+    for done in range(0, max_new_tokens, FINISH_CHECK_EVERY):
+        _beam_chunk(dec, state, cross_kv, min(FINISH_CHECK_EVERY, max_new_tokens - done))
+        if not bool(beam_running(state)):
+            break
+    return finish_beam(state, p_len, no_speech_prob, length_penalty)
+
+
 def detect_language(model: Whisper, enc_out: torch.Tensor,
                     cross_kv: Optional[CrossKV] = None) -> torch.Tensor:
     """(B, n_langs) language probabilities from the sot logits."""
@@ -908,6 +1255,7 @@ def build_prompt(
 
 __all__ = [
     "AttentionPolicy",
+    "BeamState",
     "CrossKV",
     "DecodeResult",
     "DecodeState",
@@ -916,6 +1264,9 @@ __all__ = [
     "WHISPER_LANG_CODES",
     "Whisper",
     "WhisperConfig",
+    "beam_candidates",
+    "beam_decode",
+    "beam_running",
     "build_model",
     "build_prompt",
     "decoder_forward",
@@ -923,11 +1274,15 @@ __all__ = [
     "empty_cross_kv",
     "finish_decode",
     "get_config",
+    "finish_beam",
     "greedy_decode",
+    "init_beam_state",
     "init_decode_state",
     "init_kv_cache",
     "init_params",
     "precompute_cross_kv",
+    "repeat_cross_kv",
+    "start_beam",
     "start_decode",
     "token_layout",
 ]

@@ -118,8 +118,8 @@ class ApplicationRuntime:
                 "prewarm": config.tpu_prewarm,
                 "prewarm_batch_sizes": list(config.tpu_prewarm_batch_sizes),
                 "prewarm_mode": config.tpu_prewarm_mode,
-                # beam widths from the configured decode profiles; the
-                # registry warns about those above 1, which are not served
+                # beam widths from the configured decode profiles, each
+                # prewarmed at boot by the registry
                 "prewarm_beam_sizes": sorted(
                     {1}
                     | {

@@ -162,3 +162,16 @@ def test_decode_step_bytes_counts_each_buffer_once():
     table = 2 * cfg.n_vocab * d                                            # bf16, as stored
     expect = weights + table + cross + self_kv + 4 * cfg.n_vocab * 4
     assert B.decode_step_bytes(eng, 1.0, 4) == expect
+
+
+def test_beam_step_bytes_count_the_cross_kv_once_a_row():
+    """At beam 5 a step needs the self cache and the logits of rows x beam
+    rows, but the cross K/V of its rows only once: the beams share it."""
+    eng = TE.WhisperEngine("test", device="cpu", compute_type="bfloat16", max_decode_tokens=16)
+    eng.prewarm([1.0], [4], beam_sizes=[1, 5])
+    cfg = eng.config
+    t_max = 4 + TE.max_new_for(1.0, 16)
+    self_kv_row = 2 * 2 * cfg.n_text_layer * t_max * cfg.n_text_state      # bf16 K and V
+    more_rows = 4 * 5 - 4
+    assert B.decode_step_bytes(eng, 1.0, 4, beam=5) == (
+        B.decode_step_bytes(eng, 1.0, 4) + more_rows * (self_kv_row + cfg.n_vocab * 4))

@@ -307,10 +307,29 @@ def test_prewarm_runs_each_combination_once(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,name", [({"mode": "aot"}, "mode"),
-                                         ({"beam_sizes": [1, 5]}, "beam_sizes"),
                                          ({"include_drafted": True}, "include_drafted")])
 def test_prewarm_refuses_what_it_does_not_serve(kwargs, name):
     eng = _engine(max_decode_tokens=16)
     with pytest.raises(NotImplementedError, match=name):
         eng.prewarm([1.0], [1], **kwargs)
     assert len(eng.graphs) == 0
+
+
+def test_prewarm_builds_beam_entries(monkeypatch):
+    """Beam widths are prewarmed (clamped to 1..8), each (bucket, rows, beam)
+    once, into entries of their own."""
+    eng = _engine(max_decode_tokens=16, batch_buckets=(1, 4))
+    seen = []
+    real = eng._device_phase
+
+    def spy(group):
+        ctx = real(group)
+        seen.append((ctx["bucket_sec"], ctx["batch_n"], ctx["beam"]))
+        return ctx
+
+    monkeypatch.setattr(eng, "_device_phase", spy)
+    eng.prewarm([1.0, 2.0], [1, 4], beam_sizes=[1, 5, 5, 12])
+    assert sorted(seen) == sorted((s, r, b) for s in (1.0, 2.0) for r in (1, 4)
+                                  for b in (1, 5, 8))
+    assert sorted((k.beam, k.rows) for k in eng.graphs._entries) == sorted(
+        (b, r) for _ in (1.0, 2.0) for r in (1, 4) for b in (1, 5, 8))

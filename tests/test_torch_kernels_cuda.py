@@ -437,7 +437,8 @@ def test_float32_engine_with_flash_serves_30s_on_the_card(cuda_device):
 # -- decode graphs ------------------------------------------------------------------
 #
 # The engine serves the greedy decode by replaying a captured CUDA graph of
-# `_decode_chunk` per shape (stt_tpu_torch/engine/graphs.py). The replay runs
+# `_decode_chunk` per shape, and beam search one of `_beam_chunk` per shape
+# and width (stt_tpu_torch/engine/graphs.py). The replay runs
 # the kernels the uncaptured chunk launches, in the same order, on the same
 # buffers, so the two must agree bit for bit.
 
@@ -518,6 +519,56 @@ def test_captured_decode_is_bitwise_the_uncaptured_one(graph_engines, policy, ro
         assert entry.launches["xattn_decode"] == 0
 
 
+def _beam_decode_both(engine, seconds, rows, beam, patience):
+    """One group decoded at ``beam`` on its beam entry by replaying the
+    graph and by the same chunk uncaptured, as the engine serves it: the
+    language detected on the group's rows, then the cross K/V repeated over
+    the beams."""
+    from stt_tpu_torch.engine import engine as E
+    from stt_tpu_torch.models import whisper as W
+
+    bucket = engine._bucket_for(int(seconds * 16000))
+    pcm = np.zeros((rows, int(bucket * 16000)), np.int16)
+    for i in range(rows):
+        audio = _graph_audio(seconds * (0.5 + 0.5 * (i + 1) / rows), seed=i)
+        pcm[i, : len(audio)] = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    prompt = torch.tensor([W.build_prompt(engine.config, "en")] * rows, device="cuda")
+    auto = torch.arange(rows, device="cuda") % 2 == 1
+    with torch.inference_mode():
+        rows_dev = torch.from_numpy(E._encode_wire_rows(pcm, engine.audio_wire)).cuda()
+        enc = E._mel_encode(engine.model, rows_dev, engine._dtype)
+        entry = engine.graphs.entry(bucket, rows, prompt.shape[1], engine._max_new_for(bucket),
+                                    enc.shape[1], beam, W.beam_candidates(beam, patience))
+        ckv = W.precompute_cross_kv(engine.model.decoder, enc)
+        prompt, _, _ = E._detect_and_patch_lang(engine.model, enc, prompt, auto, ckv, 1)
+        W.repeat_cross_kv(ckv, beam, out=entry.cross_kv)
+        plen = torch.full((rows,), prompt.shape[1], device="cuda")
+        return entry, [engine.graphs.decode(entry, prompt, plen, captured=c)
+                       for c in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,rows,seconds,beam,patience",
+                         [("int8", 4, 10.0, 5, 1.0), ("int8", 1, 2.0, 2, 2.0),
+                          ("fp8", 4, 30.0, 5, 1.0), ("float32", 4, 10.0, 5, 1.0)])
+def test_captured_beam_decode_is_bitwise_the_uncaptured_one(graph_engines, policy, rows,
+                                                            seconds, beam, patience):
+    """The beam chunk's replay (frozen-slot and pooled) gives what the same
+    chunk gives uncaptured, bit for bit."""
+    engine = graph_engines[policy]
+    replays = engine.graph_replays
+    entry, (captured, eager) = _beam_decode_both(engine, seconds, rows, beam, patience)
+    torch.cuda.synchronize()
+    assert entry.graph is not None and entry.replays > 0 and entry.key.beam == beam
+    assert engine.graph_replays > replays
+    assert entry.cross_kv.k.shape[1] == rows * beam
+    for name in ("tokens", "lengths", "sum_logprob", "no_speech_prob"):
+        assert torch.equal(getattr(captured, name), getattr(eager, name)), name
+    assert torch.isfinite(captured.sum_logprob).all()
+    if policy == "fp8":  # the cross-attention kernel runs inside the graph
+        assert entry.launches["xattn_decode"] == 12 * 8
+
+
 @pytest.fixture
 def serving_engine():
     if not torch.cuda.is_available():
@@ -564,6 +615,26 @@ def test_prewarmed_shapes_capture_nothing_when_served(serving_engine):
         f.result(timeout=300)
     assert engine.graph_captures == captures
     assert engine.graph_replays > replays
+
+
+@pytest.mark.cuda
+def test_accurate_after_beam_prewarm_captures_nothing(serving_engine):
+    """``prewarm(beam_sizes=[1, 5])`` captures each shape at both widths;
+    ``accurate`` requests (beam 5) then replay and capture nothing."""
+    from stt_tpu_torch.engine.engine import DecodeRequest
+
+    engine = serving_engine
+    engine.max_batch = 4
+    engine.prewarm([1.0, 2.0], [1, 4], beam_sizes=[1, 5])
+    captures, replays = engine.graph_captures, engine.graph_replays
+    assert captures == 8
+    accurate = {"beam_size": 5, "patience": 1.0, "length_penalty": 1.0, "temperature": 0.0}
+    futures = [engine.submit(DecodeRequest(_graph_audio(0.6 + 0.25 * i, seed=i), language=None,
+                                           options=accurate)) for i in range(6)]
+    outs = [f.result(timeout=300) for f in futures]
+    assert engine.graph_captures == captures
+    assert engine.graph_replays > replays
+    assert all(np.isfinite(o.avg_logprob) for o in outs)
 
 
 @pytest.mark.cuda
@@ -621,8 +692,9 @@ def _card_session(port, sid, seconds, seed):
 @pytest.mark.cuda
 def test_server_serves_two_sessions_after_prewarm(cuda_device, tmp_path):
     """The port's server in-process (the calls serve() makes), the test
-    model in bf16: boot prewarms 2 buckets x 2 row buckets, and two
-    concurrent sessions get their finals with no capture while serving."""
+    model in bf16: boot prewarms 2 buckets x 2 row buckets at beams 1 and 5
+    (the shipped ``accurate`` profile), and two concurrent sessions get
+    their finals with no capture while serving."""
     import threading
 
     from stt_tpu_torch.gen import stt_pb2_grpc
@@ -642,7 +714,7 @@ def test_server_serves_two_sessions_after_prewarm(cuda_device, tmp_path):
         port = S.bind_grpc_port(server, config)
         server.start()
         engine = runtime.model_registry._pools["default"].engines[0]
-        assert engine.device.type == "cuda" and engine.graph_captures == 4
+        assert engine.device.type == "cuda" and engine.graph_captures == 8
         got = [None, None]
 
         def run(i):
@@ -654,7 +726,7 @@ def test_server_serves_two_sessions_after_prewarm(cuda_device, tmp_path):
         for th in threads:
             th.join(timeout=300)
         assert not any(th.is_alive() for th in threads)
-        assert engine.graph_captures == 4
+        assert engine.graph_captures == 8
     finally:
         server.stop(5.0).wait()
         runtime.shutdown()

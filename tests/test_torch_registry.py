@@ -179,8 +179,8 @@ def test_engine_refusal_fails_its_task_and_the_dispatcher_survives():
     try:
         pcm = float32_to_pcm16(np.zeros(8000, np.float32))
         refused = registry.submit_decode("default", "s1", pcm, 16000,
-                                         {"language": "en", "beam_size": 5}, True)
-        with pytest.raises(NotImplementedError, match="beam_size"):
+                                         {"language": "en", "repetition_penalty": 1.2}, True)
+        with pytest.raises(NotImplementedError, match="repetition_penalty"):
             refused.result(timeout=60)
         served = registry.submit_decode("default", "s1", pcm, 16000, {"language": "en"}, True)
         result = served.result(timeout=120)

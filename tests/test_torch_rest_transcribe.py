@@ -844,18 +844,19 @@ def test_rest_end_to_end_matches_the_jax_server():
         metrics = {p: json.loads(_http_get(port, "/metrics.json")[1])
                    for p, port in ports.items()}
         assert set(metrics["stt_tpu_torch"]) == set(metrics["stt_tpu"])
-        # no profile: accurate (beam 5), which the port refuses, mapped as the
-        # JAX plane maps ERR2002; then the same server serves a realtime request
-        port = ports["stt_tpu_torch"]
-        status, payload = _http_post(port, "/v1/audio/transcriptions", wav)
-        spec = _mod("stt_tpu", "errors")
-        assert status == spec.ERROR_HTTP_STATUS_MAP[spec.ErrorCode.DECODE_TASK_FAILED] == 500
-        assert payload["code"] == "ERR2002" and "beam_size" in payload["message"]
-        assert set(payload) == set(spec.http_payload_for(spec.ErrorCode.DECODE_TASK_FAILED))
-        again = _http_post(port, realtime, wav)
+        # no profile: accurate (beam 5), served by both planes alike; then the
+        # port's server serves a realtime request again
+        accurate = {p: _http_post(port, "/v1/audio/transcriptions?response_format="
+                                  "verbose_json", wav) for p, port in ports.items()}
+        again = _http_post(ports["stt_tpu_torch"], realtime, wav)
     (js, jp), (ts, tp) = got["stt_tpu"], got["stt_tpu_torch"]
     assert js == ts == 200, (jp, tp)
     assert tp["text"].strip()
     assert tp["text"] == jp["text"]
     assert tp["segments"] == jp["segments"]
     assert again == got["stt_tpu_torch"]
+    (js, jp), (ts, tp) = accurate["stt_tpu"], accurate["stt_tpu_torch"]
+    assert js == ts == 200, (jp, tp)
+    assert tp["text"].strip()
+    assert tp["text"] == jp["text"]
+    assert tp["segments"] == jp["segments"]

@@ -14,10 +14,10 @@ both:
   trailing metadata's keys must be equal on both;
 - one with ``partial="true"``, paced in real time: each server sends at
   least one partial and one final;
+- one with ``DECODE_PROFILE_ACCURATE`` (beam 5), partials off: every result
+  equal on both, as for the first three;
 - the error probes (empty session id ERR1001, duplicate ERR1002, a 3 s chunk
-  ERR1007) with the same codes on both; and, on the port, a session with
-  ``DECODE_PROFILE_ACCURATE`` (beam 5) ends in ERR2002 naming ``beam_size``,
-  after which a default session on the same server still gets its final.
+  ERR1007) with the same codes on both.
 
 The rest holds the port's copies to their originals: the proto and its
 generated module, the config loader on the shipped YAML, the error codes,
@@ -171,6 +171,8 @@ def served():
                    for name, (pcm, rate) in SESSIONS.items()}
             got["partial"] = _stream(port, f"{kind}-partial", _pcm(_tone(3.0, 7)), SR,
                                      attributes={"partial": "true"}, chunk_sec=0.1, pace=1.0)
+            got["accurate"] = _stream(port, f"{kind}-accurate", _pcm(_tone(1.0, 9)), SR,
+                                      profile=JPB.DECODE_PROFILE_ACCURATE)
             out[kind] = got
         yield ports, out
 
@@ -251,16 +253,17 @@ def test_error_probes_equal(served, probe, code):
 
 
 @integration
-def test_refused_profile_is_err2002_and_the_dispatcher_survives(served):
-    ports, _ = served
-    port = ports["torch"]
-    with pytest.raises(grpc.RpcError) as info:
-        _stream(port, "accurate-1", _pcm(_tone(1.0, 9)), SR,
-                profile=JPB.DECODE_PROFILE_ACCURATE)
-    assert info.value.code() == grpc.StatusCode.INTERNAL
-    assert info.value.details().startswith("ERR2002")
-    assert "beam_size" in info.value.details()
-    results, _ = _stream(port, "after-accurate", _pcm(_tone(1.0, 10)), SR)
+def test_accurate_profile_equals_the_jax_server(served):
+    """The ``accurate`` profile (beam 5) is served, with the JAX server's
+    results; a default session on the same server still gets its final."""
+    ports, out = served
+    (j_res, j_keys), (t_res, t_keys) = out["jax"]["accurate"], out["torch"]["accurate"]
+    assert any(r.is_final and r.text.strip() for r in t_res), _rows(t_res)
+    assert [r[:3] for r in _rows(t_res)] == [r[:3] for r in _rows(j_res)]
+    for t, j in zip(_rows(t_res), _rows(j_res)):
+        assert t[3:] == pytest.approx(j[3:], abs=1e-6)
+    assert t_keys == j_keys
+    results, _ = _stream(ports["torch"], "after-accurate", _pcm(_tone(1.0, 10)), SR)
     assert any(r.is_final and r.text.strip() for r in results)
 
 

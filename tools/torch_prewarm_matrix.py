@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Prewarm the port's full default shape matrix on one CUDA card and report
-what it holds.
+"""Prewarm the port's full default shape matrix on one CUDA card, at beam 1
+and at the beam widths of the shipped decode profiles, and report what it
+holds.
 
     python3 tools/torch_prewarm_matrix.py
 
@@ -9,9 +10,10 @@ from seed 0, the default
 attention policy unless ``STT_CROSS_KV_DTYPE`` / ``STT_XATTN_KERNEL`` /
 ``STT_FLASH_ATTENTION`` say otherwise) with batch buckets 1/4/16/64, then
 prewarms every audio bucket (1/2/5/10/30 s) at every batch bucket, one
-combination at a time, printing each one's wall time, and after all of them
-the decode graphs captured, ``torch.cuda.memory_allocated()`` and
-``torch.cuda.memory_reserved()`` and the card's name and power limit. The
+combination at a time, at beam 1 and then at beam 5 (the shipped
+``accurate`` profile's), printing each one's wall time and, after each
+width, the decode graphs captured, ``torch.cuda.memory_allocated()`` and
+``torch.cuda.memory_reserved()``; then the card's name and power limit. The
 last line of stdout is one JSON object with those numbers.
 """
 
@@ -31,28 +33,37 @@ def main() -> None:
     from stt_tpu_torch.bench import card_name_and_power
     from stt_tpu_torch.engine.engine import DEFAULT_AUDIO_BUCKETS_SEC, WhisperEngine
 
+    beams = (1, 5)
     card = card_name_and_power()
     rows = (1, 4, 16, 64)
     engine = WhisperEngine("small", device="cuda", compute_type="bfloat16", batch_buckets=rows)
     weights = torch.cuda.memory_allocated()
     print(f"card: {card}; engine whisper-small bfloat16, policy "
           f"{engine.policy}; weights {weights / 2**30:.3f} GiB allocated", flush=True)
-    seconds = {}
+    seconds, per_beam = {}, {}
     try:
-        for bucket in DEFAULT_AUDIO_BUCKETS_SEC:
-            for n in rows:
-                seconds[f"{bucket:g}s x{n}"] = engine.prewarm([bucket], [n])
-                print(f"prewarm {bucket:g} s x {n} rows: {seconds[f'{bucket:g}s x{n}']:.3f} s",
-                      flush=True)
-        torch.cuda.synchronize()
+        for beam in beams:
+            for bucket in DEFAULT_AUDIO_BUCKETS_SEC:
+                for n in rows:
+                    name = f"{bucket:g}s x{n} beam {beam}"
+                    seconds[name] = engine.prewarm([bucket], [n], beam_sizes=[beam])
+                    print(f"prewarm {name}: {seconds[name]:.3f} s", flush=True)
+            torch.cuda.synchronize()
+            per_beam[beam] = {
+                "graph_captures": engine.graph_captures,
+                "memory_allocated_gib": torch.cuda.memory_allocated() / 2**30,
+                "memory_reserved_gib": torch.cuda.memory_reserved() / 2**30,
+            }
+            print(f"after beam {beam}: {json.dumps(per_beam[beam])}", flush=True)
         result = {
             "card": card, "model": "small", "compute_type": "bfloat16",
-            "policy": str(engine.policy), "combinations": len(seconds),
-            "graph_captures": engine.graph_captures,
+            "policy": str(engine.policy), "beam_sizes": list(beams),
+            "combinations": len(seconds), "graph_captures": engine.graph_captures,
             "prewarm_s": sum(seconds.values()),
             "memory_allocated_gib": torch.cuda.memory_allocated() / 2**30,
             "memory_reserved_gib": torch.cuda.memory_reserved() / 2**30,
             "weights_gib": weights / 2**30,
+            "after_beam": per_beam,
         }
     finally:
         engine.close()
