@@ -49,9 +49,12 @@ PyTorch built for CUDA. In order:
    b. the 30 s path (fp8 cross K/V, ``xattn_kernel="mm"``,
       ``flash_attention="auto"``): 4 concurrent requests of 12, 20, 25 and
       30 s, all in the 30 s bucket, the only one whose 1500 encoder
-      positions reach flash attention's 512;
+      positions reach flash attention's 512; then the same audio as two
+      ticks of drafted partials (``draft_mode="on"``), whose resume steps
+      run the cross-attention kernel inside the drafted entry's graph;
    each engine first prewarms the shapes its requests reach (every bucket
-   of the path at 1 and 4 rows), which captures their decode graphs, and
+   of the path at 1 and 4 rows, on path b with the drafted entries), which
+   captures their decode graphs, and
    the phase fails if a graph is captured while the requests are served;
    it checks every output, that requests shared a batch, and from the
    launch counts that each path ran through its kernels (path b: flash
@@ -87,6 +90,23 @@ PyTorch built for CUDA. In order:
    the self cache once) and beside the bytes this design moves (the cross
    K/V once a beam, the self cache once more for the reorder by parent
    beam) at 4 rows, and at 64 rows of 10 s;
+   f. drafted partials (run before e): the ``test`` model in float32 on the
+   card, 4 rows of 5 s with an empty, a perfect, an adversarial and a
+   mid-mutation draft, must give the plain decode's tokens and lengths,
+   accepted counts equal to each draft's common prefix with the plain
+   tokens, and captured resume replays bitwise the uncaptured chunk; then
+   whisper-small bf16 on the default path in the 5 s bucket (the partial
+   window), at 4 and 64 rows: plain, drafted with the plain decode's own
+   tokens as drafts and at acceptance 0 (a draft greedy never writes),
+   each row where a drafted decode's tokens differ from the plain ones
+   printed with the plain decode's top-2 logit gap at the first difference
+   (above 0.05 fails: not a tie); the decode times (CUDA events) of those,
+   of drafts every row accepts whole (acceptance 1) and of the verify pass
+   alone, and the break-even acceptance beside ``STT_DRAFT_ENGAGE``; then
+   3 ticks of 64 sessions under
+   ``draft_mode="on"`` and again under ``"adaptive"``, each engine
+   prewarmed with its drafted entries, failing if a graph is captured
+   while serving;
 4. checks the outputs against references on small inputs: the ``test``
    model in float32 on the card against the CPU (encoder output and
    teacher-forced logits within max abs 1e-3), once at 1.5 s with flash
@@ -106,7 +126,9 @@ PyTorch built for CUDA. In order:
    narrowed as the bench's end-to-end phase narrows it (audio buckets 5
    and 10 s, batch buckets 1 and 16, max batch 16) but the ``accurate``
    profile kept, so the boot prewarms beams 1 and 5, whisper-small bf16 on
-   the shipped attention policy, language en; 8 concurrent sessions through the port's own stubs, each streaming
+   the shipped attention policy and the shipped drafting mode (adaptive:
+   the boot prewarms the drafted entries too), language en; 8 concurrent
+   sessions through the port's own stubs, each streaming
    5 s of the load tool's synthetic audio (tone bursts with a mid-stream
    silence gap, ending in speech) in 100 ms chunks at 2x real time with
    partials on, then ``is_final``. It fails unless every session gets a
@@ -114,7 +136,9 @@ PyTorch built for CUDA. In order:
    trailing ``stt-decode-inference-sec`` above 0 and no error status, no
    decode graph was captured after boot, and the log-mel kernel was
    launched (its count set to 0 just before the traffic). It prints the
-   boot time, the shapes prewarmed, the client's first-partial and final
+   boot time, the shapes prewarmed (the drafted ones among them), the
+   ``draft_*`` counters of ``/metrics`` after the sessions, the client's
+   first-partial and final
    latency p50/p95 and the medians of the four trailing
    ``stt-decode-*-sec`` values over the finals. On the HTTP plane it
    requires ``/health`` to answer 500 before the gRPC server starts (the
@@ -173,6 +197,10 @@ NARROW_ATTN_TOL = (XATTN_ATOL, XATTN_RTOL)
 NARROW_LOGITS_TOL = (1e-4, 1e-4)         # logits |x| < ~3, sums of 768 terms
 BF16_REF_ATOL = 0.05                     # encoder, tests/test_torch_whisper.py:31
 BF16_LOGITS_ATOL = 1e-2                  # decode-step logits, |logits| < 1 here
+# a drafted row may differ from the plain decode in bf16 only at a near-tie
+# of the plain decode's top two logits (the verify pass's M=width products
+# sum in another order than the step's M=1): the bf16 logits limit
+BF16_TIE_GAP = 0.05
 H100_F32_FLOPS = 67e12                   # CUDA-core float32 peak, SXM, 700 W
 H100_BF16_FLOPS = 989e12                 # dense bf16 tensor-core peak, SXM, 700 W
 H100_HBM_BYTES = 3.35e12                 # HBM3 bytes/s
@@ -686,16 +714,54 @@ def front_end_share(torch, E, engine, seconds_list, wire: str) -> None:
             f"{enc_ms:.4f} ms for log-mel + encoder ({mel_ms / enc_ms:.2%})")
 
 
-def prewarm(engine, buckets) -> int:
+def prewarm(engine, buckets, drafted: bool = False) -> int:
     """Prewarms ``buckets`` at 1 and 4 rows (the batch buckets a served
-    phase's groups reach); returns the graphs captured so far."""
+    phase's groups reach), with their drafted entries if ``drafted``;
+    returns the graphs captured so far."""
     import torch
 
-    sec = engine.prewarm(buckets, [1, 4])
-    log(f"prewarm {'/'.join(f'{b:g}' for b in buckets)} s x 1/4 rows: {sec:.2f} s, "
+    sec = engine.prewarm(buckets, [1, 4], include_drafted=drafted)
+    log(f"prewarm {'/'.join(f'{b:g}' for b in buckets)} s x 1/4 rows"
+        f"{' with drafted entries' if drafted else ''}: {sec:.2f} s, "
         f"{engine.graph_captures} decode graphs captured, "
         f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
     return engine.graph_captures
+
+
+def counted_run(W, engine, run):
+    """Runs ``run()`` with every kernel's launch count set to 0 just before
+    and read just after; returns (its result, the counts). A kernel
+    launched inside a captured decode chunk counts the launches the capture
+    recorded times the chunk's replays, and the decoder steps are the
+    uncaptured ones plus ``FINISH_CHECK_EVERY`` a replay."""
+    from stt_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from stt_tpu_torch.ops.kernels.mel import mel_logspec
+    from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode
+
+    step = W._decoder_step
+    steps = [0]
+
+    def counted_step(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    replayed = engine.graphs.replayed_launches()
+    replays = engine.graph_replays
+    mel_logspec.launches = xattn_decode.launches = flash_attention.launches = 0
+    W._decoder_step = counted_step
+    try:
+        result = run()
+    finally:
+        W._decoder_step = step
+    in_graphs = {k: v - replayed[k] for k, v in engine.graphs.replayed_launches().items()}
+    counts = {"mel_logspec": mel_logspec.launches + in_graphs["mel_logspec"],
+              "xattn_decode": xattn_decode.launches + in_graphs["xattn_decode"],
+              "flash_attention": flash_attention.launches + in_graphs["flash_attention"],
+              "xattn_decode_in_graphs": in_graphs["xattn_decode"],
+              "graph_replays": engine.graph_replays - replays,
+              "decoder_steps": steps[0] + W.FINISH_CHECK_EVERY * (
+                  engine.graph_replays - replays)}
+    return result, counts
 
 
 def graphs_phase(torch, E, W, engine, seconds: float, rows: int, tag: str) -> None:
@@ -820,81 +886,73 @@ def serve_default_phase(torch, E, W, audio_wire: str) -> int:
 def serve_30s_phase(torch, E, W):
     """Phase 3b: whisper-small bf16 with fp8 cross K/V and both attention
     kernels on, 4 concurrent requests in the 30 s bucket, after a prewarm
-    of their shapes. Returns the launch counts of the run: a kernel launched
-    inside a captured decode chunk counts the launches the capture recorded
-    times the chunk's replays, and the decoder steps are the uncaptured
-    ones (language detection) plus ``FINISH_CHECK_EVERY`` a replay. Then
-    holds the captured decode against the uncaptured one (phase 3c)."""
-    from stt_tpu_torch.ops.kernels.flash_attention import flash_attention
-    from stt_tpu_torch.ops.kernels.mel import mel_logspec
-    from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode
-
+    of their shapes (with their drafted entries), then the same audio as
+    two ticks of drafted partials (``draft_mode="on"``: the first tick's
+    drafts are empty, the second's are the first's tokens), whose resume
+    steps run ``xattn_decode``. Returns the launch counts of both runs
+    (:func:`counted_run`). Then holds the captured decode against the
+    uncaptured one (phase 3c)."""
     t0 = time.monotonic()
     engine = E.WhisperEngine(
         "small", device="cuda", compute_type="bfloat16",
         batch_buckets=(1, 4, 16, 64), batch_window_ms=50.0, max_decode_tokens=224,
-        cross_kv_dtype="fp8", xattn_kernel="mm", flash_attention="auto",
+        cross_kv_dtype="fp8", xattn_kernel="mm", flash_attention="auto", draft_mode="on",
     )
     cfg = engine.config
     log(f"engine (30 s path): whisper-{cfg.name} bf16, policy {engine.policy}; built in "
         f"{time.monotonic() - t0:.1f} s")
-    step = W._decoder_step
-    steps = [0]
+    durations = [12.0, 20.0, 25.0, 30.0]
 
-    def counted_step(*args, **kwargs):
-        steps[0] += 1
-        return step(*args, **kwargs)
+    def requests(final: bool, tag: str):
+        return [E.DecodeRequest(synth_audio(d, seed=20 + i),
+                                language=None if i % 2 else "en",
+                                session_id=f"smoke30-{tag}-{i}", is_final=final)
+                for i, d in enumerate(durations)]
+
+    def drafted_ticks():
+        ticks = [serve_concurrently(engine, requests(False, "draft")) for _ in range(2)]
+        return ticks, dict(engine.draft_stats)
 
     try:
         t0 = time.monotonic()
         engine.transcribe_sync(E.DecodeRequest(synth_audio(30.0, 8), language="en"))
         log(f"warm-up request (30 s): {time.monotonic() - t0:.2f} s")
-        captures = prewarm(engine, [30.0])
-        durations = [12.0, 20.0, 25.0, 30.0]
-        requests = [
-            E.DecodeRequest(synth_audio(d, seed=20 + i), language=None if i % 2 else "en",
-                            session_id=f"smoke30-{i}", is_final=True)
-            for i, d in enumerate(durations)
-        ]
-        W._decoder_step = counted_step
-        steps[0] = 0
-        replayed = engine.graphs.replayed_launches()
-        replays = engine.graph_replays
-        mel_logspec.launches = xattn_decode.launches = flash_attention.launches = 0
-        results, wall = serve_concurrently(engine, requests)
-        in_graphs = {k: v - replayed[k] for k, v in engine.graphs.replayed_launches().items()}
-        counts = {"mel_logspec": mel_logspec.launches + in_graphs["mel_logspec"],
-                  "xattn_decode": xattn_decode.launches + in_graphs["xattn_decode"],
-                  "flash_attention": flash_attention.launches + in_graphs["flash_attention"],
-                  "xattn_decode_in_graphs": in_graphs["xattn_decode"],
-                  "graph_replays": engine.graph_replays - replays,
-                  "decoder_steps": steps[0] + W.FINISH_CHECK_EVERY * (
-                      engine.graph_replays - replays)}
+        captures = prewarm(engine, [30.0], drafted=True)
+        finals = requests(True, "final")
+        (results, wall), counts = counted_run(
+            W, engine, lambda: serve_concurrently(engine, finals))
+        check_served(E, W, engine, finals, results)
+        (ticks, stats), drafted = counted_run(W, engine, drafted_ticks)
+        for tick_results, _ in ticks:
+            check_served(E, W, engine, requests(False, "draft"), tick_results)
         served_captures = engine.graph_captures - captures
-        check_served(E, W, engine, requests, results)
     finally:
-        W._decoder_step = step
         engine.close()
     if served_captures:
         fail(f"30 s path: {served_captures} decode graphs captured while serving prewarmed "
              f"shapes")
-    if counts["xattn_decode_in_graphs"] <= 0:
-        fail("30 s path: no xattn_decode launch inside a replayed decode graph")
     if engine._thread is not None or engine._harvest_thread is not None:
         fail("engine threads still running after close()")
-    encodes = counts["mel_logspec"]
-    if encodes <= 0 or counts["flash_attention"] != cfg.n_audio_layer * encodes:
-        fail(f"30 s path: flash_attention launched {counts['flash_attention']} times for "
-             f"{encodes} encodes, not {cfg.n_audio_layer} per encode")
-    if counts["decoder_steps"] <= 0 or (
-            counts["xattn_decode"] != cfg.n_text_layer * counts["decoder_steps"]):
-        fail(f"30 s path: xattn_decode launched {counts['xattn_decode']} times for "
-             f"{counts['decoder_steps']} decoder steps, not {cfg.n_text_layer} per step")
-    log(f"served {len(requests)} requests (30 s bucket) in {wall:.3f} s; launches {counts}; "
+    if stats["rows"] <= 0 or stats["offered"] <= 0:
+        fail(f"30 s path: the second tick carried no drafts: {stats}")
+    for tag, c in (("finals", counts), ("drafted partials", drafted)):
+        if c["xattn_decode_in_graphs"] <= 0:
+            fail(f"30 s path, {tag}: no xattn_decode launch inside a replayed decode graph")
+        encodes = c["mel_logspec"]
+        if encodes <= 0 or c["flash_attention"] != cfg.n_audio_layer * encodes:
+            fail(f"30 s path, {tag}: flash_attention launched {c['flash_attention']} times "
+                 f"for {encodes} encodes, not {cfg.n_audio_layer} per encode")
+        if c["decoder_steps"] <= 0 or (
+                c["xattn_decode"] != cfg.n_text_layer * c["decoder_steps"]):
+            fail(f"30 s path, {tag}: xattn_decode launched {c['xattn_decode']} times for "
+                 f"{c['decoder_steps']} decoder steps, not {cfg.n_text_layer} per step")
+    log(f"served {len(finals)} requests (30 s bucket) in {wall:.3f} s; launches {counts}; "
+        f"then 2 ticks of {len(durations)} drafted partials in "
+        f"{sum(w for _, w in ticks):.3f} s, draft stats {stats}; launches {drafted}; "
         f"no decode graph captured while serving")
     front_end_share(torch, E, engine, (30.0,), "mulaw")
     graphs_phase(torch, E, W, engine, 30.0, 4, "whisper-small bf16, fp8 cross K/V, both kernels")
-    return counts
+    return {k: v + drafted[k] for k, v in counts.items()}
 
 
 def beam_graphs_check(torch, E, W, engine, seconds: float, rows: int, tag: str) -> None:
@@ -979,23 +1037,12 @@ def serve_beam_phase(torch, E, W, tag: str, policy: dict, durations, timing_rows
     bucket after a prewarm of that bucket at beam 5; returns the launch
     counts of the run (counted as phase 3b counts them) and the step times
     at ``timing_rows``."""
-    from stt_tpu_torch.ops.kernels.flash_attention import flash_attention
-    from stt_tpu_torch.ops.kernels.mel import mel_logspec
-    from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode
-
     engine = E.WhisperEngine(
         "small", device="cuda", compute_type="bfloat16",
         batch_buckets=(1, 4, 16, 64), batch_window_ms=50.0, max_decode_tokens=224, **policy,
     )
     cfg = engine.config
     bucket = engine._bucket_for(int(max(durations) * 16000))
-    step = W._decoder_step
-    steps = [0]
-
-    def counted_step(*args, **kwargs):
-        steps[0] += 1
-        return step(*args, **kwargs)
-
     try:
         sizes = sorted({1, 4, *timing_rows})
         sec = engine.prewarm([bucket], sizes, beam_sizes=[BEAM])
@@ -1009,20 +1056,8 @@ def serve_beam_phase(torch, E, W, tag: str, policy: dict, durations, timing_rows
                             is_final=True)
             for i, d in enumerate(durations)
         ]
-        W._decoder_step = counted_step
-        replayed = engine.graphs.replayed_launches()
-        replays = engine.graph_replays
-        mel_logspec.launches = xattn_decode.launches = flash_attention.launches = 0
-        results, wall = serve_concurrently(engine, requests)
-        W._decoder_step = step
-        in_graphs = {k: v - replayed[k] for k, v in engine.graphs.replayed_launches().items()}
-        counts = {"mel_logspec": mel_logspec.launches + in_graphs["mel_logspec"],
-                  "xattn_decode": xattn_decode.launches + in_graphs["xattn_decode"],
-                  "flash_attention": flash_attention.launches + in_graphs["flash_attention"],
-                  "xattn_decode_in_graphs": in_graphs["xattn_decode"],
-                  "graph_replays": engine.graph_replays - replays,
-                  "decoder_steps": steps[0] + W.FINISH_CHECK_EVERY * (
-                      engine.graph_replays - replays)}
+        (results, wall), counts = counted_run(
+            W, engine, lambda: serve_concurrently(engine, requests))
         served_captures = engine.graph_captures - captures
         check_served(E, W, engine, requests, results)
         if served_captures:
@@ -1044,7 +1079,6 @@ def serve_beam_phase(torch, E, W, tag: str, policy: dict, durations, timing_rows
         beam_graphs_check(torch, E, W, engine, max(durations), 4, tag)
         times = [beam_step_times(torch, engine, bucket, rows, tag) for rows in timing_rows]
     finally:
-        W._decoder_step = step
         engine.close()
     return counts, times
 
@@ -1056,6 +1090,282 @@ def graphs_f32_phase(torch, E, W) -> None:
     prewarm(engine, [10.0])
     graphs_phase(torch, E, W, engine, 10.0, 4, "test model, float32")
     engine.close()
+
+
+def drafted_group(torch, E, W, engine, rows: int, seed: int):
+    """A group of ``rows`` requests of 3-5 s (the 5 s bucket, the partial
+    window) in language en, encoded into the cross K/V that the shape's
+    greedy and drafted entries share; returns (plain entry, drafted entry,
+    prompt, prompt lengths)."""
+    bucket = 5.0
+    pcm = np.zeros((rows, int(bucket * 16000)), np.int16)
+    for i in range(rows):
+        audio = synth_audio(bucket * (0.6 + 0.4 * i / max(1, rows - 1)), seed=seed + i % 8)
+        pcm[i, : len(audio)] = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    prompt = np.array([W.build_prompt(engine.config, "en")] * rows, np.int64)
+    max_new = engine._max_new_for(bucket)
+    dev = engine.device
+    with engine._device_lock, torch.inference_mode():
+        rows_dev = torch.from_numpy(E._encode_wire_rows(pcm, engine.audio_wire)).to(dev)
+        enc = E._mel_encode(engine.model, rows_dev, engine._dtype)
+        plain = engine.graphs.lookup(bucket, rows, prompt.shape[1], max_new)
+        drafted = engine.graphs.lookup(bucket, rows, prompt.shape[1], max_new, drafted=True)
+        W.precompute_cross_kv(engine.model.decoder, enc, out=plain.cross_kv)
+        plen = torch.full((rows,), prompt.shape[1], dtype=torch.long, device=dev)
+        torch.cuda.synchronize()
+    return plain, drafted, torch.from_numpy(prompt).to(dev), plen
+
+
+def lcp(a: list, b: list) -> int:
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def plain_top2_gaps(torch, W, engine, plain, prompt, plen, tokens, first_diff: dict) -> dict:
+    """The plain decode's top-2 gap of its masked logits at each row's
+    first differing position (row -> position): its scalar steps rerun
+    uncaptured (bitwise the captured chunk), teacher-forced on its own
+    tokens, on a state of their own and the shape's cross K/V."""
+    dec = engine.model.decoder
+    key = plain.key
+    st = W.init_decode_state(engine.config, key.rows, key.p_len, key.max_new, engine._dtype,
+                             engine.device)
+    gaps = {}
+    with engine._device_lock, torch.inference_mode():
+        W.start_decode(dec, st, prompt, plen, plain.cross_kv)
+        for t in range(key.p_len, max(first_diff.values()) + 1):
+            logits = W._decoder_step(dec, tokens[:, t - 1], t - 1, st.cache, plain.cross_kv)
+            logits = logits + st.suppress + torch.where((st.prompt_len == t)[:, None],
+                                                        st.begin, 0.0)
+            for row, pos in first_diff.items():
+                if pos == t:
+                    top = torch.topk(logits[row], 2).values
+                    gaps[row] = float(top[0] - top[1])
+    return gaps
+
+
+def drafted_decodes(torch, engine, plain, drafted, prompt, plen, draft, dlen,
+                    captured: bool = True):
+    """(plain result, drafted result) of one group on its two entries."""
+    with engine._device_lock, torch.inference_mode():
+        base = engine.graphs.decode(plain, prompt, plen, captured=captured)
+        got = engine.graphs.decode(drafted, prompt, plen, draft=draft, draft_len=dlen,
+                                   captured=captured)
+        torch.cuda.synchronize()
+    return base, got
+
+
+def accepted_draft(torch, engine, drafted, prompt, plen, draft, dlen, limit: int = 48):
+    """A draft that every row's verify pass accepts whole: drafted decodes
+    fed their own output until each row accepts all of its draft. The
+    verify pass is causal, so each pass accepts at least one token more
+    than the one before (the corrected token at the first mismatch is its
+    own choice). Returns (draft, lengths, passes)."""
+    p_len = drafted.key.p_len
+    for n in range(1, limit + 1):
+        with engine._device_lock, torch.inference_mode():
+            got = engine.graphs.decode(drafted, prompt, plen, draft=draft, draft_len=dlen)
+        if torch.equal(got.n_accepted, dlen):
+            return draft, dlen, n
+        draft, dlen = got.tokens[:, p_len:].clone(), got.lengths - p_len
+    fail(f"drafted: no fully accepted draft after {limit} passes")
+
+
+def group_ms(torch, engine, fn, reps: int = 5) -> float:
+    """Median device-clock ms of ``fn`` (CUDA events around it, host reads
+    inside included), after one warm-up call."""
+    times = []
+    with engine._device_lock, torch.inference_mode():
+        for i in range(reps + 1):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def drafted_gate_f32(torch, E, W) -> None:
+    """Phase 3f's float32 gate: the ``test`` model on the card, 4 rows of
+    5 s with an empty, a perfect, an adversarial and a mid-mutation draft:
+    drafted tokens and lengths equal the plain decode's, each row's
+    accepted count is the longest common prefix of its draft and the plain
+    tokens, and the captured resume replays give the uncaptured chunk's
+    tokens, lengths, logprob sums and accepted counts bit for bit."""
+    engine = E.WhisperEngine("test", device="cuda", compute_type="float32",
+                             batch_buckets=(1, 4, 16, 64), draft_mode="on")
+    try:
+        engine.prewarm([5.0], [4], include_drafted=True)
+        plain, drafted, prompt, plen = drafted_group(torch, E, W, engine, 4, seed=80)
+        with engine._device_lock, torch.inference_mode():
+            base = engine.graphs.decode(plain, prompt, plen)
+        p_len, max_new = plain.key.p_len, plain.key.max_new
+        eot = engine.layout.eot
+        gens = [base.tokens[i, p_len:int(base.lengths[i])].tolist() for i in range(4)]
+        rng = np.random.default_rng(3)
+        cut = len(gens[3]) // 2
+        rows = [[], gens[1], rng.integers(10, 400, size=max_new).tolist(),
+                gens[3][:cut] + [(gens[3][cut] + 1) % 400 + 10] + gens[3][cut + 1:]]
+        draft = torch.full((4, max_new), eot, dtype=torch.long, device=engine.device)
+        for i, r in enumerate(rows):
+            draft[i, :len(r)] = torch.tensor(r, dtype=torch.long)
+        dlen = torch.tensor([len(r) for r in rows], device=engine.device)
+        got = {c: drafted_decodes(torch, engine, plain, drafted, prompt, plen, draft, dlen, c)[1]
+               for c in (True, False)}
+    finally:
+        engine.close()
+    a, b = got[True], got[False]
+    for name in ("tokens", "lengths", "sum_logprob", "n_accepted"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            fail(f"drafted f32: captured and uncaptured {name} differ")
+    if not (torch.equal(a.tokens, base.tokens) and torch.equal(a.lengths, base.lengths)):
+        fail(f"drafted f32: tokens or lengths differ from the plain decode's: lengths "
+             f"{a.lengths.tolist()} vs {base.lengths.tolist()}")
+    want = [lcp(r, g) for r, g in zip(rows, gens)]
+    if a.n_accepted.tolist() != want:
+        fail(f"drafted f32: accepted {a.n_accepted.tolist()}, the drafts' common prefixes "
+             f"with the plain tokens are {want}")
+    log(f"drafted f32 (test model, 4 x 5 s; empty, perfect, adversarial, mid-mutation "
+        f"drafts): tokens and lengths equal the plain decode's (lengths "
+        f"{base.lengths.tolist()}), accepted {a.n_accepted.tolist()} = the common prefixes; "
+        f"captured resume bitwise the uncaptured chunk")
+
+
+def drafted_phase(torch, E, W) -> int:
+    """Phase 3f: drafted partials on whisper-small bf16, default path (int8
+    cross K/V, einsum), 5 s bucket: the float32 gate
+    (:func:`drafted_gate_f32`); at 4 and 64 rows, plain and drafted decodes
+    at acceptance 1 (the draft is the plain decode's own tokens) and 0 (a
+    draft of ``sot``, which greedy never writes), every row where a drafted
+    and the plain tokens differ printed with the plain decode's top-2 logit
+    gap at the first difference (a gap above ``BF16_TIE_GAP`` fails); the
+    decode times (CUDA events) of the plain decode, of the drafted decode
+    with the plain tokens as drafts (bf16 near-ties make the verify pass
+    reject some of them), with drafts every row accepts whole
+    (:func:`accepted_draft`) and at acceptance 0, and of the verify pass
+    alone, with the break-even acceptance beside ``STT_DRAFT_ENGAGE``: a
+    group resumes until its last row finishes, so its time follows the
+    acceptance of its least-accepting row, interpolated here between the
+    whole and the zero acceptance; then 3 ticks
+    of 64 sessions under ``draft_mode="on"`` and under ``"adaptive"`` after
+    a prewarm with drafted entries, failing if a graph is captured while
+    serving. Returns the log-mel launches of the served ticks."""
+    drafted_gate_f32(torch, E, W)
+    from stt_tpu_torch.ops.kernels.mel import mel_logspec
+
+    def build(mode: str):
+        engine = E.WhisperEngine(
+            "small", device="cuda", compute_type="bfloat16", batch_buckets=(1, 4, 16, 64),
+            max_batch=64, batch_window_ms=50.0, max_decode_tokens=224,
+            cross_kv_dtype="int8", xattn_kernel="off", flash_attention="off", draft_mode=mode)
+        sec = engine.prewarm([5.0], [1, 4, 16, 64], include_drafted=True)
+        log(f"drafted ({mode}): prewarm 5 s x 1/4/16/64 rows with drafted entries in "
+            f"{sec:.2f} s, {engine.graph_captures} graphs, "
+            f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+        return engine
+
+    def serve_ticks(engine, mode: str) -> int:
+        sessions = [synth_audio(7.0, seed=90 + i % 16) for i in range(64)]
+        captures = engine.graph_captures
+        mel_logspec.launches = 0
+        for tick in range(3):
+            end = int((5.0 + 0.5 * tick) * 16000)
+            t0 = time.monotonic()
+            futs = [engine.submit(E.DecodeRequest(a[end - 80000:end], language="en",
+                                                  session_id=f"smoke-draft-{i}"))
+                    for i, a in enumerate(sessions)]
+            outs = [f.result(timeout=300) for f in futs]
+            log(f"drafted ({mode}): tick {tick}, 64 partials in {time.monotonic() - t0:.3f} s, "
+                f"groups of {sorted({o.batch_rows for o in outs})} rows, draft stats "
+                f"{engine.draft_stats}")
+        if engine.graph_captures != captures:
+            fail(f"drafted ({mode}): {engine.graph_captures - captures} graphs captured while "
+                 f"serving")
+        if mode == "on" and engine.draft_stats["offered"] <= 0:
+            fail(f"drafted (on): no draft offered in 3 ticks: {engine.draft_stats}")
+        return mel_logspec.launches
+
+    engine = build("on")
+    try:
+        for rows in (4, 64):
+            plain, drafted, prompt, plen = drafted_group(torch, E, W, engine, rows, seed=100)
+            p_len, max_new = plain.key.p_len, plain.key.max_new
+            with engine._device_lock, torch.inference_mode():
+                base = engine.graphs.decode(plain, prompt, plen)
+            perfect = base.tokens[:, p_len:].clone()
+            perfect_len = base.lengths - p_len
+            never = torch.full_like(perfect, engine.layout.sot)
+            full = torch.full_like(perfect_len, max_new)
+            for acc, draft, dlen in (("the plain tokens as drafts", perfect, perfect_len),
+                                     ("acceptance 0", never, full)):
+                _, got = drafted_decodes(torch, engine, plain, drafted, prompt, plen, draft, dlen)
+                diff = {}
+                for r in range(rows):
+                    a, b = got.tokens[r].tolist(), base.tokens[r].tolist()
+                    if a != b or int(got.lengths[r]) != int(base.lengths[r]):
+                        diff[r] = lcp(a, b)
+                gaps = plain_top2_gaps(torch, W, engine, plain, prompt, plen, base.tokens,
+                                       diff) if diff else {}
+                accepted = got.n_accepted.tolist()
+                log(f"drafted bf16 ({rows} x 5 s, {acc}): accepted "
+                    f"{sum(accepted)} of {int(dlen.sum())} draft tokens; {len(diff)} of {rows} "
+                    f"rows differ from the plain decode"
+                    + "".join(f"; row {r} first at position {diff[r]}, plain top-2 gap "
+                              f"{gaps[r]:.4f}" for r in sorted(diff)))
+                bad = {r: g for r, g in gaps.items() if g > BF16_TIE_GAP}
+                if bad:
+                    fail(f"drafted bf16: rows {bad} differ where the plain decode's top-2 gap "
+                         f"exceeds {BF16_TIE_GAP}: not a tie")
+            whole, whole_len, passes = accepted_draft(torch, engine, drafted, prompt, plen,
+                                                      perfect, perfect_len)
+            with engine._device_lock, torch.inference_mode():
+                own = engine.graphs.decode(drafted, prompt, plen, draft=perfect,
+                                           draft_len=perfect_len)
+            own_rate = own.n_accepted.float() / perfect_len.clamp_min(1).float()
+            ms = {
+                "plain": group_ms(torch, engine, lambda: engine.graphs.decode(
+                    plain, prompt, plen)),
+                "plain_tokens": group_ms(torch, engine, lambda: engine.graphs.decode(
+                    drafted, prompt, plen, draft=perfect, draft_len=perfect_len)),
+                "acc1": group_ms(torch, engine, lambda: engine.graphs.decode(
+                    drafted, prompt, plen, draft=whole, draft_len=whole_len)),
+                "acc0": group_ms(torch, engine, lambda: engine.graphs.decode(
+                    drafted, prompt, plen, draft=never, draft_len=full)),
+                "verify": group_ms(torch, engine, lambda: W.start_drafted(
+                    engine.model.decoder, drafted.state, prompt, plen, never, full,
+                    drafted.cross_kv)),
+            }
+            t1, t0, tp = ms["acc1"], ms["acc0"], ms["plain"]
+            if t0 <= tp:
+                even = "0 (drafted wins at any acceptance)"
+            elif t1 >= tp:
+                even = "none (drafted loses at any acceptance)"
+            else:
+                even = f"{(t0 - tp) / (t0 - t1):.3f}"
+            log(f"drafted times ({rows} x 5 s, max_new {max_new}, decode of one group, CUDA "
+                f"events, median of 5): plain {tp:.3f} ms; drafted with the plain tokens as "
+                f"drafts {ms['plain_tokens']:.3f} ms (accepted {own_rate.mean().item():.3f} of "
+                f"them on average, {own_rate.min().item():.3f} in the least-accepting row); "
+                f"at acceptance 1 (drafts accepted whole, found in {passes} passes) {t1:.3f} "
+                f"ms; at acceptance 0 {t0:.3f} ms (its verify pass {ms['verify']:.3f} ms, "
+                f"the resume {t0 - ms['verify']:.3f} ms); break-even acceptance of the "
+                f"least-accepting row {even} (linear between 0 and 1) beside "
+                f"STT_DRAFT_ENGAGE={engine._draft_engage}")
+        launches = serve_ticks(engine, "on")
+    finally:
+        engine.close()
+    engine = build("adaptive")
+    try:
+        launches += serve_ticks(engine, "adaptive")
+    finally:
+        engine.close()
+    if launches <= 0:
+        fail("drafted: the served ticks never launched the log-mel kernel")
+    return launches
 
 
 def bench_phase() -> None:
@@ -1342,9 +1652,15 @@ def grpc_phase(torch, card: str) -> int:
             fail("http: /health answered 200 with no shape prewarmed")
         log(f"http: /health {early} before the gRPC server started (model loaded, "
             f"{shapes} shapes prewarmed), {ready} after; HTTP plane on port {http.port}")
+        drafted_shapes = sum(1 for k in engine.graphs._entries if k.drafted)
+        if engine._draft_mode != "adaptive" or not drafted_shapes:
+            fail(f"grpc: the shipped server runs draft mode {engine._draft_mode!r} with "
+                 f"{drafted_shapes} drafted shapes prewarmed; adaptive with every bucket's "
+                 f"drafted entries expected")
         log(f"grpc: server booted in {boot:.2f} s on port {port} (device {config.device} -> "
             f"{engine.device}, backend {config.model_backend}, whisper-{engine.model_size} "
-            f"{engine._dtype}, policy {engine.policy}); {shapes} shapes prewarmed "
+            f"{engine._dtype}, policy {engine.policy}, draft mode {engine._draft_mode}); "
+            f"{shapes} shapes prewarmed, {drafted_shapes} of them drafted "
             f"({engine.audio_buckets_sec} s x {engine.batch_buckets} rows)")
         n = 8
         sessions = [None] * n
@@ -1369,6 +1685,10 @@ def grpc_phase(torch, card: str) -> int:
         served_captures = engine.graph_captures - shapes
         after = runtime.metrics.render()
         http_checks(torch, http.port, after, shapes)
+        _, text = http_get(http.port, "/metrics")
+        log(f"grpc: /metrics draft counters after the sessions: "
+            + ", ".join(line for line in text.splitlines() if line.startswith("stt_draft"))
+            + f"; engine draft stats {engine.draft_stats}")
         mel_logspec.launches = 0
         t2 = time.monotonic()
         status, payload = rest_transcribe(http.port, load_tool_audio(5.0, seed=100))
@@ -1714,6 +2034,9 @@ def main() -> None:
     graphs_f32_phase(torch, E, W)
     bench_phase()
 
+    # -- 3f. drafted partials (the shipped STT_DRAFT_PARTIALS=adaptive) --------
+    drafted_launches = drafted_phase(torch, E, W)
+
     # -- 3e. beam search at beam 5 (the accurate profile), both paths ----------
     beam_int8, _ = serve_beam_phase(
         torch, E, W, "int8 cross K/V, einsum",
@@ -1739,7 +2062,8 @@ def main() -> None:
         "route": "cuda",
         "source": "stt_tpu_torch/ops/cuda/mel.cu",
         "replaces": "stt_tpu/ops/pallas/mel.py:84",
-        "launches": launches + beam_int8["mel_logspec"] + beam_30s["mel_logspec"],
+        "launches": (launches + beam_int8["mel_logspec"] + beam_30s["mel_logspec"]
+                     + drafted_launches),
         "max_abs_err": max(mel_err.values()),
         **headline,
     }, {

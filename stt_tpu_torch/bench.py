@@ -22,6 +22,34 @@ the profiler records) and prints to stderr the top device operations by
 total time, with counts, their sums by kind, and the device's idle share
 of the round.
 
+After the RTFx rounds come the partial-latency phases of ``bench.py:657-830``
+(``partial_phases``), on the same engine at the shipped partial policy
+(each partial decodes the trailing ``partial_decode_window_sec``, 5 s, of
+its session's growing buffer), after a prewarm of the shapes they reach
+(the 5 s bucket at every batch bucket up to the stream count, with its
+drafted entries unless drafting is off, and the 1 s bucket at one row):
+
+- burst: 8 synchronized ticks of one partial per stream (session
+  ``bench_{i}``), 2 of them warm-up, each tick's window 0.85 of the
+  utterance plus a step further into it: ``partial_burst_p95_ms``;
+- served: every stream at the shipped 1.5 s cadence with a random phase
+  (``default_rng(1)``), 14 intervals, 2 of them warm-up, each session on
+  its own rolled copy of 30 s of synthetic audio whose buffer grows with
+  time from the window's length, so the window moves at every interval
+  (``bench.py:744`` decodes one fixed window): ``partial_p95_loaded_ms``,
+  ``partial_p50_loaded_ms`` and the median over intervals of each
+  interval's p95, ``partial_p95_iv_median_ms``;
+- under any drafting mode but ``off`` (``STT_DRAFT_PARTIALS``, default
+  adaptive), the draft acceptance over both phases (live and hypothetical
+  tokens), whether drafting was engaged at the end and the median burst
+  tick: ``draft_accept_rate``, ``draft_engaged``, ``draft_tick_ms`` (null
+  under ``off``);
+- idle probe: 20 sequential requests of 1 s: ``partial_p95_ms``.
+
+Latencies run from submit to the future's completion on the host's clock.
+With random weights the token streams say nothing of real speech, so the
+acceptance is the model's, not a deployment's.
+
 Then the end-to-end phase (``run_e2e_phase``, counterpart of
 ``bench.py:87-257``; ``--no-e2e`` skips it): it boots ``python3 -m
 stt_tpu_torch.server.main`` as a subprocess on the same device with the
@@ -37,10 +65,9 @@ iterations after 2 warm-up sessions, 5 s of synthetic audio paced at 2x in
 fails, the line carries ``e2e_error`` instead, still prints, and the bench
 exits 1.
 
-Diagnostics go to stderr; the last line of stdout is the JSON result. The
-served-partial and drafted phases of ``bench.py`` need modules the port
-does not have yet and are left out. ``--device cpu --model test`` runs on
-the CPU (for the tests); its times are the host's, and the device-only
+Diagnostics go to stderr; the last line of stdout is the JSON result.
+``--device cpu --model test`` runs on the CPU (for the tests), the partial
+phases at its stream count; its times are the host's, and the device-only
 fields are null.
 """
 
@@ -66,6 +93,7 @@ import numpy as np
 import torch
 import yaml
 
+from .config import defaults
 from .config.loader import DEFAULT_CONFIG_PATH, DEFAULT_MODEL_CONFIG_PATH, PROJECT_ROOT
 from .engine import engine as E
 from .models import whisper as W
@@ -77,6 +105,10 @@ BATCH_BUCKETS = (1, 4, 16, 64, 128)  # bench.py's: the served rungs + the 128-ro
 PROMPT_LEN = 4             # sot, language, task, no-timestamps
 TIMED_CHUNKS = 12          # decode chunks timed per reading, after 2 of warm-up
 E2E_BOOT_WAIT_SEC = 600.0  # whisper-small boots and prewarms its 4 shapes in well under this
+E2E_LOAD_WAIT_SEC = 420.0  # the load tool's 32 sessions of 2.5 s each take well under this
+BURST_TICKS, BURST_WARM = 8, 2       # bench.py:684-686
+SERVED_INTERVALS, SERVED_WARM = 14, 2  # bench.py:739
+IDLE_PROBES = 20                       # bench.py:811
 E2E_LOAD_ARGS = ["--sessions", "16", "--iterations", "2", "--warmup", "2",
                  "--synthetic-sec", "5", "--speed", "2.0", "--language", "en",
                  "--chunk-ms", "100"]
@@ -230,6 +262,122 @@ def kind_of(name: str) -> str:
     return "other"
 
 
+def _p95(values: List[float]) -> float:
+    """``bench.py``'s p95 of a sample: the value at ``int(0.95 n) - 1``."""
+    ordered = sorted(values)
+    return ordered[int(len(ordered) * 0.95) - 1]
+
+
+def partial_phases(engine: E.WhisperEngine, streams: int) -> Dict[str, Any]:
+    """The partial-latency phases (burst, served, acceptance, idle probe);
+    returns their fields of the result line, latencies in ms."""
+    window_sec = float(defaults.DEFAULT_PARTIAL_DECODE_WINDOW_SEC)
+    interval = float(defaults.DEFAULT_PARTIAL_DECODE_INTERVAL_SEC)
+    window_n = int(window_sec * 16000)
+    stats0 = dict(engine.draft_stats)
+
+    def timed_submit(request, sink, tag=None):
+        t_sub = time.perf_counter()
+        fut = engine.submit(request)
+        fut.add_done_callback(lambda f: sink.append((tag, time.perf_counter() - t_sub)))
+        return fut
+
+    def partial(win, i):
+        return E.DecodeRequest(audio=win, language="en", is_final=False,
+                               session_id=f"bench_{i}")
+
+    # burst: every stream's partial in one synchronized tick
+    audio = synth_audio(10.0)
+    grow0 = int(0.85 * len(audio))
+    step = (len(audio) - grow0) // (BURST_TICKS - 1)
+    burst, tick_walls = [], []
+    for w in range(BURST_TICKS):
+        ln = min(len(audio), grow0 + step * w)
+        sink = [] if w < BURST_WARM else burst
+        t0 = time.perf_counter()
+        futs = [timed_submit(partial(audio[max(0, ln - window_n):ln], i), sink)
+                for i in range(streams)]
+        futures.wait(futs)
+        for f in futs:
+            f.result()
+        tick_walls.append(time.perf_counter() - t0)
+    burst_ms = sorted(lat * 1e3 for _, lat in burst)
+    log(f"BURST partials ({streams} sessions a synchronized tick, trailing "
+        f"{window_sec:g} s window): p50 {burst_ms[len(burst_ms) // 2]:.1f} ms, p95 "
+        f"{_p95(burst_ms):.1f} ms over {len(burst_ms)} requests / "
+        f"{BURST_TICKS - BURST_WARM} ticks")
+
+    # served: the shipped cadence, random phases, each session's buffer
+    # growing from the window's length with time
+    served_sec = window_sec + (SERVED_INTERVALS + 1) * interval
+    long_audio = synth_audio(float(np.ceil(served_sec)))
+    session_audio = [np.roll(long_audio, 997 * (i + 1)) for i in range(streams)]
+    phases = np.random.default_rng(1).uniform(0.0, interval, streams)
+    events = sorted((k * interval + phases[i], i, k)
+                    for k in range(SERVED_INTERVALS) for i in range(streams))
+    served, futs = [], []
+    t_start = time.perf_counter()
+    for t_ev, i, k in events:
+        now = time.perf_counter() - t_start
+        if t_ev > now:
+            time.sleep(t_ev - now)
+        ln = min(len(long_audio), window_n + int(t_ev * 16000))
+        futs.append(timed_submit(partial(session_audio[i][ln - window_n:ln], i), served, k))
+    futures.wait(futs)
+    for f in futs:
+        f.result()
+    by_iv: Dict[int, List[float]] = {}
+    for k, lat in served:
+        by_iv.setdefault(k, []).append(lat * 1e3)
+    for k in sorted(by_iv):
+        v = sorted(by_iv[k])
+        log(f"  served interval {k}{' (warm-up)' if k < SERVED_WARM else ''}: p50 "
+            f"{v[len(v) // 2]:.1f} ms, max {v[-1]:.1f} ms, n {len(v)}")
+    meas = sorted(lat for k, v in by_iv.items() if k >= SERVED_WARM for lat in v)
+    iv_p95 = sorted(_p95(v) for k, v in by_iv.items() if k >= SERVED_WARM)
+    out: Dict[str, Any] = {
+        "partial_p95_loaded_ms": round(_p95(meas), 1),
+        "partial_p50_loaded_ms": round(meas[len(meas) // 2], 1),
+        "partial_p95_iv_median_ms": round(iv_p95[len(iv_p95) // 2], 1),
+        "partial_burst_p95_ms": round(_p95(burst_ms), 1),
+        "draft_accept_rate": None, "draft_engaged": None, "draft_tick_ms": None,
+    }
+    log(f"SERVED partials ({streams} sessions at a {interval:g} s cadence, random phase, "
+        f"trailing {window_sec:g} s window of a growing buffer): p50 "
+        f"{out['partial_p50_loaded_ms']} ms, p95 {out['partial_p95_loaded_ms']} ms (median "
+        f"interval p95 {out['partial_p95_iv_median_ms']} ms) over {len(meas)} requests / "
+        f"{SERVED_INTERVALS - SERVED_WARM} intervals")
+
+    if engine._draft_mode != "off":
+        # live tokens where the drafted decode ran, hypothetical ones (the
+        # store's longest common prefix) where adaptive routing served plain
+        st = dict(engine.draft_stats)
+        offered = (st["offered"] - stats0["offered"]
+                   + st["hyp_offered"] - stats0["hyp_offered"])
+        accepted = (st["accepted"] - stats0["accepted"]
+                    + st["hyp_accepted"] - stats0["hyp_accepted"])
+        walls = sorted(tick_walls[BURST_WARM:])
+        out.update(draft_accept_rate=round(accepted / offered, 4) if offered else None,
+                   draft_engaged=bool(st["engaged"]),
+                   draft_tick_ms=round(walls[len(walls) // 2] * 1e3, 1))
+        log(f"streaming partial ticks: draft acceptance {out['draft_accept_rate']} "
+            f"({accepted} of {offered} draft tokens), engaged {out['draft_engaged']}, median "
+            f"burst tick {out['draft_tick_ms']} ms (mode {engine._draft_mode}; random "
+            f"weights: the model's acceptance, not speech's)")
+
+    # idle probe: one request of 1 s at a time
+    probe = audio[:16000]
+    lats = []
+    for _ in range(IDLE_PROBES):
+        t0 = time.perf_counter()
+        engine.transcribe_sync(E.DecodeRequest(audio=probe, language="en"))
+        lats.append((time.perf_counter() - t0) * 1e3)
+    out["partial_p95_ms"] = round(_p95(lats), 1)
+    log(f"partial (1 s bucket, idle probe): p50 {sorted(lats)[len(lats) // 2]:.1f} ms, p95 "
+        f"{out['partial_p95_ms']} ms")
+    return out
+
+
 def profile_round(engine: E.WhisperEngine, audio: np.ndarray, streams: int,
                   top: int = 30) -> Dict[str, Any]:
     """One steady round under ``torch.profiler``: the completion period of
@@ -319,8 +467,6 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         raise RuntimeError("--profile reads the card's operations; it needs --device cuda")
     card = card_name_and_power() if on_card else "cpu"
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    log("left out: the served-partial and drafted phases of bench.py "
-        "(not ported yet; ROADMAP.md Queue 1 items 2 and 4)")
     t0 = time.monotonic()
     engine = E.WhisperEngine(
         args.model, device=args.device, compute_type="bfloat16", max_batch=args.streams,
@@ -365,6 +511,20 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         log(f"RTFx at {streams2} streams, one true batch of {rows2} rows: {rtfx2:.2f} "
             f"(median of {len(walls2) - 1} steady rounds)")
         engine.max_batch = args.streams
+        captures_serving = engine.graph_captures - captures0
+
+        # the shapes the partial phases reach, then the phases
+        window = float(defaults.DEFAULT_PARTIAL_DECODE_WINDOW_SEC)
+        p_bucket = engine._bucket_for(int(window * 16000))
+        p_rows = [b for b in engine.batch_buckets if b <= rows]
+        prewarm_p = engine.prewarm([p_bucket], p_rows,
+                                   include_drafted=engine._draft_mode != "off")
+        prewarm_p += engine.prewarm([engine._bucket_for(16000)], [1])
+        log(f"prewarm for the partial phases: {p_bucket:g} s x {p_rows} rows (drafted "
+            f"{engine._draft_mode != 'off'}) and 1 s x 1: {prewarm_p:.2f} s, "
+            f"{engine.graph_captures} graphs captured")
+        captures1 = engine.graph_captures
+        partials = partial_phases(engine, args.streams)
 
         result: Dict[str, Any] = {
             "metric": f"rtfx_whisper_{args.model}_{args.streams}streams",
@@ -382,6 +542,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
             "decode_step_bound_ms": None,
             "prewarm_s": round(prewarm_s, 2),
             "memory_reserved_gib": None if reserved is None else round(reserved / 2**30, 3),
+            **partials,
+            "draft_mode": engine._draft_mode,
             "graph_replays": engine.graph_replays,
             "card": card,
             "device": str(engine.device),
@@ -399,7 +561,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                           decode_step_bound_ms=round(bound, 4))
         if args.profile:
             result.update(profile_round(engine, audio, args.streams))
-        result["graph_captures_serving"] = engine.graph_captures - captures0
+        result["graph_captures_serving"] = captures_serving + engine.graph_captures - captures1
         return result
     finally:
         engine.close()
@@ -432,8 +594,11 @@ def _free_port() -> int:
 def run_e2e_phase(args: argparse.Namespace) -> Dict[str, Any]:
     """The serving stack end to end: the port's server as a subprocess on
     the bench's device, driven by the load tool in a process of its own;
-    returns the ``e2e_*`` fields. Raises if the server does not boot, the
-    load tool fails or the server does not stop on SIGTERM with exit 0."""
+    returns the ``e2e_*`` fields. Raises if the server does not boot within
+    ``E2E_BOOT_WAIT_SEC``, the load tool fails or outlasts
+    ``E2E_LOAD_WAIT_SEC``, a session fails, or the server does not stop on
+    SIGTERM with exit 0; the message names the limit and carries the
+    server log's tail and the load tool's stderr."""
     with tempfile.TemporaryDirectory(prefix="stt_torch_e2e_") as tmp:
         tmp = Path(tmp)
         cfg_path, model_cfg_path = e2e_configs(tmp)
@@ -448,31 +613,50 @@ def run_e2e_phase(args: argparse.Namespace) -> Dict[str, Any]:
         with open(log_path, "w") as server_log:
             proc = subprocess.Popen(cmd, cwd=PROJECT_ROOT, stdout=server_log,
                                     stderr=subprocess.STDOUT, start_new_session=True)
+        load_err = ""
+
+        def failed(what: str) -> RuntimeError:
+            return RuntimeError(f"{what}; server log tail: {log_path.read_text()[-1500:]!r}; "
+                                f"load tool stderr tail: {load_err[-1500:]!r}")
+
         try:
             t0 = time.monotonic()
             with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
                 while True:
                     if proc.poll() is not None:
-                        raise RuntimeError(f"server exited rc={proc.returncode} during boot: "
-                                           f"{log_path.read_text()[-1500:]}")
+                        raise failed(f"server exited rc={proc.returncode} during boot")
                     try:
                         grpc.channel_ready_future(channel).result(timeout=2.0)
                         break
                     except grpc.FutureTimeoutError:
                         if time.monotonic() - t0 > E2E_BOOT_WAIT_SEC:
-                            raise RuntimeError(
-                                f"server not ready after {E2E_BOOT_WAIT_SEC:g} s") from None
+                            raise failed(f"server not ready after E2E_BOOT_WAIT_SEC="
+                                         f"{E2E_BOOT_WAIT_SEC:g} s") from None
             boot_sec = time.monotonic() - t0
             log(f"e2e: server ready in {boot_sec:.1f} s; driving load")
             out_dir = tmp / "load"
-            load = subprocess.run(
-                [sys.executable, str(PROJECT_ROOT / "tools" / "bench" / "grpc_load_test.py"),
-                 "--target", f"127.0.0.1:{port}", *E2E_LOAD_ARGS, "--out-dir", str(out_dir)],
-                cwd=PROJECT_ROOT, capture_output=True, text=True, timeout=420,
-            )
+            t1 = time.monotonic()
+            try:
+                load = subprocess.run(
+                    [sys.executable,
+                     str(PROJECT_ROOT / "tools" / "bench" / "grpc_load_test.py"),
+                     "--target", f"127.0.0.1:{port}", *E2E_LOAD_ARGS, "--out-dir",
+                     str(out_dir)],
+                    cwd=PROJECT_ROOT, capture_output=True, text=True,
+                    timeout=E2E_LOAD_WAIT_SEC,
+                )
+            except subprocess.TimeoutExpired as exc:
+                load_err = (exc.stderr or b"").decode(errors="replace") \
+                    if isinstance(exc.stderr, bytes) else (exc.stderr or "")
+                raise failed(f"load tool still running after E2E_LOAD_WAIT_SEC="
+                             f"{E2E_LOAD_WAIT_SEC:g} s") from None
+            load_err = load.stderr
+            log(f"e2e: load tool done in {time.monotonic() - t1:.1f} s")
             if load.returncode != 0:
-                raise RuntimeError(f"load tool rc={load.returncode}: {load.stderr[-800:]}")
+                raise failed(f"load tool rc={load.returncode}")
             summary = json.loads((out_dir / "summary.json").read_text())
+            if summary.get("error_rate") or not summary.get("sessions"):
+                log(f"e2e: sessions failed: {failed('see the summary')}")
         finally:
             if proc.poll() is None:
                 os.killpg(proc.pid, signal.SIGTERM)

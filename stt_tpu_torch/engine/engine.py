@@ -36,8 +36,23 @@ takes, and beam search above it (the shipped ``accurate`` profile):
   :meth:`WhisperEngine.prewarm` builds the entries (and the kernels, and
   cuBLAS's choices) of the shapes and beam widths a deployment serves
   before it serves them, so nothing is captured at serving time.
+- Streaming partials may be drafted (``stt_tpu/engine/engine.py:95-172``):
+  a session's previous partial drafts its next one, verified in one
+  teacher-forced pass on a drafted entry of the decode graphs, greedy
+  resuming per row from the first mismatch (token-identical to the plain
+  decode in float32). ``draft_mode`` (else ``STT_DRAFT_PARTIALS``, default
+  ``adaptive``) is ``on`` (every eligible partial, and a final whose
+  session holds a draft, rides the drafted decode), ``off``, or
+  ``adaptive``: partials are served plain while the host measures what a
+  draft would have accepted (the longest common prefix of consecutive
+  token streams), and ride the drafted decode while the fleet-wide
+  acceptance EMA stays above ``STT_DRAFT_ENGAGE`` (0.8; it stops below
+  ``STT_DRAFT_DISENGAGE``, 0.7). Drafted and plain rows form separate
+  groups; ``draft_stats`` and the metrics hook's ``record_draft_verify``
+  and ``record_draft_signal`` count the acceptance.
 - The device phase returns one packed int32 array per group (tokens,
-  lengths, logprob sum, p(no_speech), language index and probability);
+  lengths, logprob sum, p(no_speech), language index and probability,
+  and for a drafted group the accepted draft tokens);
   a harvester thread reads it back, detokenizes and resolves the futures,
   so the engine thread can form the next batch meanwhile. At most
   ``pipeline_depth`` groups are in flight.
@@ -56,14 +71,12 @@ False on the card raises, since nothing swaps in the plain version there;
 ``weights_path`` other than None raises (deterministic init from ``seed``
 only, for now).
 
-Five switches of the JAX package select behaviour the port does not have
+Four switches of the JAX package select behaviour the port does not have
 yet; they are read at engine build, parsed as the JAX package parses them,
 and a value that asks for that behaviour raises ``NotImplementedError``
-naming the variable and its value: ``STT_DRAFT_PARTIALS`` on/always,
-``STT_DECODER_WEIGHTS_DTYPE`` int8/int8_native (under bfloat16),
-``STT_FUSED_QKV`` on, ``STT_SELF_KV_DTYPE`` fp8 (under bfloat16) and
-``STT_PREFILL=seq``. The shipped ``STT_DRAFT_PARTIALS=adaptive`` logs one
-warning that partials are served plain.
+naming the variable and its value: ``STT_DECODER_WEIGHTS_DTYPE``
+int8/int8_native (under bfloat16), ``STT_FUSED_QKV`` on,
+``STT_SELF_KV_DTYPE`` fp8 (under bfloat16) and ``STT_PREFILL=seq``.
 
 Beam options are read as the JAX package reads them: ``beam_size``
 clamped to 1..8, ``patience`` (1..4, steps of 0.25; above 1 the pooled
@@ -71,8 +84,8 @@ search), ``length_penalty`` (0..2, steps of 0.25) and ``suppress_blank``.
 Left for later slices (a request asking for them raises
 ``NotImplementedError`` naming the option): timestamps, sampling and the
 temperature ladder, repetition penalty and n-gram bans, forced prefixes and
-conditioning prompts, clip ranges, word timestamps, drafted partials and
-the long-audio seek loop.
+conditioning prompts, clip ranges, word timestamps and the long-audio seek
+loop.
 """
 
 from __future__ import annotations
@@ -82,6 +95,7 @@ import os
 import queue
 import threading
 import time
+from collections import OrderedDict
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -149,48 +163,54 @@ def _pipeline_depth(given: Optional[int]) -> int:
     return max(1, int(given))
 
 
+def _env(name: str, default: str) -> str:
+    return os.getenv(name, default).strip().lower()
+
+
+def _env_draft_mode() -> str:
+    """``STT_DRAFT_PARTIALS`` parsed as the JAX package parses it
+    (``stt_tpu/engine/engine.py:116-137``): off/0/false/no -> ``off``,
+    adaptive/auto (the default) -> ``adaptive``, on/1/true/yes/always ->
+    ``on``; any other value warns and means ``adaptive``."""
+    draft = _env("STT_DRAFT_PARTIALS", "adaptive")
+    if draft in ("off", "0", "false", "no"):
+        return "off"
+    if draft in ("on", "1", "true", "yes", "always"):
+        return "on"
+    if draft not in ("adaptive", "auto"):
+        LOGGER.warning("unrecognized STT_DRAFT_PARTIALS=%r; using 'adaptive' "
+                       "(valid: on/off/adaptive)", draft)
+    return "adaptive"
+
+
 def _refuse_ignored_switches(dtype: torch.dtype) -> None:
-    """Read the five switches of the JAX package that the port does not
+    """Read the four switches of the JAX package that the port does not
     serve, each parsed as the JAX package parses it, and raise
     ``NotImplementedError`` naming the variable and its value for any value
     whose behaviour the port lacks. Values that mean the port's behaviour
-    pass; ``STT_DRAFT_PARTIALS=adaptive`` (the shipped default) logs one
-    warning that partials are served plain."""
-    def env(name: str, default: str) -> str:
-        return os.getenv(name, default).strip().lower()
-
+    pass."""
     def refuse(name: str, value: str, what: str) -> None:
         raise NotImplementedError(
             f"{name}={value!r} ({what}) is not served by stt_tpu_torch yet")
 
-    # stt_tpu/engine/engine.py:116-133
-    draft = env("STT_DRAFT_PARTIALS", "adaptive")
-    if draft in ("on", "1", "true", "yes", "always"):
-        refuse("STT_DRAFT_PARTIALS", draft, "drafted partials")
-    if draft not in ("off", "0", "false", "no", "adaptive", "auto"):
-        LOGGER.warning("unrecognized STT_DRAFT_PARTIALS=%r; using 'adaptive' "
-                       "(valid: on/off/adaptive)", draft)
-    if draft not in ("off", "0", "false", "no"):
-        LOGGER.warning("STT_DRAFT_PARTIALS=%s: drafted partials are not ported; "
-                       "partials are served plain", draft)
     bf16 = dtype == torch.bfloat16
     # stt_tpu/models/whisper.py:571-580, applied at engine.py:1064-1079
-    weights = env("STT_DECODER_WEIGHTS_DTYPE", "bf16")
+    weights = _env("STT_DECODER_WEIGHTS_DTYPE", "bf16")
     if weights in ("int8", "i8", "int8_native", "i8n"):
         if bf16:
             refuse("STT_DECODER_WEIGHTS_DTYPE", weights, "int8 decoder weights")
         LOGGER.warning("STT_DECODER_WEIGHTS_DTYPE=%s requires bfloat16 compute; "
                        "ignored (compute_type=float32)", weights)
     # stt_tpu/models/whisper.py:362-366
-    fused = env("STT_FUSED_QKV", "off")
+    fused = _env("STT_FUSED_QKV", "off")
     if fused in ("1", "on", "true", "yes"):
         refuse("STT_FUSED_QKV", fused, "fused decoder q/k/v projection")
     # stt_tpu/models/whisper.py:504-512: fp8 only under bfloat16 compute
-    self_kv = env("STT_SELF_KV_DTYPE", "bf16")
+    self_kv = _env("STT_SELF_KV_DTYPE", "bf16")
     if bf16 and self_kv in ("fp8", "f8", "float8", "fp8_e4m3"):
         refuse("STT_SELF_KV_DTYPE", self_kv, "fp8 self-attention cache")
     # stt_tpu/models/whisper.py:353, 967: anything but "seq" is parallel
-    prefill = env("STT_PREFILL", "parallel")
+    prefill = _env("STT_PREFILL", "parallel")
     if prefill == "seq":
         refuse("STT_PREFILL", prefill, "sequential prompt prefill")
 
@@ -228,13 +248,37 @@ class DecodeOutput:
 
 
 class _Task:
-    __slots__ = ("request", "future", "cancel_event")
+    __slots__ = ("request", "future", "cancel_event", "draft")
 
     def __init__(self, request: DecodeRequest,
                  cancel_event: Optional[threading.Event]) -> None:
         self.request = request
         self.future: Future = Future()
         self.cancel_event = cancel_event
+        # the session's previous-partial tokens (int32; empty when none is
+        # stored) for a request routed to the drafted decode, None for the
+        # plain decode; resolved by _attach_draft before grouping
+        self.draft: Optional[np.ndarray] = None
+
+
+_EMPTY_DRAFT = np.zeros((0,), np.int32)
+DRAFT_STORE_CAP = 2048      # sessions whose last partial is kept as a draft
+DRAFT_EMA_ALPHA = 0.2
+DRAFT_MIN_OBS = 3           # observations before adaptive routing may engage
+
+
+def _draft_option_ok(request: "DecodeRequest", mode: str = "on") -> bool:
+    """Whether the drafted decode may serve ``request``
+    (``stt_tpu/engine/engine.py:143-172``): a mode other than ``off``, a
+    real session id to correlate ticks under, and greedy (beam 1). The JAX
+    function's other conditions (no timestamps, repetition penalty, n-gram
+    bans or temperature ladder, no seek window) hold for every request the
+    port accepts: ``submit`` refuses the rest."""
+    if mode == "off":
+        return False
+    if not request.session_id or request.session_id == "unknown":
+        return False
+    return _beam_size_of(request) == 1
 
 
 def _beam_size_of(request: DecodeRequest) -> int:
@@ -302,25 +346,26 @@ def _unsupported_option(options: Dict[str, Any]) -> Optional[str]:
     return None
 
 
-def _pack_result(res: W.DecodeResult, lang_idx: torch.Tensor,
+def _pack_result(res: Union[W.DecodeResult, W.DraftedResult], lang_idx: torch.Tensor,
                  lang_p: torch.Tensor) -> torch.Tensor:
     """One int32 array (B, T_max + 5): [tokens | lengths |
     bitcast(sum_logprob) | bitcast(no_speech_prob) | lang_idx |
-    bitcast(lang_prob)], so the host reads every output in one transfer."""
+    bitcast(lang_prob)], so the host reads every output in one transfer; a
+    drafted result appends one column, the accepted draft tokens."""
     def bits(x):
         return x.to(torch.float32).contiguous().view(torch.int32)[:, None]
 
-    return torch.cat(
-        [
-            res.tokens.to(torch.int32),
-            res.lengths.to(torch.int32)[:, None],
-            bits(res.sum_logprob),
-            bits(res.no_speech_prob),
-            lang_idx.to(torch.int32)[:, None],
-            bits(lang_p),
-        ],
-        dim=1,
-    )
+    columns = [
+        res.tokens.to(torch.int32),
+        res.lengths.to(torch.int32)[:, None],
+        bits(res.sum_logprob),
+        bits(res.no_speech_prob),
+        lang_idx.to(torch.int32)[:, None],
+        bits(lang_p),
+    ]
+    if isinstance(res, W.DraftedResult):
+        columns.append(res.n_accepted.to(torch.int32)[:, None])
+    return torch.cat(columns, dim=1)
 
 
 def _mel_encode(model: W.Whisper, rows: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -381,13 +426,43 @@ def _decode_serve(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
     return _pack_result(res, lang_idx, lang_p)
 
 
+def _decode_serve_drafted(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
+                          enc: torch.Tensor, prompt: torch.Tensor, prompt_len: torch.Tensor,
+                          draft: torch.Tensor, draft_len: torch.Tensor,
+                          auto_mask: torch.Tensor, max_new_tokens: int,
+                          suppress_blank: bool = True, lang_pos: int = 1) -> torch.Tensor:
+    """Language detection -> drafted decode -> packed outputs, on the
+    shape's drafted entry of ``graphs`` (``stt_tpu/engine/engine.py:
+    558-582``): the cross K/V computed once into the entry's buffers (which
+    it shares with the greedy entry of its shape), the detected language
+    patched into the prompt, then the verify pass and the per-row resume.
+    ``draft`` (B, max_new) is eot-padded past ``draft_len``; rows without a
+    stored draft ride along with ``draft_len`` 0. Packs one extra column,
+    the accepted draft tokens per row."""
+    entry = graphs.entry(bucket_sec, enc.shape[0], prompt.shape[1], max_new_tokens,
+                         enc.shape[1], drafted=True)
+    cross_kv = W.precompute_cross_kv(model.decoder, enc, out=entry.cross_kv)
+    prompt, lang_idx, lang_p = _detect_and_patch_lang(
+        model, enc, prompt, auto_mask, cross_kv, lang_pos
+    )
+    res = graphs.decode(entry, prompt, prompt_len, suppress_blank=suppress_blank,
+                        sot_pos=lang_pos - 1, draft=draft, draft_len=draft_len)
+    return _pack_result(res, lang_idx, lang_p)
+
+
 def _serve_step(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
                 rows: torch.Tensor, prompt: torch.Tensor, prompt_len: torch.Tensor,
                 auto_mask: torch.Tensor, dtype: torch.dtype, max_new_tokens: int,
                 suppress_blank: bool = True, beam: int = 1, patience: float = 1.0,
-                length_penalty: float = 1.0) -> torch.Tensor:
-    """The whole serving step: mel + encoder, then detect + decode + pack."""
+                length_penalty: float = 1.0, draft: Optional[torch.Tensor] = None,
+                draft_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The whole serving step: mel + encoder, then detect + decode + pack
+    (the drafted decode when ``draft`` is given)."""
     enc = _mel_encode(model, rows, dtype)
+    if draft is not None:
+        return _decode_serve_drafted(model, graphs, bucket_sec, enc, prompt, prompt_len,
+                                     draft, draft_len, auto_mask, max_new_tokens,
+                                     suppress_blank)
     return _decode_serve(model, graphs, bucket_sec, enc, prompt, prompt_len, auto_mask,
                          max_new_tokens, suppress_blank, beam=beam, patience=patience,
                          length_penalty=length_penalty)
@@ -423,6 +498,7 @@ class WhisperEngine:
         pad_to_30s: bool = False,
         use_pallas: bool = True,
         weights_path: Optional[str] = None,
+        draft_mode: Optional[str] = None,
     ) -> None:
         if weights_path is not None:
             raise NotImplementedError(
@@ -449,6 +525,26 @@ class WhisperEngine:
         self._metrics = metrics
         self._dtype = _DTYPES[compute_type]
         _refuse_ignored_switches(self._dtype)
+        # drafted partials (stt_tpu/engine/engine.py:1008-1042): the store of
+        # each session's newest partial tokens (an LRU; a final evicts), the
+        # acceptance counters (live, and the adaptive mode's hypothetical
+        # ones), and the engagement with its hysteresis
+        env_mode = _env_draft_mode()
+        self._draft_mode = (draft_mode or env_mode).strip().lower()
+        if self._draft_mode not in ("on", "off", "adaptive"):
+            raise ValueError(f"draft_mode must be on/off/adaptive, got {self._draft_mode!r}")
+        self._drafts: "OrderedDict[str, np.ndarray]" = OrderedDict()
+        self._drafts_lock = threading.Lock()
+        self.draft_stats: Dict[str, Any] = {
+            "rows": 0, "offered": 0, "accepted": 0,
+            "hyp_offered": 0, "hyp_accepted": 0,
+            "ema": 0.0, "engaged": False,
+        }
+        self._draft_engage = float(os.getenv("STT_DRAFT_ENGAGE", "0.8"))
+        self._draft_disengage = float(os.getenv("STT_DRAFT_DISENGAGE", "0.7"))
+        self._draft_ema = 0.0
+        self._draft_obs = 0
+        self._draft_engaged = self._draft_mode == "on"
         config = W.get_config(model_size)
         self.config = config
         self.policy = W.AttentionPolicy.from_env(
@@ -610,6 +706,7 @@ class WhisperEngine:
         """Run one request on the calling thread (no batching)."""
         self._check_supported(request)
         task = _Task(request, None)
+        self._attach_draft(task)
         return self._harvest(self._device_phase([task]))[0]
 
     def prewarm(
@@ -633,12 +730,15 @@ class WhisperEngine:
         builds the kernels (``ops/cuda/build.py``), sets their function
         attributes, lets cuBLAS and cuDNN pick their algorithms and captures
         the shape's decode graph, so serving those shapes captures nothing.
+        ``include_drafted`` adds, for every (audio bucket, batch bucket), the
+        drafted entry at beam 1 (a group of empty drafts), which the boot
+        prewarm builds whenever the drafted decode may serve
+        (``stt_tpu/engine/engine.py:1435-1474``).
         ``include_detect`` is accepted for call sites and unused (every group
         can detect); ``parallelism`` is accepted and the shapes are built one
         after another, since captures share one device and one memory pool.
         Raises ``NotImplementedError`` for ``mode="aot"`` (ahead-of-time
-        compiles have no counterpart on the card) and ``include_drafted``
-        (a later slice).
+        compiles have no counterpart on the card).
         """
         del include_detect, parallelism
         if mode != "execute":
@@ -646,20 +746,18 @@ class WhisperEngine:
                 f"prewarm option mode={mode!r} is not served by stt_tpu_torch "
                 f"(only 'execute'; ahead-of-time compiles have no counterpart on the card)"
             )
-        if include_drafted:
-            raise NotImplementedError(
-                "prewarm option include_drafted=True is not served by stt_tpu_torch yet "
-                "(drafted partials are a later slice)"
-            )
         beams = sorted({max(1, min(int(b), W.MAX_BEAM)) for b in (beam_sizes or (1,))})
+        routes = [(beam, False) for beam in beams] + ([(1, True)] if include_drafted else [])
         t0 = time.monotonic()
         for sec in bucket_secs or self.audio_buckets_sec:
             for rows in batch_sizes or (self.batch_buckets[0],):
-                for beam in beams:
+                for beam, drafted in routes:
                     audio = np.zeros(int(float(sec) * SAMPLE_RATE), np.float32)
                     opts = {"beam_size": beam} if beam > 1 else {}
                     group = [_Task(DecodeRequest(audio=audio, language="en", options=opts),
                                    None) for _ in range(int(rows))]
+                    for task in group:
+                        task.draft = _EMPTY_DRAFT if drafted else None
                     self._harvest(self._device_phase(group))
         return time.monotonic() - t0
 
@@ -691,18 +789,75 @@ class WhisperEngine:
                 batch.append(nxt)
             self._process(batch)
 
+    # -- partial-draft store ----------------------------------------------------
+
+    def _draft_get(self, session_id: str) -> np.ndarray:
+        """The session's stored draft tokens (empty when none)."""
+        with self._drafts_lock:
+            arr = self._drafts.get(session_id)
+            if arr is None:
+                return _EMPTY_DRAFT
+            self._drafts.move_to_end(session_id)
+            return arr
+
+    def _draft_put(self, session_id: str, tokens: np.ndarray) -> None:
+        with self._drafts_lock:
+            self._drafts[session_id] = tokens
+            self._drafts.move_to_end(session_id)
+            while len(self._drafts) > DRAFT_STORE_CAP:
+                self._drafts.popitem(last=False)
+
+    def _draft_evict(self, session_id: str) -> None:
+        with self._drafts_lock:
+            self._drafts.pop(session_id, None)
+
+    def _attach_draft(self, task: _Task) -> None:
+        """Resolve one task's route (``stt_tpu/engine/engine.py:1569-1583``):
+        an eligible request rides the drafted decode under ``on``, and under
+        ``adaptive`` while engaged; a final only when its session holds a
+        draft."""
+        if task.draft is not None or not _draft_option_ok(task.request, self._draft_mode):
+            return
+        if self._draft_mode == "adaptive" and not self._draft_engaged:
+            return
+        draft = self._draft_get(task.request.session_id)
+        if task.request.is_final and not len(draft):
+            return
+        task.draft = draft
+
+    def _draft_observe_locked(self, offered: int, accepted: int) -> None:
+        """Fold one acceptance observation (live or hypothetical) into the
+        EMA and, under ``adaptive``, engage at ``STT_DRAFT_ENGAGE`` and
+        disengage below ``STT_DRAFT_DISENGAGE`` once ``DRAFT_MIN_OBS``
+        observations are in (``:1585-1604``). The caller holds
+        ``_drafts_lock``."""
+        if offered <= 0:
+            return
+        frac = accepted / offered
+        self._draft_ema = frac if self._draft_obs == 0 else (
+            (1.0 - DRAFT_EMA_ALPHA) * self._draft_ema + DRAFT_EMA_ALPHA * frac)
+        self._draft_obs += 1
+        if self._draft_mode == "adaptive" and self._draft_obs >= DRAFT_MIN_OBS:
+            if not self._draft_engaged and self._draft_ema >= self._draft_engage:
+                self._draft_engaged = True
+            elif self._draft_engaged and self._draft_ema < self._draft_disengage:
+                self._draft_engaged = False
+        self.draft_stats["ema"] = round(self._draft_ema, 4)
+        self.draft_stats["engaged"] = self._draft_engaged
+
     def _group_key(self, task: _Task) -> Tuple:
         """Two requests share a batch only when their audio bucket, prompt
-        length and group-wide decode policy match (``stt_tpu/engine/
-        engine.py:1617-1640``: patience and length penalty count only above
-        beam 1)."""
+        length, group-wide decode policy and route (drafted or plain) match
+        (``stt_tpu/engine/engine.py:1617-1640``: patience and length penalty
+        count only above beam 1)."""
         request = task.request
         bucket = self._bucket_for(len(request.audio))
         p_len = len(self._prompt_for(request))
         beam = _beam_size_of(request)
         patience = _patience_of(request) if beam > 1 else 1.0
         len_pen = _length_penalty_of(request) if beam > 1 else 1.0
-        return (bucket, p_len, beam, patience, len_pen, _suppress_blank_of(request))
+        return (bucket, p_len, beam, patience, len_pen, _suppress_blank_of(request),
+                task.draft is not None)
 
     def _process(self, batch: List[_Task]) -> None:
         live: List[_Task] = []
@@ -714,6 +869,8 @@ class WhisperEngine:
                 live.append(task)
         groups: Dict[Tuple, List[_Task]] = {}
         for task in live:
+            # the route resolves once, before grouping
+            self._attach_draft(task)
             groups.setdefault(self._group_key(task), []).append(task)
         max_rows = self.batch_buckets[-1]
         for group in groups.values():
@@ -803,6 +960,17 @@ class WhisperEngine:
         beam = _beam_size_of(group[0].request)
         patience = _patience_of(group[0].request) if beam > 1 else 1.0
         len_pen = _length_penalty_of(group[0].request) if beam > 1 else 1.0
+        # a drafted group (the group key carries the route) packs each row's
+        # draft, eot-padded to the bucket's max_new: one entry per shape
+        # covers every draft length
+        drafted = group[0].draft is not None
+        if drafted:
+            draft_arr = np.full((batch_n, max_new), self.layout.eot, np.int64)
+            dlen_arr = np.zeros((batch_n,), np.int64)
+            for i, task in enumerate(group):
+                dtoks = task.draft[:max_new]
+                draft_arr[i, : len(dtoks)] = dtoks
+                dlen_arr[i] = len(dtoks)
 
         dev = self.device
         with self._device_lock, torch.inference_mode():
@@ -814,13 +982,15 @@ class WhisperEngine:
                 torch.from_numpy(auto_mask).to(dev),
                 self._dtype, max_new, suppress_blank, beam=beam, patience=patience,
                 length_penalty=len_pen,
+                draft=torch.from_numpy(draft_arr).to(dev) if drafted else None,
+                draft_len=torch.from_numpy(dlen_arr).to(dev) if drafted else None,
             )
         return {
             "group": group, "packed": packed, "rows_dev": rows_dev,
             "durations": durations,
             "langs": langs, "p_len": p_len, "batch_n": batch_n, "n": n,
             "bucket_sec": bucket_sec, "max_new": max_new, "beam": beam,
-            "t_start": t_start,
+            "drafted": drafted, "t_start": t_start,
         }
 
     def _harvest(self, ctx: Dict[str, Any]) -> List[DecodeOutput]:
@@ -829,6 +999,9 @@ class WhisperEngine:
         durations = ctx["durations"]
         p_len = ctx["p_len"]
         arr = ctx["packed"].cpu().numpy()  # the ONE device->host transfer
+        if ctx["drafted"]:
+            self._count_draft_verify(group, arr[: len(group), -1], ctx["max_new"])
+            arr = arr[:, :-1]
         t_max = arr.shape[1] - 5
         outputs = []
         for i, task in enumerate(group):
@@ -857,12 +1030,70 @@ class WhisperEngine:
                 batch_rows=ctx["n"], avg_logprob=avg_lp, no_speech_prob=no_speech_p,
                 _tokens=arr[i, :t_max].astype(np.int32), _p_len=p_len, _n_gen=n_gen,
             ))
+        self._refresh_drafts(group, outputs, ctx["max_new"])
         elapsed = time.monotonic() - ctx["t_start"]
         if self._metrics is not None:
             self._metrics.record_engine_batch(ctx["n"], ctx["batch_n"], elapsed)
         for out in outputs:
             out.inference_sec = elapsed
         return outputs
+
+    def _count_draft_verify(self, group: List[_Task], accepted: np.ndarray,
+                            max_new: int) -> None:
+        """A drafted group's acceptance (``stt_tpu/engine/engine.py:
+        2383-2407``): rows with a non-empty draft, draft tokens offered and
+        accepted go to ``draft_stats``, the EMA and the metrics hook. The
+        harvester and ``transcribe_sync`` callers may harvest at once, so
+        the read-modify-write holds the lock."""
+        offered = sum(min(len(t.draft), max_new) for t in group)
+        rows_with = sum(1 for t in group if len(t.draft) > 0)
+        n_acc = int(accepted.sum())
+        with self._drafts_lock:
+            st = self.draft_stats
+            st["rows"] += rows_with
+            st["offered"] += offered
+            st["accepted"] += n_acc
+            self._draft_observe_locked(offered, n_acc)
+        if self._metrics is not None:
+            self._metrics.record_draft_verify(rows_with, offered, n_acc)
+
+    def _refresh_drafts(self, group: List[_Task], outputs: List[DecodeOutput],
+                        max_new: int) -> None:
+        """The draft store after a group (``stt_tpu/engine/engine.py:
+        2560-2616``): a final evicts its session's draft; an eligible
+        partial stores its generated tokens, whatever its route, and under
+        ``adaptive`` a plain-routed one first measures what its stored draft
+        would have accepted (the longest common prefix, the drafted decode's
+        rule), folded into the EMA once per group."""
+        hyp_cap = hyp_lcp = 0
+        for task, out in zip(group, outputs):
+            sid = task.request.session_id
+            if not sid:
+                continue
+            if task.request.is_final:
+                self._draft_evict(sid)
+                continue
+            if task.draft is None and not _draft_option_ok(task.request, self._draft_mode):
+                continue
+            gen = np.asarray(out._tokens[out._p_len: out._p_len + out._n_gen], np.int32)
+            if task.draft is None and self._draft_mode == "adaptive":
+                prev = self._draft_get(sid)
+                cap = min(len(prev), max_new)
+                if cap > 0:
+                    n = min(cap, len(gen))
+                    neq = np.nonzero(prev[:n] != gen[:n])[0]
+                    hyp_cap += cap
+                    hyp_lcp += int(neq[0]) if len(neq) else n
+            self._draft_put(sid, gen)
+        if hyp_cap > 0:
+            with self._drafts_lock:
+                st = self.draft_stats
+                st["hyp_offered"] += hyp_cap
+                st["hyp_accepted"] += hyp_lcp
+                self._draft_observe_locked(hyp_cap, hyp_lcp)
+                ema, engaged = self._draft_ema, self._draft_engaged
+            if self._metrics is not None:
+                self._metrics.record_draft_signal(hyp_cap, hyp_lcp, ema, engaged)
 
 
 __all__ = [

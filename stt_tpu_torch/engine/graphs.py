@@ -5,7 +5,7 @@ is a jitted ``lax.while_loop`` that decides on the device when to stop, its
 programs sit in an exec cache (``stt_tpu/engine/engine.py:794``,
 ``:1390-1530``) and ``prewarm`` builds them before serving. The port keeps
 one :class:`DecodeEntry` per (audio bucket, rows, prompt length, max_new,
-compute type, attention policy, beam width, candidates):
+compute type, attention policy, beam width, candidates, drafted):
 
 - the decode state, allocated once: at beam 1
   (:class:`~stt_tpu_torch.models.whisper.DecodeState`: self-KV cache,
@@ -15,18 +15,30 @@ compute type, attention policy, beam width, candidates):
   beams, with the pool of finished candidates when the candidate count
   exceeds the beam (patience above 1); and the cross K/V in the policy's
   storage (with int8 scales), for rows x beams rows, as the JAX package
-  repeats the encoder output over the beams before computing it;
+  repeats the encoder output over the beams before computing it; a
+  drafted entry (beam 1: the drafted greedy decode of streaming partials)
+  holds a :class:`~stt_tpu_torch.models.whisper.DraftState` with the
+  draft, its lengths, the accepted counts and a position per row, and
+  shares the self cache and the cross K/V of the greedy entry of its
+  shape, which is built first: every group rewrites both before it reads
+  them, and the groups of one engine enqueue their device work one after
+  another on one stream, so two entries never hold live data in them at
+  once;
 - on the card, one ``torch.cuda.CUDAGraph`` of one chunk of
-  ``FINISH_CHECK_EVERY`` steps (:func:`~stt_tpu_torch.models.whisper._decode_chunk`
-  or :func:`~stt_tpu_torch.models.whisper._beam_chunk`), captured after one
+  ``FINISH_CHECK_EVERY`` steps (:func:`~stt_tpu_torch.models.whisper._decode_chunk`,
+  :func:`~stt_tpu_torch.models.whisper._beam_chunk` or the drafted resume
+  :func:`~stt_tpu_torch.models.whisper._drafted_chunk`), captured after one
   uncaptured warm-up on a side stream (which builds the kernels, sets their
   function attributes and lets cuBLAS pick its algorithms). Every entry's
   graph draws on one memory pool.
 
-:meth:`DecodeGraphs.decode` runs the prefill eagerly, then replays the
-chunk until the loop's condition fails (every row finished; for beams,
-every beam finished or every pool full) or ``max_new`` steps ran, reading
-the condition on the host once per chunk, as the uncaptured loops do.
+:meth:`DecodeGraphs.decode` runs the prefill eagerly (for a drafted entry
+the verify pass over prompt + draft, with the acceptance and the commit),
+then replays the chunk until the loop's condition fails (every row
+finished; for beams, every beam finished or every pool full) or
+``max_new`` steps ran, reading the condition on the host once per chunk,
+as the uncaptured loops do (a drafted entry reads it before each chunk:
+the verify pass may leave every row finished).
 On the card serving goes through the graph and nothing else: a capture or a
 replay that fails raises. On the CPU the entries hold the same buffers and
 the same chunk runs uncaptured.
@@ -66,6 +78,7 @@ class GraphKey(NamedTuple):
     policy: W.AttentionPolicy
     beam: int = 1        # beams per row; 1 is the greedy decode
     candidates: int = 1  # finished hypotheses kept per row (beam_candidates)
+    drafted: bool = False  # the drafted greedy decode (beam 1)
 
 
 @dataclass
@@ -73,7 +86,7 @@ class DecodeEntry:
     """The buffers, and on the card the graph, of one served shape."""
 
     key: GraphKey
-    state: Union[W.DecodeState, W.BeamState]
+    state: Union[W.DecodeState, W.BeamState, W.DraftState]
     cross_kv: W.CrossKV  # rows x beams rows
     graph: Optional["torch.cuda.CUDAGraph"] = None
     launches: Dict[str, int] = field(default_factory=dict)  # per replay (one chunk)
@@ -85,7 +98,10 @@ class DecodeEntry:
 
     @property
     def chunk_fn(self) -> Callable:
-        """The chunk this entry replays: greedy at beam 1, else beam."""
+        """The chunk this entry replays: the drafted resume, greedy at beam
+        1, else beam."""
+        if self.key.drafted:
+            return W._drafted_chunk
         return W._decode_chunk if self.key.beam == 1 else W._beam_chunk
 
 
@@ -110,30 +126,39 @@ class DecodeGraphs:
         return len(self._entries)
 
     def key(self, bucket_sec: float, rows: int, p_len: int, max_new: int,
-            beam: int = 1, candidates: Optional[int] = None) -> GraphKey:
+            beam: int = 1, candidates: Optional[int] = None,
+            drafted: bool = False) -> GraphKey:
         """The entry key; ``max_new`` must be a positive multiple of
         ``FINISH_CHECK_EVERY`` (the engine's ``max_new_for`` always is), so
         the chunks cover it exactly. ``candidates`` defaults to the beam
-        (the frozen-slot search) and is at least the beam."""
+        (the frozen-slot search) and is at least the beam; ``drafted``
+        needs beam 1."""
         if max_new <= 0 or max_new % W.FINISH_CHECK_EVERY:
             raise ValueError(f"max_new={max_new} is not a positive multiple of "
                              f"{W.FINISH_CHECK_EVERY}, the steps of one captured chunk")
         if not 1 <= int(beam) <= W.MAX_BEAM:
             raise ValueError(f"beam={beam} is not within 1..{W.MAX_BEAM}")
         beam = int(beam)
+        if drafted and beam != 1:
+            raise ValueError(f"a drafted entry decodes at beam 1, not {beam}")
         candidates = beam if candidates is None or beam == 1 else max(beam, int(candidates))
         return GraphKey(float(bucket_sec), int(rows), int(p_len), int(max_new), self.dtype,
-                        self.model.decoder.policy, beam, candidates)
+                        self.model.decoder.policy, beam, candidates, bool(drafted))
 
     def entry(self, bucket_sec: float, rows: int, p_len: int, max_new: int,
-              n_audio: int, beam: int = 1, candidates: Optional[int] = None) -> DecodeEntry:
+              n_audio: int, beam: int = 1, candidates: Optional[int] = None,
+              drafted: bool = False) -> DecodeEntry:
         """The entry of this shape (``n_audio`` encoder positions at
-        ``bucket_sec``), built and on the card captured on first use."""
-        key = self.key(bucket_sec, rows, p_len, max_new, beam, candidates)
+        ``bucket_sec``), built and on the card captured on first use; a
+        drafted entry builds the greedy entry of its shape first, whose
+        self cache and cross K/V it shares."""
+        key = self.key(bucket_sec, rows, p_len, max_new, beam, candidates, drafted)
+        plain = (self.entry(bucket_sec, rows, p_len, max_new, n_audio) if drafted
+                 else None)
         with self._lock:
             found = self._entries.get(key)
             if found is None:
-                found = self._build(key, n_audio)
+                found = self._build(key, n_audio, plain)
                 self._entries[key] = found
         if found.cross_kv.k.shape[3] != n_audio:
             raise ValueError(f"{key}: built for {found.cross_kv.k.shape[3]} encoder "
@@ -141,21 +166,28 @@ class DecodeGraphs:
         return found
 
     def lookup(self, bucket_sec: float, rows: int, p_len: int, max_new: int,
-               beam: int = 1, candidates: Optional[int] = None) -> DecodeEntry:
+               beam: int = 1, candidates: Optional[int] = None,
+               drafted: bool = False) -> DecodeEntry:
         """The entry of this shape if it was built; KeyError otherwise."""
-        key = self.key(bucket_sec, rows, p_len, max_new, beam, candidates)
+        key = self.key(bucket_sec, rows, p_len, max_new, beam, candidates, drafted)
         with self._lock:
             return self._entries[key]
 
     @torch.inference_mode(False)
     @torch.no_grad()
-    def _build(self, key: GraphKey, n_audio: int) -> DecodeEntry:
+    def _build(self, key: GraphKey, n_audio: int,
+               plain: Optional[DecodeEntry] = None) -> DecodeEntry:
         """Allocates the entry's buffers as normal tensors (also when the
         caller is in inference mode), so they can be updated in place
-        anywhere; on the card warms up and captures the chunk."""
+        anywhere (a drafted entry takes the self cache and the cross K/V of
+        ``plain``, the greedy entry of its shape); on the card warms up and
+        captures the chunk."""
         dec = self.model.decoder
         config = self.model.config
-        if key.beam == 1:
+        if key.drafted:
+            state = W.init_draft_state(config, key.rows, key.p_len, key.max_new, key.max_new,
+                                       self.dtype, self.device, cache=plain.state.cache)
+        elif key.beam == 1:
             state = W.init_decode_state(config, key.rows, key.p_len, key.max_new,
                                         self.dtype, self.device)
         else:
@@ -163,14 +195,15 @@ class DecodeGraphs:
                                       key.max_new, self.dtype, self.device)
         entry = DecodeEntry(
             key=key, state=state,
-            cross_kv=W.empty_cross_kv(dec, key.rows * key.beam, n_audio, self.dtype,
-                                      self.device),
+            cross_kv=plain.cross_kv if key.drafted else W.empty_cross_kv(
+                dec, key.rows * key.beam, n_audio, self.dtype, self.device),
         )
         if self.device.type != "cuda":
             return entry
         # a state the warm-up and the capture can step from: position p_len
-        # with an eot prompt (any start a chunk of steps stays inside T_max;
-        # a beam step launches the same kernels whether or not it is gated)
+        # (every row's, in a drafted entry) with an eot prompt (any start a
+        # chunk of steps stays inside T_max; a gated step launches the same
+        # kernels whether or not it writes)
         t0 = time.monotonic()
         st = entry.state
         st.tokens.fill_(W.token_layout(config.n_vocab).eot)
@@ -196,12 +229,17 @@ class DecodeGraphs:
     @torch.no_grad()
     def decode(self, entry: DecodeEntry, prompt: torch.Tensor, prompt_len: torch.Tensor, *,
                suppress_blank: bool = True, sot_pos: int = 0, length_penalty: float = 1.0,
-               captured: Optional[bool] = None) -> W.DecodeResult:
+               captured: Optional[bool] = None, draft: Optional[torch.Tensor] = None,
+               draft_len: Optional[torch.Tensor] = None,
+               ) -> Union[W.DecodeResult, W.DraftedResult]:
         """Decode of one group on ``entry``, whose cross K/V already holds
         the group's (``precompute_cross_kv(..., out=entry.cross_kv)``, over
         the beams for a beam entry: ``repeat_cross_kv``): the prefill, then
         one chunk at a time until the loop's condition fails; a beam entry
-        returns each row's best beam under ``length_penalty``. On the card
+        returns each row's best beam under ``length_penalty``; a drafted
+        entry verifies ``draft`` (rows, max_new), eot-padded past
+        ``draft_len``, first and returns a
+        :class:`~stt_tpu_torch.models.whisper.DraftedResult`. On the card
         the chunks replay the graph; ``captured=False`` runs the same chunks
         uncaptured instead (to hold the two against each other). The result
         is copied out of the entry's buffers, so the next group may reuse
@@ -216,18 +254,31 @@ class DecodeGraphs:
         dec = self.model.decoder
         st = entry.state
         beam = key.beam > 1
-        start = W.start_beam if beam else W.start_decode
-        no_speech = start(dec, st, prompt, prompt_len, entry.cross_kv,
-                          suppress_blank=suppress_blank, sot_pos=sot_pos)
+        if key.drafted:
+            if draft is None or draft_len is None:
+                raise ValueError(f"{key}: a drafted entry needs draft and draft_len")
+            no_speech = W.start_drafted(dec, st, prompt, prompt_len, draft, draft_len,
+                                        entry.cross_kv, suppress_blank=suppress_blank,
+                                        sot_pos=sot_pos)
+        else:
+            start = W.start_beam if beam else W.start_decode
+            no_speech = start(dec, st, prompt, prompt_len, entry.cross_kv,
+                              suppress_blank=suppress_blank, sot_pos=sot_pos)
         for _ in range(entry.chunks):
+            if key.drafted and bool(st.finished.all()):
+                break
             if captured:
                 entry.graph.replay()
                 entry.replays += 1
                 self.graph_replays += 1
             else:
                 entry.chunk_fn(dec, st, entry.cross_kv)
+            if key.drafted:
+                continue
             if not bool(W.beam_running(st)) if beam else bool(st.finished.all()):
                 break
+        if key.drafted:
+            return W.finish_drafted(st, key.p_len, no_speech)
         if beam:
             return W.finish_beam(st, key.p_len, no_speech, length_penalty)
         return W.finish_decode(st, key.p_len, no_speech)

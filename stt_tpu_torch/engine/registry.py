@@ -8,7 +8,7 @@ where the card differs: ``load_model`` builds the port's
 accelerator name the shipped YAML uses) the card, which must be there; a
 ``mesh_shape`` other than 1x1 raises ``NotImplementedError``; prewarm runs
 the engine's one mode (``execute``) at every beam width of the configured
-decode profiles; and :meth:`EnginePool._dispatch` turns a refusal
+decode profiles, and the drafted entries unless ``draft_mode`` is ``off``; and :meth:`EnginePool._dispatch` turns a refusal
 from ``engine.submit`` into the task's exception instead of losing the
 dispatcher thread.
 
@@ -452,12 +452,6 @@ class ModelRegistry:
             # one after another, since captures share one memory pool
             engine_kwargs.pop("prewarm_parallelism", None)
             engine_kwargs.pop("prewarm_mode", None)
-            draft_mode = options.get("draft_mode")
-            if draft_mode not in (None, "off"):
-                raise NotImplementedError(
-                    f"model option draft_mode={draft_mode!r} is not served by "
-                    f"stt_tpu_torch yet (drafted partials are a later slice)"
-                )
             engine_kwargs.update(
                 {
                     k: options[k]
@@ -471,6 +465,7 @@ class ModelRegistry:
                         "max_batch",
                         "use_pallas",
                         "pad_to_30s",
+                        "draft_mode",
                     )
                     if k in options
                 }
@@ -512,9 +507,11 @@ class ModelRegistry:
                     max(1, min(int(bm), 8)) for bm in (prewarm_beams or [1])
                 })
                 for eng in engines:
+                    # the drafted entries too wherever drafted partials may
+                    # serve (under adaptive they may engage at any time)
                     eng.prewarm(
-                        batch_sizes=sizes, include_detect=True,
-                        beam_sizes=beams, mode="execute", include_drafted=False,
+                        batch_sizes=sizes, include_detect=True, beam_sizes=beams,
+                        mode="execute", include_drafted=eng._draft_mode != "off",
                     )
                 LOGGER.info(
                     "prewarmed model_id=%s shapes=%sx%sx beams %s (%d decode graphs) "

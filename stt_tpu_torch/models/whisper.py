@@ -1,5 +1,5 @@
-"""Whisper encoder/decoder in PyTorch with KV-cached greedy decoding and
-beam search.
+"""Whisper encoder/decoder in PyTorch with KV-cached greedy decoding, beam
+search and the drafted greedy decode of streaming partials.
 
 Counterpart of ``stt_tpu/models/whisper.py`` for the serving step without
 timestamps, greedy at beam 1 and beam search above it. Layouts and
@@ -60,6 +60,15 @@ patience asks for more finished candidates than beams), then
 (:func:`beam_running`) once a chunk; since each step is gated on that
 condition on the device, steps past the stop change nothing. The top-K
 keeps ``lax.top_k``'s order among equal scores (:func:`_top_k`).
+
+The drafted decode (:func:`greedy_decode_drafted`) is split the same way
+over a :class:`DraftState`: :func:`start_drafted` verifies a per-row draft
+in one teacher-forced pass, accepts the longest prefix greedy would have
+written and commits greedy's token at the first mismatch; then
+:func:`_drafted_chunk` resumes every row at its own position (the step at
+a vector of positions), every update of a finished row gated; then
+:func:`finish_drafted`. It gives :func:`greedy_decode`'s tokens for any
+draft in float32.
 """
 
 from __future__ import annotations
@@ -616,38 +625,65 @@ def _tok_logits(dec: TextDecoder, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
+def _write_slot(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                gate: Optional[torch.Tensor]) -> None:
+    """Writes ``new`` (B, H, 1, Dh) into one layer's cache ``buf`` (B, H,
+    T_max, Dh) in place at ``pos``: one slot for a 0-d ``pos``
+    (``index_copy_`` on the time axis), row b's slot ``pos[b]`` for a (B,)
+    one (``index_copy_`` on ``buf`` viewed as (B*H*T_max, Dh), one index per
+    row and head, no host read). Where ``gate`` is false the slot keeps
+    what it held."""
+    if pos.dim() == 0:
+        slot = pos.reshape(1)
+        if gate is not None:
+            new = torch.where(gate, new, buf.index_select(2, slot))
+        buf.index_copy_(2, slot, new)
+        return
+    b, h, t_max, d_head = buf.shape
+    slots = (torch.arange(b * h, device=pos.device).view(b, h) * t_max
+             + pos[:, None]).reshape(-1)
+    flat = buf.view(-1, d_head)
+    new = new.reshape(-1, d_head)
+    if gate is not None:
+        new = torch.where(gate.repeat_interleave(h)[:, None], new, flat.index_select(0, slots))
+    flat.index_copy_(0, slots, new)
+
+
 def _decoder_step(dec: TextDecoder, tokens: torch.Tensor, pos: Union[int, torch.Tensor],
                   cache: KVCache, cross_kv: CrossKV,
                   gate: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One decode position for the whole batch at scalar position ``pos``
-    (a 0-d int64 tensor on the tokens' device; a Python int is filled in
-    there, with no host-to-device copy): tokens (B,) -> logits (B, V)
-    float32. Writes k/v of ``pos`` into the cache in place and attends over
-    all T_max slots under the mask ``slot <= pos``, as the JAX package's
-    scalar-``pos`` step does. Every shape is the same at every position and
-    nothing is read back to the host, so the step can be captured in a CUDA
-    graph. With ``gate`` (a 0-d bool tensor) false, the slot keeps what it
-    held: the step runs and writes nothing (the beam loop's steps past its
-    stop)."""
+    """One decode position for the whole batch: tokens (B,) -> logits (B, V)
+    float32, at scalar position ``pos`` (a 0-d int64 tensor on the tokens'
+    device; a Python int is filled in there, with no host-to-device copy)
+    or, as the JAX package's step also takes, at a (B,) vector of per-row
+    positions (the drafted resume, each row at its own acceptance
+    boundary). Writes k/v of ``pos`` into the cache in place
+    (:func:`_write_slot`) and attends over all T_max slots under the mask
+    ``slot <= pos`` (per row for a vector). Every shape is the same at
+    every position and nothing is read back to the host, so the step can
+    be captured in a CUDA graph. With ``gate`` (a bool tensor of ``pos``'s
+    shape) false, the slot keeps what it held: the step runs and writes
+    nothing there (the beam loop's steps past its stop; the drafted
+    resume's finished rows)."""
     n_head = dec.n_head
     if not torch.is_tensor(pos):
         pos = torch.full((), pos, dtype=torch.long, device=tokens.device)
-    slot = pos.reshape(1)
-    h = (dec.tok[tokens] + dec.pos.index_select(0, slot).to(dec.tok.dtype))[:, None, :]
+    slots = torch.arange(cache.k.shape[3], device=tokens.device)
+    if pos.dim() == 0:
+        emb = dec.pos.index_select(0, pos.reshape(1))
+        mask = torch.where(slots <= pos, 0.0, -torch.inf)
+    else:
+        emb = dec.pos.index_select(0, pos)
+        mask = torch.where(slots[None, :] <= pos[:, None], 0.0, -torch.inf)[:, None, None, :]
+    h = (dec.tok[tokens] + emb.to(dec.tok.dtype))[:, None, :]
     scale = (h.shape[-1] // n_head) ** -0.25
-    t_max = cache.k.shape[3]
-    mask = torch.where(torch.arange(t_max, device=tokens.device) <= pos, 0.0, -torch.inf)
     for li, block in enumerate(dec.blocks):
         hn = block.ln1(h)
         qh = _split_heads(block.attn.q(hn), n_head) * scale
         k_new = _split_heads(block.attn.k(hn), n_head) * scale
         v_new = _split_heads(block.attn.v(hn), n_head)
-        k_new, v_new = k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)
-        if gate is not None:
-            k_new = torch.where(gate, k_new, cache.k[li].index_select(2, slot))
-            v_new = torch.where(gate, v_new, cache.v[li].index_select(2, slot))
-        cache.k[li].index_copy_(2, slot, k_new)
-        cache.v[li].index_copy_(2, slot, v_new)
+        _write_slot(cache.k[li], k_new.to(cache.k.dtype), pos, gate)
+        _write_slot(cache.v[li], v_new.to(cache.v.dtype), pos, gate)
         attn_out = _attn_cached(qh, cache.k[li], cache.v[li], mask).to(h.dtype)
         h = h + block.attn.o(_merge_heads(attn_out))
         qx = _split_heads(block.xattn.q(block.ln_x(h)), n_head) * scale
@@ -890,6 +926,249 @@ def greedy_decode(
         if bool(state.finished.all()):
             break
     return finish_decode(state, p_len, no_speech_prob)
+
+
+# ---------------------------------------------------------------------------
+# Drafted greedy decoding (streaming partials verify the previous partial)
+# ---------------------------------------------------------------------------
+
+# positions of one verify chunk: the float32 logits materialise as
+# (B, VERIFY_CHUNK, V), ~106 MB at 64 rows of whisper's vocabulary
+VERIFY_CHUNK = 8
+
+
+class DraftedResult(NamedTuple):
+    """:class:`DecodeResult` plus the per-row count of draft tokens the
+    verify pass accepted (``stt_tpu/models/whisper.py:1251``)."""
+
+    tokens: torch.Tensor
+    lengths: torch.Tensor
+    sum_logprob: torch.Tensor
+    no_speech_prob: torch.Tensor
+    n_accepted: torch.Tensor      # (B,) int64
+
+
+class DraftState(NamedTuple):
+    """Everything the drafted decode reads and writes, allocated once for a
+    (rows, prompt length, max_new, draft width D) shape and updated in
+    place, so a CUDA graph of :func:`_drafted_chunk` can be replayed
+    against it. Unlike :class:`DecodeState` every row has its own position:
+    after the verify pass each row resumes at its own acceptance boundary.
+    The self cache (and, in the engine, the cross K/V) may be another
+    entry's of the same shape (``init_draft_state(cache=)``)."""
+
+    tokens: torch.Tensor       # (B, T_max) int64: prompt + committed tokens, eot-padded
+    cache: KVCache             # self-attention K/V, (L, B, H, T_max, Dh)
+    pos: torch.Tensor          # (B,) int64: the position each row writes next
+    finished: torch.Tensor     # (B,) bool
+    sum_lp: torch.Tensor       # (B,) float32: generated-token logprob sums
+    prompt_len: torch.Tensor   # (B,) int64: each row's logical prompt length
+    draft: torch.Tensor        # (B, D) int64: eot-padded past draft_len
+    draft_len: torch.Tensor    # (B,) int64
+    n_accepted: torch.Tensor   # (B,) int64: draft tokens the verify pass accepted
+    suppress: torch.Tensor     # (V,) float32: :func:`_suppress_mask`
+    begin_blank: torch.Tensor  # (V,) float32: :func:`_sample_begin_mask`
+    begin: torch.Tensor        # (V,) float32: ``begin_blank`` or zeros, per call
+
+
+def init_draft_state(config: WhisperConfig, batch: int, p_len: int, max_new: int,
+                     d_max: int, dtype: torch.dtype, device: torch.device, *,
+                     cache: Optional[KVCache] = None) -> DraftState:
+    """Zeroed drafted-decode state for ``batch`` rows of a ``p_len``-token
+    prompt, drafts of up to ``d_max`` (<= ``max_new``) tokens and up to
+    ``max_new`` generated tokens; the self cache in ``dtype``, or ``cache``
+    (of that shape) when given."""
+    if not 0 <= d_max <= max_new:
+        raise ValueError(f"draft width {d_max} is not within 0..max_new={max_new}")
+    t_max = p_len + max_new
+    if cache is None:
+        cache = init_kv_cache(config, batch, t_max, dtype, device)
+
+    def zeros(*shape, dtype=torch.long):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return DraftState(
+        tokens=zeros(batch, t_max), cache=cache, pos=zeros(batch),
+        finished=zeros(batch, dtype=torch.bool),
+        sum_lp=zeros(batch, dtype=torch.float32), prompt_len=zeros(batch),
+        draft=zeros(batch, d_max), draft_len=zeros(batch), n_accepted=zeros(batch),
+        suppress=torch.from_numpy(_suppress_mask(config)).to(device),
+        begin_blank=torch.from_numpy(_sample_begin_mask(config)).to(device),
+        begin=zeros(config.n_vocab, dtype=torch.float32),
+    )
+
+
+def _verify_positions(dec: TextDecoder, h: torch.Tensor, begin_rows: torch.Tensor,
+                      suppress: torch.Tensor, begin: torch.Tensor,
+                      chunk: int = VERIFY_CHUNK):
+    """Masked greedy argmax and its logprob at every position of ``h``
+    (B, J, d): (g (B, J) int64, lp (B, J) float32)
+    (``stt_tpu/models/whisper.py:1261-1297``). ``begin_rows`` (B, J) marks
+    the positions where the sample-begin mask applies. Chunked over J so
+    the float32 logits materialise ``chunk`` positions at a time."""
+    gs, lps = [], []
+    for j in range(0, h.shape[1], chunk):
+        logits = _tok_logits(dec, dec.ln(h[:, j:j + chunk]))
+        logits = logits + suppress + torch.where(begin_rows[:, j:j + chunk, None], begin, 0.0)
+        g = torch.argmax(logits, dim=-1)
+        gs.append(g)
+        lps.append(torch.gather(torch.log_softmax(logits, dim=-1), 2, g[..., None])[..., 0])
+    return torch.cat(gs, dim=1), torch.cat(lps, dim=1)
+
+
+def start_drafted(dec: TextDecoder, state: DraftState, prompt: torch.Tensor,
+                  prompt_len: torch.Tensor, draft: torch.Tensor, draft_len: torch.Tensor,
+                  cross_kv: CrossKV, *, suppress_blank: bool = True,
+                  sot_pos: int = 0) -> torch.Tensor:
+    """Reset ``state`` for a new group and verify the draft
+    (``stt_tpu/models/whisper.py:1348-1420``): one teacher-forced pass over
+    prompt (B, P) + draft (B, D) (eot-padded past ``draft_len``) writes the
+    self cache of positions [0, P + D); the longest draft prefix equal to
+    the masked greedy choice is accepted (cut after an accepted eot), the
+    greedy token at the first mismatch is committed for free, and every
+    row's position, finished flag and logprob sum are set for the resume.
+    Returns p(no_speech) at ``sot_pos``. No host read."""
+    layout = token_layout(dec.tok.shape[0])
+    eot = layout.eot
+    p_len = prompt.shape[1]
+    d_max = state.draft.shape[1]
+    t_max = state.tokens.shape[1]
+    max_new = t_max - p_len
+    dev = prompt.device
+    state.draft.copy_(draft)
+    state.draft_len.copy_(draft_len)
+    state.prompt_len.copy_(prompt_len)
+    if suppress_blank:
+        state.begin.copy_(state.begin_blank)
+    else:
+        state.begin.zero_()
+    tokens = state.tokens
+    tokens.fill_(eot)
+    tokens[:, :p_len].copy_(prompt)
+    tokens[:, p_len:p_len + d_max].copy_(state.draft)
+
+    # the verify pass over prompt + draft
+    h = _prefill_parallel(dec, tokens, p_len + d_max, state.cache, cross_kv)
+    ns_logits = _tok_logits(dec, dec.ln(h[:, sot_pos]))
+    no_speech_prob = torch.softmax(ns_logits, dim=-1)[:, layout.no_speech]
+    # g[:, j] is the token greedy writes at position p_len + j
+    jd = torch.arange(d_max + 1, device=dev)
+    begin_rows = (p_len + jd[None, :]) == state.prompt_len[:, None]
+    g, lp_g = _verify_positions(dec, h[:, p_len - 1:], begin_rows, state.suppress,
+                                state.begin)
+
+    # acceptance: the longest prefix where the draft is greedy's choice
+    dlen = state.draft_len.clamp(0, d_max)
+    eq = (state.draft == g[:, :d_max]) & (jd[None, :d_max] < dlen[:, None])
+    accs = torch.cumprod(eq.long(), dim=1)
+    acc = accs.sum(dim=1)
+    # greedy stops at an eot: keep up to the first accepted eot
+    acc_eot = (state.draft == eot) & accs.bool()
+    has_eot = acc_eot.any(dim=1)
+    n_keep = torch.where(has_eot, torch.argmax(acc_eot.long(), dim=1) + 1, acc)
+    commit_c = ~has_eot & (n_keep < max_new)
+    c_tok = torch.where(commit_c, torch.gather(g, 1, n_keep[:, None])[:, 0], eot)
+
+    # the committed row: accepted draft prefix, the corrected token, eot
+    col = torch.arange(t_max, device=dev)[None, :]
+    end_pos = p_len + n_keep
+    tokens.copy_(torch.where(col < end_pos[:, None], tokens, eot))
+    tokens.copy_(torch.where((col == end_pos[:, None]) & commit_c[:, None],
+                             c_tok[:, None], tokens))
+    lp_keep = torch.where(jd[None, :] < n_keep[:, None], lp_g, 0.0).sum(dim=1)
+    lp_c = torch.gather(lp_g, 1, n_keep[:, None])[:, 0]
+    state.sum_lp.copy_(lp_keep + torch.where(commit_c, lp_c, 0.0))
+    state.pos.copy_(end_pos + commit_c.long())
+    # done: an accepted eot ended the row, the corrected token is the eot,
+    # or the committed tokens fill the max_new budget
+    state.finished.copy_(has_eot | (c_tok == eot) | (state.pos >= t_max))
+    state.n_accepted.copy_(acc)
+    return no_speech_prob
+
+
+def _drafted_chunk(dec: TextDecoder, state: DraftState, cross_kv: CrossKV,
+                   n_steps: int = FINISH_CHECK_EVERY) -> None:
+    """``n_steps`` steps of the per-row resume on ``state`` in place
+    (``stt_tpu/models/whisper.py:1422-1449``), each row at its own
+    position, with no host read. Every update of a row (its cache slot,
+    token, logprob sum and position) is gated on it being unfinished at the
+    step's start, so a step after a row finished changes nothing there and
+    the host may read all-rows-finished once a chunk. The sample-begin mask
+    was applied in the verify pass: positions here are past every prompt."""
+    eot = token_layout(dec.tok.shape[0]).eot
+    t_max = state.tokens.shape[1]
+    pos = state.pos
+    for _ in range(n_steps):
+        live = ~state.finished
+        prev = (pos - 1).clamp_min(0)
+        last = torch.gather(state.tokens, 1, prev[:, None])[:, 0]
+        logits = _decoder_step(dec, last, prev, state.cache, cross_kv, gate=live)
+        logits = logits + state.suppress
+        logprobs = torch.log_softmax(logits, dim=-1)
+        next_tok = torch.where(live, torch.argmax(logits, dim=-1), eot)
+        tok_lp = torch.gather(logprobs, 1, next_tok[:, None])[:, 0]
+        state.sum_lp.add_(torch.where(live, tok_lp, 0.0))
+        wcol = pos.clamp_max(t_max - 1)[:, None]
+        state.tokens.scatter_(1, wcol, torch.where(
+            live[:, None], next_tok[:, None], torch.gather(state.tokens, 1, wcol)))
+        done = (next_tok == eot) | (pos + 1 >= t_max)
+        pos.add_(live.long())
+        state.finished.logical_or_(done)
+
+
+def finish_drafted(state: DraftState, p_len: int,
+                   no_speech_prob: torch.Tensor) -> DraftedResult:
+    """The result of a drafted decode, copied out of ``state``: length =
+    index of the first eot at or after the prompt, else ``p_len +
+    max_new``."""
+    tokens = state.tokens
+    t_max = tokens.shape[1]
+    eot = token_layout(state.suppress.shape[0]).eot
+    is_eot = (tokens == eot) & (torch.arange(t_max, device=tokens.device)[None, :] >= p_len)
+    first_eot = torch.where(is_eot.any(dim=1), torch.argmax(is_eot.to(torch.int32), dim=1),
+                            torch.full_like(state.pos, t_max))
+    return DraftedResult(tokens.clone(), first_eot, state.sum_lp.clone(), no_speech_prob,
+                         state.n_accepted.clone())
+
+
+def greedy_decode_drafted(
+    model: Whisper,
+    enc_out: torch.Tensor,
+    prompt: torch.Tensor,
+    prompt_len: torch.Tensor,
+    draft: torch.Tensor,
+    draft_len: torch.Tensor,
+    max_new_tokens: int,
+    *,
+    suppress_blank: bool = True,
+    sot_pos: int = 0,
+    cross_kv: Optional[CrossKV] = None,
+) -> DraftedResult:
+    """Greedy decode that verifies a per-row draft before generating, the
+    JAX package's ``greedy_decode_drafted``, uncaptured: token-identical to
+    :func:`greedy_decode` for any draft (exact in float32; in bfloat16 the
+    verify pass's M=width products and the step's M=1 products sum in other
+    orders, so a near-tie may flip). draft (B, D), D <= ``max_new_tokens``,
+    eot-padded past ``draft_len``. :func:`start_drafted`, then chunks of
+    :func:`_drafted_chunk` while a row is unfinished, then
+    :func:`finish_drafted`."""
+    dec = model.decoder
+    device = enc_out.device
+    b, p_len = prompt.shape
+    state = init_draft_state(model.config, b, p_len, max_new_tokens, draft.shape[1],
+                             enc_out.dtype, device)
+    if cross_kv is None:
+        cross_kv = precompute_cross_kv(dec, enc_out)
+    no_speech_prob = start_drafted(
+        dec, state, prompt.to(device=device, dtype=torch.long), prompt_len.to(device),
+        draft.to(device=device, dtype=torch.long), draft_len.to(device), cross_kv,
+        suppress_blank=suppress_blank, sot_pos=sot_pos,
+    )
+    for _ in range(0, max_new_tokens, FINISH_CHECK_EVERY):
+        if bool(state.finished.all()):
+            break
+        _drafted_chunk(dec, state, cross_kv)
+    return finish_drafted(state, p_len, no_speech_prob)
 
 
 # ---------------------------------------------------------------------------
@@ -1259,6 +1538,8 @@ __all__ = [
     "CrossKV",
     "DecodeResult",
     "DecodeState",
+    "DraftState",
+    "DraftedResult",
     "KVCache",
     "TokenLayout",
     "WHISPER_LANG_CODES",
@@ -1273,16 +1554,20 @@ __all__ = [
     "detect_language",
     "empty_cross_kv",
     "finish_decode",
+    "finish_drafted",
     "get_config",
     "finish_beam",
     "greedy_decode",
+    "greedy_decode_drafted",
     "init_beam_state",
     "init_decode_state",
+    "init_draft_state",
     "init_kv_cache",
     "init_params",
     "precompute_cross_kv",
     "repeat_cross_kv",
     "start_beam",
     "start_decode",
+    "start_drafted",
     "token_layout",
 ]

@@ -3,9 +3,11 @@
 Its FLOP model is its own copy of ``bench.py``'s and must give the same
 numbers for every preset and audio bucket (``bench.py``'s top level imports
 only numpy, so the test loads it from its file). ``--device cpu --model
-test`` runs the whole engine phase at a tiny size and prints one JSON line
-with the keys of ``bench.py``'s headline plus the port's own; the fields
-that only a card can give are null there. With its end-to-end phase it also
+test`` runs the whole engine phase at a tiny size, then the partial-latency
+phases (burst, served, draft acceptance, idle probe) at the test's stream
+count, and prints one JSON line with the keys of ``bench.py``'s headline
+and partial fields plus the port's own; the fields that only a card can
+give are null there. With its end-to-end phase it also
 boots the port's server on the CPU, drives it with the load tool and adds
 the ``e2e_*`` fields. Nothing here times a card.
 """
@@ -26,6 +28,9 @@ from stt_tpu_torch.engine import engine as TE
 from stt_tpu_torch.models.presets import PRESETS
 
 REPO = Path(__file__).resolve().parents[1]
+PARTIAL_KEYS = {"partial_p95_loaded_ms", "partial_p50_loaded_ms", "partial_p95_iv_median_ms",
+                "partial_burst_p95_ms", "partial_p95_ms", "draft_accept_rate", "draft_engaged",
+                "draft_tick_ms"}
 HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline", "rtfx_best", "wall_median_s",
                  "mfu_pct", "ms_per_decode_step", "card"}
 
@@ -68,7 +73,15 @@ def test_bench_prints_one_json_line_on_the_cpu():
     assert result["card"] == "cpu" and result["device"] == "cpu"
     assert result["mfu_pct"] is None and result["ms_per_decode_step"] is None
     assert result["graph_captures_serving"] == 0
-    assert "left out: the served-partial and drafted phases" in out.stderr
+    assert PARTIAL_KEYS <= set(result)
+    for key in PARTIAL_KEYS - {"draft_engaged", "draft_accept_rate"}:
+        assert result[key] > 0, (key, result)
+    assert result["draft_mode"] == "adaptive" and isinstance(result["draft_engaged"], bool)
+    assert result["draft_accept_rate"] is None or 0.0 <= result["draft_accept_rate"] <= 1.0
+    for phase in ("BURST partials", "SERVED partials", "streaming partial ticks",
+                  "idle probe"):
+        assert phase in out.stderr
+    assert "left out" not in out.stderr
     assert not any(key.startswith("e2e_") for key in result)
 
 
@@ -83,12 +96,16 @@ def test_bench_e2e_phase_on_the_cpu():
          "--streams", "2", "--rounds", "1"],
         cwd=REPO, capture_output=True, text=True, timeout=900, env=env,
     )
-    assert out.returncode == 0, out.stderr[-3000:]
+    # on a failure the bench's stderr carries the limit it hit, the server
+    # log's tail and the load tool's stderr
+    assert out.returncode == 0, out.stderr[-6000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert E2E_KEYS <= set(result) and "e2e_error" not in result
-    assert result["e2e_sessions"] == 32 and result["e2e_error_rate"] == 0.0
-    assert result["e2e_boot_s"] > 0 and result["e2e_create_p95_ms"] > 0
-    assert result["e2e_first_partial_p95_s"] > 0 and result["e2e_final_p95_s"] > 0
+    assert E2E_KEYS <= set(result) and "e2e_error" not in result, out.stderr[-6000:]
+    assert result["e2e_sessions"] == 32 and result["e2e_error_rate"] == 0.0, out.stderr[-6000:]
+    assert result["e2e_boot_s"] > 0 and result["e2e_create_p95_ms"] > 0, result
+    for key in ("e2e_first_partial_p95_s", "e2e_final_p95_s"):
+        assert result[key] is not None and result[key] > 0, (key, out.stderr[-6000:])
+    assert PARTIAL_KEYS <= set(result)
 
 
 def test_e2e_configs_narrow_the_shipped_matrix(tmp_path):

@@ -306,13 +306,36 @@ def test_prewarm_runs_each_combination_once(monkeypatch):
     assert len(eng.graphs) == 4 + len(TE.DEFAULT_AUDIO_BUCKETS_SEC) - 2
 
 
-@pytest.mark.parametrize("kwargs,name", [({"mode": "aot"}, "mode"),
-                                         ({"include_drafted": True}, "include_drafted")])
+@pytest.mark.parametrize("kwargs,name", [({"mode": "aot"}, "mode")])
 def test_prewarm_refuses_what_it_does_not_serve(kwargs, name):
     eng = _engine(max_decode_tokens=16)
     with pytest.raises(NotImplementedError, match=name):
         eng.prewarm([1.0], [1], **kwargs)
     assert len(eng.graphs) == 0
+
+
+def test_prewarm_include_drafted_builds_drafted_entries_at_beam_1(monkeypatch):
+    """``include_drafted`` adds one drafted group per (bucket, rows), at beam
+    1 only, whatever the beam widths; each drafted entry shares its greedy
+    entry's self cache and cross K/V."""
+    eng = _engine(max_decode_tokens=16, batch_buckets=(1, 4))
+    seen = []
+    real = eng._device_phase
+
+    def spy(group):
+        ctx = real(group)
+        seen.append((ctx["bucket_sec"], ctx["batch_n"], ctx["beam"], ctx["drafted"]))
+        return ctx
+
+    monkeypatch.setattr(eng, "_device_phase", spy)
+    eng.prewarm([1.0], [1, 4], beam_sizes=[1, 2], include_drafted=True)
+    assert sorted(seen) == sorted((1.0, r, b, d) for r in (1, 4)
+                                  for b, d in ((1, False), (2, False), (1, True)))
+    drafted = [e for k, e in eng.graphs._entries.items() if k.drafted]
+    assert len(drafted) == 2 and all(e.key.beam == 1 for e in drafted)
+    for e in drafted:
+        plain = eng.graphs.lookup(e.key.bucket_sec, e.key.rows, e.key.p_len, e.key.max_new)
+        assert e.state.cache is plain.state.cache and e.cross_kv is plain.cross_kv
 
 
 def test_prewarm_builds_beam_entries(monkeypatch):

@@ -519,6 +519,90 @@ def test_captured_decode_is_bitwise_the_uncaptured_one(graph_engines, policy, ro
         assert entry.launches["xattn_decode"] == 0
 
 
+def _drafted_decode_both(engine, seconds, rows):
+    """One group decoded plain, then drafted (rows cycling through a
+    perfect draft, an empty one, one greedy never accepts and half of the
+    perfect one) by replaying the drafted entry's graph and by the same
+    chunk uncaptured; returns (drafted entry, plain, captured, uncaptured)."""
+    from stt_tpu_torch.engine import engine as E
+    from stt_tpu_torch.models import whisper as W
+
+    bucket = engine._bucket_for(int(seconds * 16000))
+    max_new = engine._max_new_for(bucket)
+    pcm = np.zeros((rows, int(bucket * 16000)), np.int16)
+    for i in range(rows):
+        audio = _graph_audio(seconds * (0.5 + 0.5 * (i + 1) / rows), seed=i)
+        pcm[i, : len(audio)] = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    prompt = torch.tensor([W.build_prompt(engine.config, "en")] * rows, device="cuda")
+    p_len = prompt.shape[1]
+    with torch.inference_mode():
+        rows_dev = torch.from_numpy(E._encode_wire_rows(pcm, engine.audio_wire)).cuda()
+        enc = E._mel_encode(engine.model, rows_dev, engine._dtype)
+        entry = engine.graphs.entry(bucket, rows, p_len, max_new, enc.shape[1], drafted=True)
+        plain = engine.graphs.lookup(bucket, rows, p_len, max_new)
+        W.precompute_cross_kv(engine.model.decoder, enc, out=entry.cross_kv)
+        plen = torch.full((rows,), p_len, device="cuda")
+        base = engine.graphs.decode(plain, prompt, plen)
+        draft = base.tokens[:, p_len:].clone()
+        dlen = base.lengths - p_len
+        kind = torch.arange(rows, device="cuda") % 4
+        dlen = torch.where(kind == 1, 0, torch.where(kind == 3, dlen // 2, dlen))
+        draft[kind == 2] = engine.layout.sot
+        return entry, base, [engine.graphs.decode(entry, prompt, plen, draft=draft,
+                                                  draft_len=dlen, captured=c)
+                             for c in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,rows,seconds", [("int8", 4, 5.0), ("int8", 16, 10.0),
+                                                 ("fp8", 4, 30.0), ("float32", 4, 10.0)])
+def test_captured_drafted_decode_is_bitwise_the_uncaptured_one(graph_engines, policy, rows,
+                                                               seconds):
+    """The drafted entry's replayed resume gives the uncaptured chunk's
+    tokens, lengths, logprob sums and accepted counts bit for bit; in
+    float32 the drafted tokens are the plain decode's."""
+    engine = graph_engines[policy]
+    entry, base, (captured, eager) = _drafted_decode_both(engine, seconds, rows)
+    torch.cuda.synchronize()
+    assert entry.key.drafted and entry.graph is not None and entry.replays > 0
+    for name in ("tokens", "lengths", "sum_logprob", "no_speech_prob", "n_accepted"):
+        assert torch.equal(getattr(captured, name), getattr(eager, name)), name
+    assert torch.isfinite(captured.sum_logprob).all()
+    assert int(captured.n_accepted[2]) == 0
+    if policy == "float32":
+        assert torch.equal(captured.tokens, base.tokens)
+        assert torch.equal(captured.lengths, base.lengths)
+    if policy == "fp8":  # the resume steps run the cross-attention kernel
+        assert entry.launches["xattn_decode"] == 12 * 8
+
+
+@pytest.mark.cuda
+def test_drafted_partials_after_drafted_prewarm_capture_nothing(cuda_device):
+    """``prewarm(include_drafted=True)`` captures the drafted entries; two
+    ticks of partials of one set of sessions under ``draft_mode="on"`` (the
+    second drafted by the first) then replay and capture nothing."""
+    from stt_tpu_torch.engine.engine import DecodeRequest, WhisperEngine
+
+    engine = WhisperEngine("small", device="cuda", compute_type="bfloat16",
+                           batch_buckets=(1, 4), max_batch=4, batch_window_ms=20.0,
+                           max_decode_tokens=64, draft_mode="on")
+    try:
+        engine.prewarm([1.0, 2.0], [1, 4], include_drafted=True)
+        captures, replays = engine.graph_captures, engine.graph_replays
+        assert captures == 8
+        for _ in range(2):
+            futures = [engine.submit(DecodeRequest(_graph_audio(0.6 + 0.25 * i, seed=i),
+                                                   language="en", session_id=f"d{i}"))
+                       for i in range(6)]
+            for f in futures:
+                f.result(timeout=300)
+        assert engine.graph_captures == captures
+        assert engine.graph_replays > replays
+        assert engine.draft_stats["offered"] > 0
+    finally:
+        engine.close()
+
+
 def _beam_decode_both(engine, seconds, rows, beam, patience):
     """One group decoded at ``beam`` on its beam entry by replaying the
     graph and by the same chunk uncaptured, as the engine serves it: the
@@ -693,8 +777,9 @@ def _card_session(port, sid, seconds, seed):
 def test_server_serves_two_sessions_after_prewarm(cuda_device, tmp_path):
     """The port's server in-process (the calls serve() makes), the test
     model in bf16: boot prewarms 2 buckets x 2 row buckets at beams 1 and 5
-    (the shipped ``accurate`` profile), and two concurrent sessions get
-    their finals with no capture while serving."""
+    (the shipped ``accurate`` profile) and their drafted entries (the
+    shipped ``STT_DRAFT_PARTIALS=adaptive``), and two concurrent sessions
+    get their finals with no capture while serving."""
     import threading
 
     from stt_tpu_torch.gen import stt_pb2_grpc
@@ -714,7 +799,8 @@ def test_server_serves_two_sessions_after_prewarm(cuda_device, tmp_path):
         port = S.bind_grpc_port(server, config)
         server.start()
         engine = runtime.model_registry._pools["default"].engines[0]
-        assert engine.device.type == "cuda" and engine.graph_captures == 8
+        assert engine.device.type == "cuda" and engine.graph_captures == 12
+        assert sum(1 for k in engine.graphs._entries if k.drafted) == 4
         got = [None, None]
 
         def run(i):
@@ -726,7 +812,7 @@ def test_server_serves_two_sessions_after_prewarm(cuda_device, tmp_path):
         for th in threads:
             th.join(timeout=300)
         assert not any(th.is_alive() for th in threads)
-        assert engine.graph_captures == 8
+        assert engine.graph_captures == 12
     finally:
         server.stop(5.0).wait()
         runtime.shutdown()

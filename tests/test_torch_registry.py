@@ -3,8 +3,8 @@
 The registry is a copy of the JAX package's but where the card differs, so
 its fair queue is held to the original on one scripted sequence, and the
 rest checks the port's own contract: device names, no serving on the CPU in
-place of a missing card, the refusals (``mesh_shape``, ``draft_mode``,
-``weights_path``, ``use_pallas=False`` on the card, the unported VAD
+place of a missing card, ``draft_mode`` and the boot prewarm of the drafted
+entries, the refusals (``mesh_shape``, ``weights_path``, ``use_pallas=False`` on the card, the unported VAD
 options), the engine's metrics hook and ``pad_to_30s``, and that a refusal
 at submit time fails its task without stopping the dispatcher. The
 resampler is held to the JAX package's ``resample_np`` at atol 1e-5.
@@ -118,9 +118,38 @@ def test_mesh_shape_raises(mesh):
         registry.load_model("m", CPU_TEST)
 
 
-def test_draft_mode_raises():
-    with pytest.raises(NotImplementedError, match="draft_mode"):
-        TR.ModelRegistry().load_model("m", {**CPU_TEST, "draft_mode": "adaptive"})
+@pytest.mark.parametrize("mode,drafted", [("on", True), ("adaptive", True), ("off", False),
+                                          (None, True)])
+def test_draft_mode_loads_and_sets_the_boot_prewarm(monkeypatch, mode, drafted):
+    """``draft_mode`` reaches the engine (None: ``STT_DRAFT_PARTIALS``, whose
+    default is adaptive), and the boot prewarm builds the drafted entries
+    unless it is ``off`` (``stt_tpu/engine/registry.py:487-492``). The
+    boot prewarm runs on the card only, so the card is stood in for by a
+    CPU engine that records its prewarm calls."""
+    calls = []
+
+    class CpuEngine(TE.WhisperEngine):
+        def __init__(self, model_size, device, compute_type, *, device_index=None, **kw):
+            super().__init__(model_size, "cpu", compute_type, **kw)
+
+        def prewarm(self, *args, **kwargs):
+            calls.append(kwargs)
+            return 0.0
+
+    monkeypatch.delenv("STT_DRAFT_PARTIALS", raising=False)
+    monkeypatch.setattr(TR, "_replica_devices", lambda device, pool_size: [0])
+    monkeypatch.setattr(TR, "WhisperEngine", CpuEngine)
+    options = {**CPU_TEST, "device": "cuda"}
+    if mode is not None:
+        options["draft_mode"] = mode
+    registry = TR.ModelRegistry()
+    registry.load_model("m", options)
+    try:
+        engine = registry._pools["m"].engines[0]
+        assert engine._draft_mode == (mode or "adaptive")
+        assert [c["include_drafted"] for c in calls] == [drafted]
+    finally:
+        registry.unload_model("m")
 
 
 def test_weights_path_raises():

@@ -3,8 +3,9 @@
 ``python -m stt_tpu.server.main`` and ``python -m stt_tpu_torch.server.main``
 run as subprocesses on free ports, both serving the ``test`` model in float32
 on the CPU with the same seed-0 weights, ``--language en --language-fix``,
-the shipped YAML files and no WebSocket bridge. The same sessions stream to
-both:
+the shipped YAML files, ``STT_DRAFT_PARTIALS=on`` (every partial, and a
+final whose session holds a draft, rides the drafted decode) and no
+WebSocket bridge. The same sessions stream to both:
 
 - three with partials off (a final's text is merged onto what earlier
   partials committed, and partials fire on wall-clock timing, so finals are
@@ -16,6 +17,14 @@ both:
   least one partial and one final;
 - one with ``DECODE_PROFILE_ACCURATE`` (beam 5), partials off: every result
   equal on both, as for the first three;
+- drafted partials: 4 s of tone with ``partial="true"`` in 100 ms chunks
+  paced in real time, once to warm the JAX server's drafted programs and
+  once measured. Partials fire at 1.5 s and 3 s of audio (the interval
+  counts received audio) and the final 1 s after the last one, so the
+  results are deterministic while a decode takes under a second: every
+  result (partials and final) equal on both, the second partial and the
+  final drafted (each server's ``/metrics.json`` counts offered and
+  accepted draft tokens);
 - the error probes (empty session id ERR1001, duplicate ERR1002, a 3 s chunk
   ERR1007) with the same codes on both.
 
@@ -94,19 +103,21 @@ SESSIONS = {
 
 
 @contextlib.contextmanager
-def _server(kind: str):
-    """One server as a subprocess, yielding its gRPC port once a channel to
-    it is ready (the port's readiness signal; the JAX server's gRPC also
-    starts only after its model is loaded)."""
-    port = _free_port()
-    env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "2"}
+def _server(kind: str, **env_vars: str):
+    """One server as a subprocess with ``env_vars`` in its environment,
+    yielding its gRPC port and process once a channel to it is ready (the
+    port's readiness signal; the JAX server's gRPC also starts only after
+    its model is loaded); the process's ``metrics_port`` is its HTTP
+    plane's."""
+    port, metrics_port = _free_port(), _free_port()
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "2", **env_vars}
     server_log = tempfile.TemporaryFile()
     proc = subprocess.Popen(
         [sys.executable, "-m", MODULES[kind], "--model", "test",
          "--model-backend", BACKENDS[kind], "--device", "cpu",
          "--compute-type", "float32", "--language", "en", "--language-fix",
          "--decode-timeout", "120", "--port", str(port),
-         "--metrics-port", str(_free_port()), "--ws-port", "0"],
+         "--metrics-port", str(metrics_port), "--ws-port", "0"],
         cwd=REPO, env=env, stdout=server_log, stderr=subprocess.STDOUT,
     )
     try:
@@ -124,6 +135,7 @@ def _server(kind: str):
                 if time.monotonic() > deadline:
                     raise
         channel.close()
+        proc.metrics_port = metrics_port
         yield port, proc
     finally:
         if proc.poll() is None:
@@ -165,7 +177,9 @@ def served():
     """Both servers; every session of the module streamed to each once."""
     out = {}
     with contextlib.ExitStack() as stack:
-        ports = {kind: stack.enter_context(_server(kind))[0] for kind in MODULES}
+        servers = {kind: stack.enter_context(_server(kind, STT_DRAFT_PARTIALS="on"))
+                   for kind in MODULES}
+        ports = {kind: server[0] for kind, server in servers.items()}
         for kind, port in ports.items():
             got = {name: _stream(port, f"{kind}-{name}", pcm, rate)
                    for name, (pcm, rate) in SESSIONS.items()}
@@ -173,8 +187,19 @@ def served():
                                      attributes={"partial": "true"}, chunk_sec=0.1, pace=1.0)
             got["accurate"] = _stream(port, f"{kind}-accurate", _pcm(_tone(1.0, 9)), SR,
                                       profile=JPB.DECODE_PROFILE_ACCURATE)
+            for name in ("drafted-warm", "drafted"):
+                got[name] = _stream(port, f"{kind}-{name}", _pcm(_tone(4.0, 11)), SR,
+                                    attributes={"partial": "true"}, chunk_sec=0.1, pace=1.0)
+            got["metrics"] = _metrics_json(servers[kind][1].metrics_port)
             out[kind] = got
         yield ports, out
+
+
+def _metrics_json(port: int) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics.json", timeout=30) as resp:
+        return json.loads(resp.read())
 
 
 def _rows(results):
@@ -265,6 +290,27 @@ def test_accurate_profile_equals_the_jax_server(served):
     assert t_keys == j_keys
     results, _ = _stream(ports["torch"], "after-accurate", _pcm(_tone(1.0, 10)), SR)
     assert any(r.is_final and r.text.strip() for r in results)
+
+
+@integration
+def test_drafted_partials_equal_to_jax_server(served):
+    """Under ``STT_DRAFT_PARTIALS=on`` the port's partials and final (the
+    second partial and the final verify the previous partial's tokens)
+    equal the JAX server's, and both servers count drafted tokens."""
+    _, out = served
+    (j_res, j_keys), (t_res, t_keys) = out["jax"]["drafted"], out["torch"]["drafted"]
+    t_rows, j_rows = _rows(t_res), _rows(j_res)
+    assert sum(not r[1] for r in t_rows) >= 2 and t_rows[-1][1], t_rows
+    assert len(t_rows) == len(j_rows), (t_rows, j_rows)
+    for t, j in zip(t_rows, j_rows):
+        assert t[:3] == j[:3]
+        assert t[3:] == pytest.approx(j[3:], abs=1e-6)
+    assert t_keys == j_keys
+    for kind in MODULES:
+        metrics = out[kind]["metrics"]
+        assert metrics["draft_rows"] > 0, (kind, metrics)
+        assert 0 <= metrics["draft_tokens_accepted"] <= metrics["draft_tokens_offered"], kind
+        assert metrics["draft_tokens_offered"] > 0, (kind, metrics)
 
 
 # -- copies against their originals --------------------------------------------------

@@ -1,13 +1,16 @@
-"""The five switches of the JAX package that the port does not serve.
+"""The switches of the JAX package read at engine build.
 
-``STT_DRAFT_PARTIALS``, ``STT_DECODER_WEIGHTS_DTYPE``, ``STT_FUSED_QKV``,
-``STT_SELF_KV_DTYPE`` and ``STT_PREFILL`` are parsed at engine build as
-the JAX package parses them (``stt_tpu/engine/engine.py:116-133``,
-``stt_tpu/models/whisper.py:353-366,504-512,571-580``). A value whose JAX
-behaviour the port lacks raises ``NotImplementedError`` naming the
-variable and its value; a value that means the port's behaviour builds the
-engine; ``adaptive`` (the shipped default) warns once that partials are
-served plain. A ``test``-model engine on the CPU.
+``STT_DECODER_WEIGHTS_DTYPE``, ``STT_FUSED_QKV``, ``STT_SELF_KV_DTYPE`` and
+``STT_PREFILL`` select behaviour the port does not serve; they are parsed
+as the JAX package parses them (``stt_tpu/models/whisper.py:353-366,
+504-512,571-580``). A value whose JAX behaviour the port lacks raises
+``NotImplementedError`` naming the variable and its value; a value that
+means the port's behaviour builds the engine silently.
+``STT_DRAFT_PARTIALS`` (``stt_tpu/engine/engine.py:116-137``) is served:
+on/always/1/yes -> ``on``, off/no -> ``off``, adaptive/auto and the
+default -> ``adaptive``, each building silently and serving; any other
+value warns once and means ``adaptive``. A ``test``-model engine on the
+CPU.
 """
 
 import logging
@@ -19,11 +22,10 @@ from stt_tpu_torch.engine import engine as TE
 SWITCHES = ("STT_DRAFT_PARTIALS", "STT_DECODER_WEIGHTS_DTYPE", "STT_FUSED_QKV",
             "STT_SELF_KV_DTYPE", "STT_PREFILL")
 
+DRAFT_ON = [("on", "bfloat16"), ("always", "bfloat16"), ("1", "float32"),
+            (" Yes ", "float32")]
+
 REFUSED = [
-    ("STT_DRAFT_PARTIALS", "on", "bfloat16"),
-    ("STT_DRAFT_PARTIALS", "always", "bfloat16"),
-    ("STT_DRAFT_PARTIALS", "1", "float32"),
-    ("STT_DRAFT_PARTIALS", " Yes ", "float32"),
     ("STT_DECODER_WEIGHTS_DTYPE", "int8", "bfloat16"),
     ("STT_DECODER_WEIGHTS_DTYPE", "int8_native", "bfloat16"),
     ("STT_DECODER_WEIGHTS_DTYPE", "i8", "bfloat16"),
@@ -87,8 +89,18 @@ def test_passing_values_build_silently(env, caplog, name, value, compute_type):
     assert _warnings(caplog) == []
 
 
+@pytest.mark.parametrize("value,compute_type", DRAFT_ON)
+def test_draft_on_values_build_the_on_mode(env, caplog, value, compute_type):
+    """The values that once were refused now serve drafted partials."""
+    env.setenv("STT_DRAFT_PARTIALS", value)
+    caplog.set_level(logging.WARNING, logger="stt_tpu_torch")
+    engine = _engine(compute_type)
+    assert engine._draft_mode == "on" and engine._draft_engaged
+    assert _warnings(caplog) == []
+
+
 @pytest.mark.parametrize("value", ["adaptive", "auto", None])
-def test_adaptive_warns_once_and_serves(env, caplog, value):
+def test_adaptive_builds_silently_and_serves(env, caplog, value):
     if value is None:
         env.delenv("STT_DRAFT_PARTIALS")  # the shipped default is adaptive
     else:
@@ -96,25 +108,26 @@ def test_adaptive_warns_once_and_serves(env, caplog, value):
     caplog.set_level(logging.WARNING, logger="stt_tpu_torch")
     engine = TE.WhisperEngine("test", device="cpu", compute_type="float32")
     try:
-        warned = _warnings(caplog)
-        assert len(warned) == 1 and "served plain" in warned[0]
+        assert _warnings(caplog) == []
+        assert engine._draft_mode == "adaptive" and not engine._draft_engaged
         engine.start()
-        out = engine.submit(TE.DecodeRequest(audio=_tone(), language="en")).result(120)
+        out = engine.submit(TE.DecodeRequest(audio=_tone(), language="en",
+                                             session_id="adaptive-1")).result(120)
         assert out.segments is not None
+        assert len(engine._draft_get("adaptive-1")) == out._n_gen
     finally:
         engine.close()
 
 
 def test_unrecognised_draft_value_falls_back_to_adaptive(env, caplog):
-    """As the JAX package: a warning naming the value, then ``adaptive``
-    (served plain here, with its one warning)."""
+    """As the JAX package: one warning naming the value, then ``adaptive``."""
     env.setenv("STT_DRAFT_PARTIALS", "sometimes")
     caplog.set_level(logging.WARNING, logger="stt_tpu_torch")
-    _engine("float32")
+    engine = _engine("float32")
     warned = _warnings(caplog)
-    assert len(warned) == 2
+    assert len(warned) == 1
     assert "unrecognized STT_DRAFT_PARTIALS='sometimes'" in warned[0]
-    assert "served plain" in warned[1]
+    assert engine._draft_mode == "adaptive"
 
 
 def test_int8_weights_under_float32_warn_and_serve(env, caplog):
