@@ -90,6 +90,33 @@ PyTorch built for CUDA. In order:
    the self cache once) and beside the bytes this design moves (the cross
    K/V once a beam, the self cache once more for the reorder by parent
    beam) at 4 rows, and at 64 rows of 10 s;
+   g. the decode routes (after e): whisper-small bf16 with ``draft_mode="on"``
+      on the default path (4 and 64 rows x 10 s) and the fp8 path with both
+      kernels (4 rows x 30 s), each engine first prewarming its plain
+      entries at beams 1 and 5, then one group a route: a 32-token
+      conditioning prompt (the streaming ``_cond_ctx`` one) greedy and as
+      two ticks of drafted partials, ``prefix``, ``repetition_penalty``
+      1.3 with ``no_repeat_ngram_size`` 3 greedy and at beam 5, the
+      ladder ``[0.0, 0.2, 0.4]`` with ``best_of`` 5 and
+      ``log_prob_threshold`` 0 (every random-weight row falls back),
+      timestamps greedy and at beam 5, and clip ranges. A route's entries
+      are captured at first use. It checks every output (timestamp
+      grammar, the prefix leading the text, every ladder row resampled, the
+      prompt's width), the launch counts as 3b does (log-mel once a group
+      and once more for the ladder's re-encode, flash and
+      ``xattn_decode`` on the fp8 path), at 4 rows each route's first
+      decode replayed and run uncaptured (bitwise equal: tokens, lengths,
+      logprob sums, accepted counts), two sampled decodes at one seed
+      equal and at two seeds different; it prints each route's group time
+      and captures, a second full ladder's group time, each route's ms
+      per step captured and eager beside the greedy step at 64 x 10 s,
+      and the memory reserved. Then the ``test`` model in float32 on the
+      card against the CPU on every route (2 requests), the ladder's
+      draws from an integer hash both devices compute alike: tokens,
+      temperatures and texts equal; and greedy timestamp decodes of the
+      ``test`` model in bf16 on the card and the CPU, each row that differs
+      printed with the card's top-2 gap (or the sum-probability rule's
+      margin) at its first difference, failing above 0.05 (not a tie);
    f. drafted partials (run before e): the ``test`` model in float32 on the
    card, 4 rows of 5 s with an empty, a perfect, an adversarial and a
    mid-mutation draft, must give the plain decode's tokens and lengths,
@@ -1368,6 +1395,399 @@ def drafted_phase(torch, E, W) -> int:
     return launches
 
 
+# -- phase 3g: the decode routes -------------------------------------------------
+
+LADDER = {"temperature": [0.0, 0.2, 0.4], "best_of": 5, "log_prob_threshold": 0.0}
+PREFIX_TEXT = "hello world this is the forced prefix"
+
+
+def route_options(engine) -> dict:
+    """Phase 3g's routes: name -> request options. The conditioning prompt
+    is the streaming one (``_cond_ctx``), whose tokens the engine cuts to
+    the 32-token bucket; ``prompt-drafted`` serves it as two ticks of
+    partials under ``draft_mode="on"`` (the second drafted)."""
+    words = []
+    while len(engine.tokenizer.encode(" " + " ".join(words))) < 32:
+        words.append(f"word{len(words)}")
+    cond = {"initial_prompt": " ".join(words), "_cond_ctx": True}
+    return {
+        "prompt": cond,
+        "prompt-drafted": cond,
+        "prefix": {"prefix": PREFIX_TEXT},
+        "penalty": {"repetition_penalty": 1.3, "no_repeat_ngram_size": 3},
+        "penalty-beam5": {"repetition_penalty": 1.3, "no_repeat_ngram_size": 3,
+                          "beam_size": BEAM},
+        "ladder": LADDER,
+        "timestamps": {"without_timestamps": False},
+        "timestamps-beam5": {"without_timestamps": False, "beam_size": BEAM},
+        "clips": {"clip_timestamps": "0.5,4.0,6.0"},
+    }
+
+
+def route_name(key) -> str:
+    r = key.route
+    parts = [n for n, on in (("timestamps", r.timestamps), ("sampled", r.sampled),
+                             ("penalised", r.penalised)) if on]
+    parts += [f"ngram {r.ngram_n}"] if r.ngram_n else []
+    parts += ["drafted"] if key.drafted else []
+    parts += [f"beam {key.beam}"] if key.beam > 1 else []
+    return ", ".join(parts) or "greedy"
+
+
+class TwinDecodes:
+    """Stands in for ``engine.graphs.decode``: while ``on``, the first
+    decode of each route on a captured entry runs twice, replaying the
+    graph and running the same chunk uncaptured, and the two results must
+    be bitwise equal (tokens, lengths, logprob sums, accepted counts; the
+    sampled route's draws come from its generator reseeded by each decode,
+    so this holds the captured sampler to the eager one). Keeps each
+    entry's last call made while on."""
+
+    def __init__(self, torch, engine) -> None:
+        self.torch = torch
+        self.real = engine.graphs.decode
+        self.on = False
+        self.checked = {}
+        self.calls = {}
+        engine.graphs.decode = self
+
+    def __call__(self, entry, *args, **kwargs):
+        name = route_name(entry.key)
+        if not self.on or entry.graph is None or "captured" in kwargs:
+            return self.real(entry, *args, **kwargs)
+        self.calls[entry.key] = (entry, args, kwargs)
+        if self.checked.get(name):
+            return self.real(entry, *args, **kwargs)
+        a = self.real(entry, *args, captured=True, **kwargs)
+        b = self.real(entry, *args, captured=False, **kwargs)
+        for field in a._fields:
+            if not self.torch.equal(getattr(a, field), getattr(b, field)):
+                fail(f"routes ({route_name(entry.key)}, {entry.key.rows} rows): captured and "
+                     f"uncaptured {field} differ")
+        self.checked[name] = 1
+        return a
+
+
+def check_timestamp_grammar(W, engine, name: str, out, duration: float) -> None:
+    """openai-whisper's timestamp grammar on one output's generated tokens
+    (``tests/test_whisper_model.py:248-335``): the first token a timestamp
+    within the initial cap, then text, timestamps never decreasing, never
+    three in a row; every segment within the audio."""
+    ts_begin = engine.layout.timestamp_begin
+    gen = [int(t) for t in out._tokens[out._p_len: out._p_len + out._n_gen]]
+    if not gen:
+        return
+    stamps = [t for t in gen if t >= ts_begin]
+    runs, run = [], 0
+    for t in gen:
+        run = run + 1 if t >= ts_begin else 0
+        runs.append(run)
+    if (not ts_begin <= gen[0] <= ts_begin + W.MAX_INITIAL_TIMESTAMP
+            or (len(gen) > 1 and gen[1] >= ts_begin) or stamps != sorted(stamps)
+            or max(runs) > 2):
+        fail(f"routes ({name}): tokens break the timestamp grammar: {gen[:24]}")
+    for seg in out.segments:
+        if not 0.0 <= seg.start <= seg.end <= duration + 1e-6:
+            fail(f"routes ({name}): segment {seg} outside {duration:g} s")
+
+
+def route_group(E, W, engine, name: str, opts: dict, seconds: float, rows: int, tick: int):
+    """One group of ``rows`` requests of the route (0.6-1 times
+    ``seconds``, alternately en and detected) through the engine's device
+    phase and harvest; partials with session ids on ``prompt-drafted``,
+    else finals of fresh sessions (so nothing drafts them). Returns the
+    tasks and (outputs, launch counts)."""
+    partial = name == "prompt-drafted"
+    tasks = []
+    for i in range(rows):
+        audio = synth_audio(seconds * (0.6 + 0.4 * i / max(1, rows - 1)), seed=90 + i % 8)
+        task = E._Task(E.DecodeRequest(audio, language=None if i % 2 else "en",
+                                       options=dict(opts), session_id=f"route-{name}-{rows}-{i}",
+                                       is_final=not partial), None)
+        engine._attach_draft(task)
+        tasks.append(task)
+    return tasks, counted_run(W, engine, lambda: engine._harvest(engine._device_phase(tasks)))
+
+
+def check_route(W, engine, name: str, opts: dict, tasks, outs) -> None:
+    """What each route promises of its outputs."""
+    for task, out in zip(tasks, outs):
+        duration = len(task.request.audio) / 16000
+        if not (np.isfinite(out.avg_logprob) and out.info.language in W.WHISPER_LANG_CODES):
+            fail(f"routes ({name}): bad output {out.avg_logprob} {out.info}")
+        if "without_timestamps" in opts:
+            check_timestamp_grammar(W, engine, name, out, duration)
+        text = " ".join(s.text for s in out.segments).strip()
+        if "prefix" in opts and out.segments and not text.startswith(PREFIX_TEXT):
+            fail(f"routes ({name}): the transcript does not lead with the prefix: {text[:60]!r}")
+        if opts is LADDER and out.temperature_used not in LADDER["temperature"][1:]:
+            fail(f"routes (ladder): a row kept temperature {out.temperature_used} though "
+                 f"log_prob_threshold 0 fails every random-weight decode")
+        if "_cond_ctx" in opts and out._p_len != 1 + 32 + 4:
+            fail(f"routes ({name}): prompt of {out._p_len} tokens, not [sot_prev] + 32 + 4")
+
+
+def route_phase(torch, E, W) -> dict:
+    """Phase 3g: every decode route on whisper-small bf16, on the default
+    path (4 and 64 rows x 10 s) and the fp8 path with both kernels (4 rows
+    x 30 s); returns the launch counts of all its groups."""
+    from stt_tpu_torch import bench as B
+
+    totals = {"mel_logspec": 0, "xattn_decode": 0, "flash_attention": 0}
+    paths = [("int8 cross K/V, einsum",
+              dict(cross_kv_dtype="int8", xattn_kernel="off", flash_attention="off"), 10.0, (4, 64)),
+             ("fp8 cross K/V, both kernels",
+              dict(cross_kv_dtype="fp8", xattn_kernel="mm", flash_attention="auto"), 30.0, (4,))]
+    for tag, policy, seconds, sizes in paths:
+        engine = E.WhisperEngine("small", device="cuda", compute_type="bfloat16",
+                                 batch_buckets=(1, 4, 16, 64), max_decode_tokens=224,
+                                 draft_mode="on", **policy)
+        twin = TwinDecodes(torch, engine)
+        cfg = engine.config
+        try:
+            routes = route_options(engine)
+            t0 = time.monotonic()
+            engine.prewarm([seconds], list(sizes), beam_sizes=[1, BEAM])
+            log(f"routes ({tag}): prewarmed the plain entries at {seconds:g} s x "
+                f"{'/'.join(map(str, sizes))} rows, beams 1 and {BEAM}, in "
+                f"{time.monotonic() - t0:.2f} s ({engine.graph_captures} captures)")
+            for rows in sizes:
+                twin.on = rows == 4
+                for name, opts in routes.items():
+                    captures = engine.graph_captures
+                    for tick in range(2 if name == "prompt-drafted" else 1):
+                        drafted0 = engine.draft_stats["rows"]
+                        torch.cuda.synchronize()
+                        t0 = time.monotonic()
+                        tasks, (outs, counts) = route_group(E, W, engine, name, opts,
+                                                            seconds, rows, tick)
+                        torch.cuda.synchronize()
+                        wall = time.monotonic() - t0
+                        check_route(W, engine, name, opts, tasks, outs)
+                        for k in totals:
+                            totals[k] += counts[k]
+                        encodes = counts["mel_logspec"]
+                        # a drafted tick whose every row accepts its draft to the
+                        # budget finishes in the verify pass, with no replay
+                        if encodes != (2 if opts is LADDER else 1) or (
+                                counts["graph_replays"] <= 0 and not tick):
+                            fail(f"routes ({tag}, {name}, {rows} rows): launches {counts}")
+                        flash_on = engine.policy.flash_on(1500) and seconds == 30.0
+                        if counts["flash_attention"] != (cfg.n_audio_layer * encodes
+                                                         if flash_on else 0):
+                            fail(f"routes ({tag}, {name}): flash_attention launched "
+                                 f"{counts['flash_attention']} times for {encodes} encodes")
+                        if counts["xattn_decode"] != (cfg.n_text_layer * counts["decoder_steps"]
+                                                      if engine.policy.xattn_on else 0):
+                            fail(f"routes ({tag}, {name}): xattn_decode launched "
+                                 f"{counts['xattn_decode']} times for "
+                                 f"{counts['decoder_steps']} decoder steps")
+                        if name == "prompt-drafted" and tick and (
+                                engine.draft_stats["rows"] <= drafted0):
+                            fail(f"routes ({tag}): the second tick of partials was not drafted")
+                    log(f"routes ({tag}, {name}, {rows} x {seconds:g} s): {wall:.3f} s, "
+                        f"{engine.graph_captures - captures} captures at first use, launches "
+                        f"{ {k: counts[k] for k in ('mel_logspec', 'xattn_decode', 'flash_attention', 'graph_replays')} }, "
+                        f"lengths {[o._n_gen for o in outs[:4]]}, temperatures "
+                        f"{sorted({o.temperature_used for o in outs})}")
+            twin.on = False
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            route_group(E, W, engine, "ladder", LADDER, seconds, max(sizes), 1)
+            torch.cuda.synchronize()
+            ladder_ms = (time.monotonic() - t0) * 1e3
+            want = {"greedy", "drafted", "sampled", "timestamps", f"timestamps, beam {BEAM}",
+                    "penalised, ngram 3", f"penalised, ngram 3, beam {BEAM}"}
+            missing = want | {route_name(k) for k in twin.calls if k.rows == 4}
+            missing -= set(twin.checked)
+            if missing:
+                fail(f"routes ({tag}): no captured-vs-uncaptured check for {sorted(missing)}")
+            log(f"routes ({tag}): every route's replays bitwise its uncaptured chunk at 4 rows "
+                f"({twin.checked})")
+            sampled = [v for k, v in twin.calls.items() if k.route.sampled and k.rows == 4]
+            entry, args, kwargs = sampled[0]
+            with engine._device_lock, torch.inference_mode():
+                seeded = [twin.real(entry, *args, **{**kwargs, "seed": s}).tokens
+                          for s in (7, 7, 8)]
+            if not torch.equal(seeded[0], seeded[1]) or torch.equal(seeded[0], seeded[2]):
+                fail(f"routes ({tag}): two sampled decodes at seed 7 differ, or seeds 7 and 8 "
+                     f"agree")
+            log(f"routes ({tag}): two sampled decodes at one seed equal, two seeds differ")
+            log(f"routes ({tag}): one full ladder (temperatures {LADDER['temperature']}, "
+                f"best_of {LADDER['best_of']}, every row failing) on {max(sizes)} x "
+                f"{seconds:g} s, its entries built: {ladder_ms:.1f} ms, wall clock with the "
+                f"host's reads")
+            if 64 in sizes:
+                greedy = B.decode_step_ms(engine, seconds, 64, captured=True)
+                for e in engine.graphs.entries():
+                    if e.key.rows != 64 or e.graph is None or route_name(e.key) in (
+                            "greedy", f"beam {BEAM}") and e.key.p_len != B.PROMPT_LEN:
+                        continue
+                    ms = {c: B.decode_step_ms(engine, seconds, 64, captured=c, entry=e)
+                          for c in (True, False)}
+                    log(f"route step ({route_name(e.key)}, 64 x {seconds:g} s, p_len "
+                        f"{e.key.p_len}): captured {ms[True]:.4f} ms, eager {ms[False]:.4f} ms, "
+                        f"{ms[True] / greedy:.2f} x the greedy step ({greedy:.4f} ms)")
+            log(f"routes ({tag}): {len(engine.graphs)} entries, "
+                f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, "
+                f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+        finally:
+            engine.close()
+    return totals
+
+
+class HashedGumbel:
+    """Stands in for ``gumbel_noise`` in the float32 reference: Gumbel
+    draws from an exact integer hash of (seed, draw, element), equal on the
+    card and the CPU (whose Philox streams differ), with the seed and the
+    draw counter in device tensors so a captured chunk draws anew at each
+    replay and a reseed reaches it."""
+
+    def __init__(self, torch, W) -> None:
+        self.torch, self.W, self.state = torch, W, {}
+        self.real_reset, self.real_noise = W.reset_rules, W.gumbel_noise
+
+    def __enter__(self):
+        def reset(rules, *args, **kwargs):
+            self.real_reset(rules, *args, **kwargs)
+            if rules.temperature is not None:
+                seed, count = self._of(rules.generator)
+                seed.fill_(kwargs["seed"])
+                count.zero_()
+
+        self.W.reset_rules, self.W.gumbel_noise = reset, self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.W.reset_rules, self.W.gumbel_noise = self.real_reset, self.real_noise
+
+    def _of(self, generator):
+        torch = self.torch
+        if id(generator) not in self.state:
+            self.state[id(generator)] = tuple(
+                torch.zeros((), dtype=torch.long, device=generator.device) for _ in range(2))
+        return self.state[id(generator)]
+
+    def __call__(self, shape, generator):
+        torch = self.torch
+        seed, count = self._of(generator)
+        n = int(np.prod(shape))
+        x = (torch.arange(n, device=generator.device) + count * n + seed * 7919) % 2147483647
+        for _ in range(3):  # Park-Miller steps: below 2**47, exact in int64
+            x = (x * 48271 + 12345) % 2147483647
+        count.add_(1)
+        u = (x.float() / 2147483647.0).clamp(1e-7, 1.0 - 1e-7)
+        return -torch.log(-torch.log(u)).view(shape)
+
+
+def timestamp_ties_bf16(torch, E, W) -> None:
+    """Phase 3g's bf16 timestamp check: greedy timestamp decodes of the
+    ``test`` model in bfloat16 on the card and on the CPU (plain versions),
+    4 requests of 0.7-1.9 s. A row whose tokens differ must differ at a
+    near-tie of the card's decode: its steps rerun uncaptured along the
+    common prefix, the grammar's state advanced token by token, at the first
+    differing position either the top-2 gap of the card's final logits or
+    the sum-probability rule's margin (timestamp log-mass against the best
+    text token, before the grammar's state masks) under ``BF16_TIE_GAP``."""
+    opts = {"without_timestamps": False}
+    clips = [(1.9, "en"), (1.5, None), (1.2, "en"), (0.7, None)]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        eng = E.WhisperEngine("test", device=device, compute_type="bfloat16")
+        tasks = [E._Task(E.DecodeRequest(synth_audio(secs, seed=50 + i), language=lang,
+                                         options=dict(opts)), None)
+                 for i, (secs, lang) in enumerate(clips)]
+        ctx = eng._device_phase(tasks)
+        outs[device] = (eng, ctx, eng._harvest(ctx))
+        eng.close()
+    eng, ctx, card = outs["cuda"]
+    cpu = outs["cpu"][2]
+    dec, dev, eot = eng.model.decoder, eng.device, eng.layout.eot
+    p_len = ctx["p_len"]
+    rows = [np.asarray(o._tokens[: o._p_len + o._n_gen]) for o in card]
+    first = {}
+    for i, (a, o) in enumerate(zip(rows, cpu)):
+        b = np.asarray(o._tokens[: o._p_len + o._n_gen])
+        n = lcp(a.tolist(), b.tolist())
+        if n < max(len(a), len(b)):
+            first[i] = n
+    gaps = {}
+    if first:
+        tokens = torch.zeros((ctx["batch_n"], p_len + eng._max_new_for(ctx["bucket_sec"])),
+                             dtype=torch.long, device=dev)
+        for i, a in enumerate(rows):
+            tokens[i, : len(a)] = torch.from_numpy(a).to(dev)
+        key = eng.graphs.key(ctx["bucket_sec"], ctx["batch_n"], p_len,
+                             eng._max_new_for(ctx["bucket_sec"]))
+        st = W.init_decode_state(eng.config, key.rows, p_len, key.max_new, eng._dtype, dev,
+                                 route=W.Route(timestamps=True))
+        is_ts = torch.arange(eng.config.n_vocab, device=dev) >= eng.layout.timestamp_begin
+        with torch.inference_mode():
+            enc = E._mel_encode(eng.model, ctx["rows_dev"], eng._dtype)
+            ckv = W.precompute_cross_kv(dec, enc)
+            W.start_decode(dec, st, tokens[:, :p_len], st.prompt_len.fill_(p_len), ckv)
+            for pos in range(p_len, max(first.values()) + 1):
+                raw = W._decoder_step(dec, tokens[:, pos - 1], pos - 1, st.cache, ckv)
+                raw = raw + st.suppress + torch.where((st.prompt_len == pos)[:, None],
+                                                      st.begin, 0.0)
+                logits = W._ts_apply(st.rules, raw, st.pos.fill_(pos) - p_len)
+                for row, at in first.items():
+                    if at == pos:
+                        top = torch.topk(logits[row], 2).values
+                        lp = torch.log_softmax(raw[row], dim=-1)
+                        margin = (torch.logsumexp(lp[is_ts], 0) - lp[~is_ts].max()).abs()
+                        gaps[row] = min(float(top[0] - top[1]), float(margin))
+                W._advance_rules(st.rules, tokens[:, pos],
+                                 torch.ones(key.rows, dtype=torch.bool, device=dev), eot)
+    wide = {r: g for r, g in gaps.items() if not g < BF16_TIE_GAP}
+    if wide:
+        fail(f"timestamps bf16: rows {sorted(wide)} differ from the CPU's at gaps {wide}, not "
+             f"near-ties")
+    log(f"timestamps bf16 (test model, card vs CPU, {len(rows)} rows): "
+        f"{len(rows) - len(first)} rows identical"
+        + (f"; rows {sorted(first)} differ first at positions "
+           f"{[first[r] for r in sorted(first)]}, near-ties of the card's decode (gaps "
+           f"{[round(gaps[r], 5) for r in sorted(first)]})" if first else ""))
+
+
+def route_reference_f32(torch, E, W) -> None:
+    """Phase 3g's float32 gate: the ``test`` model on the card against the
+    CPU, every route on 2 requests (1.5 s en, 0.7 s detected), with the
+    ladder's draws from :class:`HashedGumbel` on both: the same tokens,
+    generated counts, temperatures and texts."""
+    outs = {}
+    with HashedGumbel(torch, W):
+        for device in ("cuda", "cpu"):
+            engine = E.WhisperEngine("test", device=device, compute_type="float32",
+                                     batch_buckets=(1, 4, 16, 64), draft_mode="on")
+            try:
+                got = {}
+                for name, opts in route_options(engine).items():
+                    for tick in range(2 if name == "prompt-drafted" else 1):
+                        tasks = []
+                        for i, (secs, lang) in enumerate(((1.5, "en"), (0.7, None))):
+                            tasks.append(E._Task(E.DecodeRequest(
+                                synth_audio(secs, seed=10 + i), language=lang,
+                                options=dict(opts), session_id=f"ref-{name}-{i}",
+                                is_final=name != "prompt-drafted"), None))
+                            engine._attach_draft(tasks[-1])
+                        res = engine._harvest(engine._device_phase(tasks))
+                        got[f"{name}/{tick}"] = [
+                            (o._tokens[: o._p_len + o._n_gen].tolist(), o.temperature_used,
+                             [s.text for s in o.segments]) for o in res]
+                outs[device] = got
+            finally:
+                engine.close()
+    differ = [k for k in outs["cpu"] if outs["cuda"][k] != outs["cpu"][k]]
+    if differ:
+        fail(f"routes f32: the card's outputs differ from the CPU's on {differ}: "
+             f"{[outs['cuda'][k][0][:2] for k in differ][:1]} vs "
+             f"{[outs['cpu'][k][0][:2] for k in differ][:1]}")
+    log(f"routes f32 (test model, card vs CPU, {len(outs['cpu'])} groups): every route's "
+        f"tokens, temperatures and texts equal (ladder temperatures "
+        f"{[t for _, t, _ in outs['cpu']['ladder/0']]})")
+
+
 def bench_phase() -> None:
     """Phase 3d: one steady round of the port's bench at 64 x 10 s."""
     from stt_tpu_torch import bench as B
@@ -2047,6 +2467,11 @@ def main() -> None:
         dict(cross_kv_dtype="fp8", xattn_kernel="mm", flash_attention="auto"),
         [12.0, 20.0, 25.0, 30.0], (4,))
 
+    # -- 3g. the decode routes: prompts, prefix, penalties, ladder, timestamps, clips
+    routes = route_phase(torch, E, W)
+    route_reference_f32(torch, E, W)
+    timestamp_ties_bf16(torch, E, W)
+
     # -- 5. the gRPC streaming path (before 4: the server's engine is shut down first)
     grpc_phase(torch, card)
 
@@ -2063,7 +2488,7 @@ def main() -> None:
         "source": "stt_tpu_torch/ops/cuda/mel.cu",
         "replaces": "stt_tpu/ops/pallas/mel.py:84",
         "launches": (launches + beam_int8["mel_logspec"] + beam_30s["mel_logspec"]
-                     + drafted_launches),
+                     + drafted_launches + routes["mel_logspec"]),
         "max_abs_err": max(mel_err.values()),
         **headline,
     }, {
@@ -2071,7 +2496,8 @@ def main() -> None:
         "route": "cuda",
         "source": "stt_tpu_torch/ops/cuda/xattn_decode.cu",
         "replaces": "stt_tpu/ops/pallas/xattn_decode.py:186",
-        "launches": counts_30s["xattn_decode"] + beam_30s["xattn_decode"],
+        "launches": (counts_30s["xattn_decode"] + beam_30s["xattn_decode"]
+                     + routes["xattn_decode"]),
         "max_abs_err": xattn_err,
         **xattn_headline,
     }, {
@@ -2079,7 +2505,8 @@ def main() -> None:
         "route": "cuda",
         "source": "stt_tpu_torch/ops/cuda/flash_attention.cu",
         "replaces": "stt_tpu/models/whisper.py:378",
-        "launches": counts_30s["flash_attention"] + beam_30s["flash_attention"],
+        "launches": (counts_30s["flash_attention"] + beam_30s["flash_attention"]
+                     + routes["flash_attention"]),
         "max_abs_err": flash_err,
         **flash_headline,
     }, {

@@ -167,24 +167,26 @@ def decode_step_bytes(engine: E.WhisperEngine, bucket_sec: float, rows: int,
 
 
 def decode_step_ms(engine: E.WhisperEngine, bucket_sec: float, rows: int, *,
-                   captured: bool, beam: int = 1) -> float:
+                   captured: bool, beam: int = 1, entry=None) -> float:
     """Device ms per decode step at (``bucket_sec``, ``rows``, ``beam``) on
-    the shape's entry as the last group left it: CUDA events around each
-    chunk, replayed (``captured``) or run uncaptured, the first two chunks
-    dropped as warm-up, over ``FINISH_CHECK_EVERY`` steps a chunk. The
-    position is reset to the prompt's end and every row (beam) marked
-    unfinished before a chunk would pass T_max; a beam step does its whole
-    work whether or not the search has stopped. The events of an uncaptured
-    chunk include the device's waits on the host."""
-    entry = engine.graphs.lookup(bucket_sec, rows, PROMPT_LEN, engine._max_new_for(bucket_sec),
-                                 beam)
+    the shape's entry (or on ``entry``, of any route) as the last group left
+    it: CUDA events around each chunk, replayed (``captured``) or run
+    uncaptured, the first two chunks dropped as warm-up, over
+    ``FINISH_CHECK_EVERY`` steps a chunk. The position is reset to the
+    prompt's end and every row (beam) marked unfinished before a chunk would
+    pass T_max; a beam step does its whole work whether or not the search
+    has stopped. The events of an uncaptured chunk include the device's
+    waits on the host."""
+    if entry is None:
+        entry = engine.graphs.lookup(bucket_sec, rows, PROMPT_LEN,
+                                     engine._max_new_for(bucket_sec), beam)
     dec = engine.model.decoder
     st = entry.state
     pairs = []
     with engine._device_lock, torch.inference_mode():
         for i in range(TIMED_CHUNKS + 2):
             if i % entry.chunks == 0:
-                st.pos.fill_(PROMPT_LEN)
+                st.pos.fill_(entry.key.p_len)
                 st.finished.zero_()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()

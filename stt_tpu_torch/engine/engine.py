@@ -1,16 +1,32 @@
 """WhisperEngine: one device-resident model serving many sessions.
 
-Counterpart of ``stt_tpu/engine/engine.py`` for the serving step without
-timestamps — greedy at beam 1, what every streaming partial and final
-takes, and beam search above it (the shipped ``accurate`` profile):
+Counterpart of ``stt_tpu/engine/engine.py`` for the serving step — greedy
+at beam 1, what every streaming partial and final takes, beam search above
+it (the shipped ``accurate`` profile), and every decode option of the JAX
+engine but word timestamps:
 
 - Requests enter a queue; the engine thread collects up to ``max_batch``
   of them within ``batch_window_ms``, groups compatible requests (same
-  audio bucket, same prompt shape and decode policy: suppress-blank, beam
-  width and, above beam 1, patience and length penalty) and runs one
-  batched mel -> encode -> detect -> decode step per group. Language
+  audio bucket, same prompt shape and language slot, same decode policy:
+  suppress-blank, beam width and, above beam 1, patience and length
+  penalty, timestamps, the n-gram size and the fallback ladder) and runs
+  one batched mel -> encode -> detect -> decode step per group. Language
   detection runs on the group's rows before the beams replicate them, as
   the JAX package's ``_decode_serve`` detects before ``beam_decode``.
+- The decode options, read as the JAX package reads them
+  (``stt_tpu/engine/engine.py:222-366``): conditioning prompts
+  (``initial_prompt``/``hotwords``, and the streaming committed transcript
+  marked ``_cond_ctx``, whose length is bucketed) as ``[sot_prev] +
+  tokens`` before the sot sequence, a forced ``prefix`` after it (its text
+  leads the transcript), ``repetition_penalty`` and
+  ``no_repeat_ngram_size`` (greedy and beam), timestamps
+  (``without_timestamps=False``: segments from the timestamp grammar,
+  greedy or beam), ``clip_timestamps`` (audio outside the spans zeroed),
+  and the temperature-fallback ladder (``temperature`` as a list, with
+  ``best_of``, ``compression_ratio_threshold``, ``log_prob_threshold`` and
+  ``prompt_reset_on_temperature``): rows that fail the quality gate are
+  re-decoded by sampling, re-encoded from the group's rows. Each route
+  decodes on its own graph entry, captured at first use.
 - Audio pads to second buckets and rows to batch buckets, as in the JAX
   package, so the shapes a deployment sees stay few.
 - Rows travel to the device on the audio wire (``audio_wire``): 8-bit
@@ -82,10 +98,8 @@ Beam options are read as the JAX package reads them: ``beam_size``
 clamped to 1..8, ``patience`` (1..4, steps of 0.25; above 1 the pooled
 search), ``length_penalty`` (0..2, steps of 0.25) and ``suppress_blank``.
 Left for later slices (a request asking for them raises
-``NotImplementedError`` naming the option): timestamps, sampling and the
-temperature ladder, repetition penalty and n-gram bans, forced prefixes and
-conditioning prompts, clip ranges, word timestamps and the long-audio seek
-loop.
+``NotImplementedError`` naming the option): word timestamps and the
+long-audio seek loop.
 """
 
 from __future__ import annotations
@@ -241,6 +255,9 @@ class DecodeOutput:
     batch_rows: int = 0
     avg_logprob: float = 0.0
     no_speech_prob: float = 0.0
+    # the ladder rung's temperature that produced the result (0.0: the
+    # primary pass)
+    temperature_used: float = 0.0
     # the decoded token row + prompt length that produced this output
     _tokens: Any = None
     _p_len: int = 0
@@ -270,15 +287,21 @@ DRAFT_MIN_OBS = 3           # observations before adaptive routing may engage
 def _draft_option_ok(request: "DecodeRequest", mode: str = "on") -> bool:
     """Whether the drafted decode may serve ``request``
     (``stt_tpu/engine/engine.py:143-172``): a mode other than ``off``, a
-    real session id to correlate ticks under, and greedy (beam 1). The JAX
-    function's other conditions (no timestamps, repetition penalty, n-gram
-    bans or temperature ladder, no seek window) hold for every request the
-    port accepts: ``submit`` refuses the rest."""
+    real session id to correlate ticks under, greedy (beam 1), no
+    timestamps, no repetition penalty or n-gram bans and a ladder whose
+    first rung is greedy. Conditioning prompts and prefixes may draft. (The
+    JAX function's seek-window condition waits for the long-audio loop.)"""
     if mode == "off":
         return False
     if not request.session_id or request.session_id == "unknown":
         return False
-    return _beam_size_of(request) == 1
+    if _beam_size_of(request) > 1:
+        return False
+    if not bool(request.options.get("without_timestamps", True)):
+        return False
+    if _ngram_of(request) or _rep_penalty_of(request) != 1.0:
+        return False
+    return _temperature_ladder(request.options)[0] <= 0
 
 
 def _beam_size_of(request: DecodeRequest) -> int:
@@ -289,6 +312,108 @@ def _beam_size_of(request: DecodeRequest) -> int:
     except (TypeError, ValueError):
         beam = 1
     return max(1, min(beam, W.MAX_BEAM))
+
+
+def _clip_ranges_of(request: DecodeRequest) -> Optional[List[Tuple[float, float]]]:
+    """faster_whisper ``clip_timestamps`` (``:232``): "start,end,..." seconds
+    or a list of floats; only those spans of the audio are transcribed, an
+    odd count running the last to the end. None when absent or default."""
+    raw = request.options.get("clip_timestamps")
+    if raw in (None, "", "0", 0, [0], [0.0]):
+        return None
+    try:
+        if isinstance(raw, str):
+            vals = [float(x) for x in raw.split(",") if x.strip() != ""]
+        else:
+            vals = [float(x) for x in raw]
+    except (TypeError, ValueError):
+        return None
+    if not vals or vals == [0.0]:
+        return None
+    if len(vals) % 2 == 1:
+        vals.append(float("inf"))
+    return list(zip(vals[::2], vals[1::2]))
+
+
+def _apply_clips(audio: np.ndarray, clips: List[Tuple[float, float]]) -> np.ndarray:
+    """Zero everything outside the requested [start, end) second spans
+    (``:256``)."""
+    keep = np.zeros(len(audio), bool)
+    for start, end in clips:
+        lo = max(0, int(start * SAMPLE_RATE))
+        hi = min(len(audio), int(min(end, 1e9) * SAMPLE_RATE))
+        if hi > lo:
+            keep[lo:hi] = True
+    return np.where(keep, audio, 0.0).astype(np.float32)
+
+
+def _ngram_of(request: DecodeRequest) -> int:
+    """CTranslate2 ``no_repeat_ngram_size`` clamped to 0..4 (``:268``)."""
+    try:
+        n = int(request.options.get("no_repeat_ngram_size") or 0)
+    except (TypeError, ValueError):
+        n = 0
+    return max(0, min(n, 4))
+
+
+def _rep_penalty_of(request: DecodeRequest) -> float:
+    """CTranslate2 ``repetition_penalty`` clamped to 0.1..10 (``:278``); a
+    per-row tensor of the decode state, so every value shares one entry."""
+    try:
+        rp = float(request.options.get("repetition_penalty") or 1.0)
+    except (TypeError, ValueError):
+        rp = 1.0
+    return max(0.1, min(rp, 10.0))
+
+
+def _best_of_of(request: DecodeRequest) -> int:
+    """faster_whisper ``best_of`` clamped to 1..5 (``:318``): samples per
+    fallback rung above temperature 0, the best average logprob kept."""
+    try:
+        return max(1, min(int(request.options.get("best_of", 1) or 1), 5))
+    except (TypeError, ValueError):
+        return 1
+
+
+def _reset_temp_of(request: DecodeRequest) -> Optional[float]:
+    """faster_whisper ``prompt_reset_on_temperature`` (default 0.5,
+    ``:329``): rungs above it drop the conditioning prompt; None disables."""
+    try:
+        raw = request.options.get("prompt_reset_on_temperature", 0.5)
+        return float(raw) if raw is not None else None
+    except (TypeError, ValueError):
+        return 0.5
+
+
+def _temperature_ladder(options: Dict[str, Any]) -> List[float]:
+    """faster_whisper semantics (``:339``): a scalar temperature is a single
+    rung; a list is the fallback ladder tried in order."""
+    raw = options.get("temperature", 0.0)
+    if isinstance(raw, (list, tuple)):
+        return [float(t) for t in raw] or [0.0]
+    try:
+        return [float(raw)]
+    except (TypeError, ValueError):
+        return [0.0]
+
+
+def _needs_fallback(text: str, avg_lp: float, options: Dict[str, Any]) -> bool:
+    """whisper's quality gate (``:353``): a repetitive (high compression
+    ratio) or low-confidence decode takes the next rung."""
+    cr_threshold = options.get("compression_ratio_threshold", 2.4)
+    lp_threshold = options.get("log_prob_threshold", options.get("logprob_threshold", -1.0))
+    if cr_threshold is not None and W.compression_ratio(text) > float(cr_threshold):
+        return True
+    return lp_threshold is not None and avg_lp < float(lp_threshold)
+
+
+def _decode_route(beam: int, with_ts: bool, penalised: bool, ngram_n: int) -> W.Route:
+    """A group's route (``stt_tpu/engine/engine.py:_decode_best``): greedy
+    with timestamps ignores the penalty and the bans; beam search applies
+    all three."""
+    if with_ts and beam == 1:
+        return W.Route(timestamps=True)
+    return W.Route(timestamps=with_ts, penalised=penalised, ngram_n=ngram_n)
 
 
 def _suppress_blank_of(request: DecodeRequest) -> bool:
@@ -318,31 +443,10 @@ def _patience_of(request: DecodeRequest) -> float:
 
 
 def _unsupported_option(options: Dict[str, Any]) -> Optional[str]:
-    """The first option that asks for behaviour this slice does not serve,
-    as ``"name=value"``, or None. Values that mean "off" pass; beam options
-    are served."""
-    def off(name, *defaults):
-        value = options.get(name)
-        return value is None or value in defaults
-
-    checks = [
-        ("without_timestamps", bool(options.get("without_timestamps", True))),
-        ("word_timestamps", not options.get("word_timestamps")),
-        ("clip_timestamps", off("clip_timestamps", "", "0", 0, [0], [0.0])),
-        ("prefix", not str(options.get("prefix") or "").strip()),
-        ("initial_prompt", not str(options.get("initial_prompt") or "").strip()),
-        ("hotwords", not str(options.get("hotwords") or "").strip()),
-        ("repetition_penalty", off("repetition_penalty", 0, 1, 1.0, "1")),
-        ("no_repeat_ngram_size", off("no_repeat_ngram_size", 0, "0")),
-    ]
-    temp = options.get("temperature", 0.0)
-    if isinstance(temp, (list, tuple)):
-        checks.append(("temperature", [float(t) for t in temp] in ([], [0.0])))
-    else:
-        checks.append(("temperature", float(temp or 0.0) == 0.0))
-    for name, ok in checks:
-        if not ok:
-            return f"{name}={options.get(name)!r}"
+    """The option that asks for behaviour this slice does not serve, as
+    ``"name=value"``, or None: word timestamps alone."""
+    if options.get("word_timestamps"):
+        return f"word_timestamps={options.get('word_timestamps')!r}"
     return None
 
 
@@ -398,20 +502,26 @@ def _decode_serve(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
                   enc: torch.Tensor, prompt: torch.Tensor, prompt_len: torch.Tensor,
                   auto_mask: torch.Tensor, max_new_tokens: int,
                   suppress_blank: bool = True, lang_pos: int = 1, beam: int = 1,
-                  patience: float = 1.0, length_penalty: float = 1.0) -> torch.Tensor:
+                  patience: float = 1.0, length_penalty: float = 1.0,
+                  route: W.Route = W.GREEDY,
+                  rep_penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Language detection -> decode -> packed outputs, from an encoder
-    output, on the shape's entry of ``graphs``: greedy at ``beam`` 1, beam
-    search above it (the JAX package's ``_decode_best``). At beam 1 the
+    output, on the shape's entry of ``graphs`` for ``route``: greedy at
+    ``beam`` 1, beam search above it (the JAX package's ``_decode_best``;
+    greedy with timestamps always applies its begin mask). At beam 1 the
     cross K/V is computed once into the entry's buffers and shared by the
     detection step and the decode; above it, computed once for the B rows,
     used by the detection step, then repeated over the beams into the
     entry's B*K rows, so the language is detected and patched into the
-    prompt before the beams replicate it. The packed result is a new
-    tensor, enqueued after the decode's last replay, so a next group of the
-    same shape may reuse the entry before this one is harvested."""
+    prompt (at ``lang_pos``, after any conditioning prompt) before the beams
+    replicate it. The packed result is a new tensor, enqueued after the
+    decode's last replay, so a next group of the same shape may reuse the
+    entry before this one is harvested."""
     dec = model.decoder
+    if route.timestamps and beam == 1:
+        suppress_blank = True
     entry = graphs.entry(bucket_sec, enc.shape[0], prompt.shape[1], max_new_tokens,
-                         enc.shape[1], beam, W.beam_candidates(beam, patience))
+                         enc.shape[1], beam, W.beam_candidates(beam, patience), route=route)
     if beam == 1:
         cross_kv = W.precompute_cross_kv(dec, enc, out=entry.cross_kv)
     else:
@@ -422,8 +532,31 @@ def _decode_serve(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
     if beam > 1:
         W.repeat_cross_kv(cross_kv, beam, out=entry.cross_kv)
     res = graphs.decode(entry, prompt, prompt_len, suppress_blank=suppress_blank,
-                        sot_pos=lang_pos - 1, length_penalty=length_penalty)
+                        sot_pos=lang_pos - 1, length_penalty=length_penalty,
+                        rep_penalty=rep_penalty)
     return _pack_result(res, lang_idx, lang_p)
+
+
+def _sample_serve(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
+                  enc: torch.Tensor, prompt: torch.Tensor, prompt_len: torch.Tensor,
+                  max_new_tokens: int, *, temperature: float, seed: int,
+                  suppress_blank: bool, rep_penalty: Optional[torch.Tensor], ngram_n: int,
+                  sot_pos: int) -> torch.Tensor:
+    """One sampled decode of the fallback ladder -> packed outputs (the JAX
+    package's ``_sample_packed``), on the shape's sampled entry: the cross
+    K/V computed into its buffers, the prompt as given (its language slot
+    already resolved), no detection (the language columns hold 0 and 1.0,
+    unread)."""
+    route = W.Route(sampled=True, penalised=rep_penalty is not None, ngram_n=ngram_n)
+    entry = graphs.entry(bucket_sec, enc.shape[0], prompt.shape[1], max_new_tokens,
+                         enc.shape[1], route=route)
+    W.precompute_cross_kv(model.decoder, enc, out=entry.cross_kv)
+    res = graphs.decode(entry, prompt, prompt_len, suppress_blank=suppress_blank,
+                        sot_pos=sot_pos, rep_penalty=rep_penalty, temperature=temperature,
+                        seed=seed)
+    b = prompt.shape[0]
+    return _pack_result(res, torch.zeros(b, dtype=torch.long, device=prompt.device),
+                        torch.ones(b, device=prompt.device))
 
 
 def _decode_serve_drafted(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
@@ -455,17 +588,20 @@ def _serve_step(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
                 auto_mask: torch.Tensor, dtype: torch.dtype, max_new_tokens: int,
                 suppress_blank: bool = True, beam: int = 1, patience: float = 1.0,
                 length_penalty: float = 1.0, draft: Optional[torch.Tensor] = None,
-                draft_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                draft_len: Optional[torch.Tensor] = None, lang_pos: int = 1,
+                route: W.Route = W.GREEDY,
+                rep_penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole serving step: mel + encoder, then detect + decode + pack
     (the drafted decode when ``draft`` is given)."""
     enc = _mel_encode(model, rows, dtype)
     if draft is not None:
         return _decode_serve_drafted(model, graphs, bucket_sec, enc, prompt, prompt_len,
                                      draft, draft_len, auto_mask, max_new_tokens,
-                                     suppress_blank)
+                                     suppress_blank, lang_pos)
     return _decode_serve(model, graphs, bucket_sec, enc, prompt, prompt_len, auto_mask,
-                         max_new_tokens, suppress_blank, beam=beam, patience=patience,
-                         length_penalty=length_penalty)
+                         max_new_tokens, suppress_blank, lang_pos, beam=beam,
+                         patience=patience, length_penalty=length_penalty, route=route,
+                         rep_penalty=rep_penalty)
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -621,7 +757,7 @@ class WhisperEngine:
         if bad is not None:
             raise NotImplementedError(
                 f"option {bad} is not served by stt_tpu_torch yet "
-                f"(it serves greedy and beam decodes without timestamps so far)"
+                f"(it serves every decode option but word timestamps so far)"
             )
         max_win = int(self.audio_buckets_sec[-1] * SAMPLE_RATE)
         max_win -= max_win % HOP_LENGTH
@@ -847,16 +983,22 @@ class WhisperEngine:
 
     def _group_key(self, task: _Task) -> Tuple:
         """Two requests share a batch only when their audio bucket, prompt
-        length, group-wide decode policy and route (drafted or plain) match
-        (``stt_tpu/engine/engine.py:1617-1640``: patience and length penalty
-        count only above beam 1)."""
+        and conditioning lengths (the latter fixes the language slot),
+        group-wide decode policy (beam, timestamps, suppress-blank, n-gram
+        size, the fallback ladder with ``best_of`` and the prompt reset) and
+        route (drafted or plain) match (``stt_tpu/engine/engine.py:
+        1617-1642``: patience and length penalty count only above beam 1)."""
         request = task.request
         bucket = self._bucket_for(len(request.audio))
-        p_len = len(self._prompt_for(request))
+        ctx, sot_seq, prefix_ids = self._prompt_parts(request)
         beam = _beam_size_of(request)
         patience = _patience_of(request) if beam > 1 else 1.0
         len_pen = _length_penalty_of(request) if beam > 1 else 1.0
-        return (bucket, p_len, beam, patience, len_pen, _suppress_blank_of(request),
+        with_ts = not bool(request.options.get("without_timestamps", True))
+        fallback = (tuple(_temperature_ladder(request.options)), _best_of_of(request),
+                    _reset_temp_of(request))
+        return (bucket, len(ctx) + len(sot_seq) + len(prefix_ids), len(ctx), beam, with_ts,
+                patience, len_pen, _suppress_blank_of(request), _ngram_of(request), fallback,
                 task.draft is not None)
 
     def _process(self, batch: List[_Task]) -> None:
@@ -913,10 +1055,53 @@ class WhisperEngine:
     # -- the batched serving step ---------------------------------------------
 
     def _prompt_for(self, request: DecodeRequest) -> List[int]:
-        """SOT sequence; the language slot holds a placeholder for
-        auto-detect rows and is overwritten on device."""
-        return W.build_prompt(self.config, request.language or "en",
-                              task=request.task, without_timestamps=True)
+        ctx, sot_seq, prefix_ids = self._prompt_parts(request)
+        return ctx + sot_seq + prefix_ids
+
+    def _prompt_parts(self, request: DecodeRequest) -> Tuple[List[int], List[int], List[int]]:
+        """(conditioning prompt, sot sequence, forced prefix), the decoded
+        prompt's three parts (``stt_tpu/engine/engine.py:1753``). The sot
+        sequence's language slot, at ``len(ctx) + 1``, holds a placeholder
+        for auto-detect rows, overwritten on the device."""
+        sot_seq = W.build_prompt(
+            self.config, request.language or "en", task=request.task,
+            without_timestamps=bool(request.options.get("without_timestamps", True)),
+        )
+        return self._context_prefix(request), sot_seq, self._forced_prefix(request)
+
+    def _forced_prefix(self, request: DecodeRequest) -> List[int]:
+        """The ``prefix`` option's tokens, forced after the sot sequence
+        (``:1774``); its text reappears in the transcript (``_harvest``)."""
+        text = str(request.options.get("prefix") or "").strip()
+        if not text:
+            return []
+        budget = self.config.n_text_ctx // 2 - 1
+        return list(self.tokenizer.encode(" " + text)[-budget:])
+
+    # conditioning lengths a growing context (``_cond_ctx``) truncates down
+    # to, keeping its newest tokens, so a stream meets few prompt shapes;
+    # below the smallest the context is dropped (``:1795``)
+    _CTX_BUCKETS = (8, 16, 32, 64, 128)
+
+    def _context_prefix(self, request: DecodeRequest) -> List[int]:
+        """``[sot_prev]`` + the encoded ``initial_prompt`` (else
+        ``hotwords``), truncated to half the text context (``:1797-1833``).
+        Only a context the server injects (the streaming committed
+        transcript, marked ``_cond_ctx``) is bucketed down to
+        ``_CTX_BUCKETS``; a user's own prompt is fixed text and keeps every
+        token the budget admits."""
+        text = str(request.options.get("initial_prompt")
+                   or request.options.get("hotwords") or "").strip()
+        if not text:
+            return []
+        budget = self.config.n_text_ctx // 2 - 1
+        ids = self.tokenizer.encode(" " + text)[-budget:]
+        if len(ids) < budget and request.options.get("_cond_ctx"):
+            keep = max((b for b in self._CTX_BUCKETS if len(ids) >= b), default=0)
+            ids = ids[-keep:] if keep else []
+        if not ids:
+            return []
+        return [self.layout.sot_prev] + list(ids)
 
     def _device_phase(self, group: List[_Task]) -> Dict[str, Any]:
         """Host prep and every device launch for one group; returns a
@@ -935,6 +1120,10 @@ class WhisperEngine:
         durations = []
         for i, task in enumerate(group):
             audio = task.request.audio
+            clips = _clip_ranges_of(task.request)
+            if clips is not None:
+                # spans in seconds of this decode window
+                audio = _apply_clips(audio, clips)
             if len(audio) > bucket_samples:
                 # partial-window semantics: a live caption needs the newest audio
                 audio = audio[-bucket_samples:]
@@ -943,12 +1132,17 @@ class WhisperEngine:
 
         langs: List[Optional[str]] = []
         auto_mask = np.zeros((batch_n,), np.bool_)
-        prompts = []
+        prompts, prefix_texts = [], []
+        lang_pos = 1
         for i, task in enumerate(group):
             lang = task.request.language
             auto_mask[i] = not lang
             langs.append(lang or None)
-            prompts.append(self._prompt_for(task.request))
+            ctx, sot_seq, prefix_ids = self._prompt_parts(task.request)
+            prompts.append(ctx + sot_seq + prefix_ids)
+            lang_pos = len(ctx) + 1  # uniform in a group (_group_key)
+            prefix_texts.append(str(task.request.options.get("prefix") or "").strip()
+                                if prefix_ids else "")
         p_len = len(prompts[0])
         prompt_arr = np.full((batch_n, p_len), self.layout.eot, np.int64)
         for i, p in enumerate(prompts):
@@ -960,6 +1154,16 @@ class WhisperEngine:
         beam = _beam_size_of(group[0].request)
         patience = _patience_of(group[0].request) if beam > 1 else 1.0
         len_pen = _length_penalty_of(group[0].request) if beam > 1 else 1.0
+        with_ts = any(not bool(t.request.options.get("without_timestamps", True))
+                      for t in group)
+        ngram = max(_ngram_of(t.request) for t in group)
+        rep_arr = np.ones((batch_n,), np.float32)
+        for i, task in enumerate(group):
+            rep_arr[i] = _rep_penalty_of(task.request)
+        # the penalised route only where some row's penalty is not 1, as the
+        # JAX engine traces the penalised program only then
+        penalised = not (rep_arr == 1.0).all()
+        route = _decode_route(beam, with_ts, penalised, ngram)
         # a drafted group (the group key carries the route) packs each row's
         # draft, eot-padded to the bucket's max_new: one entry per shape
         # covers every draft length
@@ -984,52 +1188,81 @@ class WhisperEngine:
                 length_penalty=len_pen,
                 draft=torch.from_numpy(draft_arr).to(dev) if drafted else None,
                 draft_len=torch.from_numpy(dlen_arr).to(dev) if drafted else None,
+                lang_pos=lang_pos, route=route,
+                rep_penalty=torch.from_numpy(rep_arr).to(dev) if route.penalised else None,
             )
         return {
             "group": group, "packed": packed, "rows_dev": rows_dev,
-            "durations": durations,
-            "langs": langs, "p_len": p_len, "batch_n": batch_n, "n": n,
+            "prompt_arr": prompt_arr, "lang_pos": lang_pos, "durations": durations,
+            "prefix_texts": prefix_texts, "langs": langs, "p_len": p_len,
+            "with_ts": with_ts, "batch_n": batch_n, "n": n,
             "bucket_sec": bucket_sec, "max_new": max_new, "beam": beam,
             "drafted": drafted, "t_start": t_start,
         }
 
+    def _row_output(self, ctx: Dict[str, Any], arr: np.ndarray, i: int, lang: str,
+                    lang_p: float, p_len: int) -> DecodeOutput:
+        """Row ``i`` of a packed result (a prompt of ``p_len`` tokens) as an
+        output (``stt_tpu/engine/engine.py:2314-2379``): the timestamp
+        segments, clamped to the row's audio (those starting past it or
+        without text dropped), else one segment of the text, a forced
+        prefix's text leading it; no segment under whisper's no-speech rule
+        (p(no_speech) high and the decode low-confidence)."""
+        task = ctx["group"][i]
+        duration = ctx["durations"][i]
+        t_max = arr.shape[1] - 5
+        n_gen = max(0, int(arr[i, t_max]) - p_len)
+        gen_tokens = arr[i, p_len : p_len + n_gen]
+        avg_lp = float(arr[i, t_max + 1 : t_max + 2].view(np.float32)[0] / max(1, n_gen))
+        no_speech_p = float(arr[i, t_max + 2 : t_max + 3].view(np.float32)[0])
+        if ctx["with_ts"]:
+            segments = []
+            for start, end, toks in W.split_timestamp_segments(gen_tokens, self.config,
+                                                               duration):
+                if start >= duration:
+                    continue
+                seg_text = self.tokenizer.decode(toks)
+                if not seg_text.strip():
+                    continue
+                segments.append(Segment(max(0.0, min(start, duration)),
+                                        max(0.0, min(end, duration)), seg_text))
+        else:
+            text = self.tokenizer.decode(gen_tokens)
+            if ctx["prefix_texts"][i]:
+                text = " " + ctx["prefix_texts"][i] + text
+            segments = [Segment(0.0, duration, text)] if text.strip() else []
+        opts = task.request.options
+        ns_threshold = opts.get("no_speech_threshold", 0.6)
+        lp_threshold = opts.get("log_prob_threshold", opts.get("logprob_threshold", -1.0))
+        if (ns_threshold is not None and no_speech_p > float(ns_threshold)
+                and lp_threshold is not None and avg_lp < float(lp_threshold)):
+            segments = []
+        return DecodeOutput(
+            segments=segments, info=BackendInfo(lang, lang_p),
+            batch_rows=ctx["n"], avg_logprob=avg_lp, no_speech_prob=no_speech_p,
+            _tokens=arr[i, :t_max].astype(np.int32), _p_len=p_len, _n_gen=n_gen,
+        )
+
     def _harvest(self, ctx: Dict[str, Any]) -> List[DecodeOutput]:
-        """Blocking readback + host postprocessing for one group."""
+        """Blocking readback + host postprocessing for one group, then the
+        fallback ladder where the options carry one."""
         group = ctx["group"]
-        durations = ctx["durations"]
-        p_len = ctx["p_len"]
         arr = ctx["packed"].cpu().numpy()  # the ONE device->host transfer
         if ctx["drafted"]:
             self._count_draft_verify(group, arr[: len(group), -1], ctx["max_new"])
             arr = arr[:, :-1]
         t_max = arr.shape[1] - 5
-        outputs = []
-        for i, task in enumerate(group):
-            lang = ctx["langs"][i]
-            lang_p = 1.0
-            if lang is None:
+        langs, lang_ps = list(ctx["langs"]), [1.0] * len(group)
+        for i in range(len(group)):
+            if langs[i] is None:
                 idx = min(max(int(arr[i, t_max + 3]), 0), len(W.WHISPER_LANG_CODES) - 1)
-                lang = W.WHISPER_LANG_CODES[idx]
-                lang_p = float(arr[i, t_max + 4 : t_max + 5].view(np.float32)[0])
-            n_gen = max(0, int(arr[i, t_max]) - p_len)
-            gen_tokens = arr[i, p_len : p_len + n_gen]
-            avg_lp = float(arr[i, t_max + 1 : t_max + 2].view(np.float32)[0] / max(1, n_gen))
-            no_speech_p = float(arr[i, t_max + 2 : t_max + 3].view(np.float32)[0])
-            text = self.tokenizer.decode(gen_tokens)
-            segments = [Segment(0.0, durations[i], text)] if text.strip() else []
-            # whisper no-speech rule: silence when p(no_speech) is high AND
-            # the decode is low-confidence (faster_whisper defaults)
-            opts = task.request.options
-            ns_threshold = opts.get("no_speech_threshold", 0.6)
-            lp_threshold = opts.get("log_prob_threshold", opts.get("logprob_threshold", -1.0))
-            if (ns_threshold is not None and no_speech_p > float(ns_threshold)
-                    and lp_threshold is not None and avg_lp < float(lp_threshold)):
-                segments = []
-            outputs.append(DecodeOutput(
-                segments=segments, info=BackendInfo(lang, lang_p),
-                batch_rows=ctx["n"], avg_logprob=avg_lp, no_speech_prob=no_speech_p,
-                _tokens=arr[i, :t_max].astype(np.int32), _p_len=p_len, _n_gen=n_gen,
-            ))
+                langs[i] = W.WHISPER_LANG_CODES[idx]
+                lang_ps[i] = float(arr[i, t_max + 4 : t_max + 5].view(np.float32)[0])
+        outputs = [self._row_output(ctx, arr, i, langs[i], lang_ps[i], ctx["p_len"])
+                   for i in range(len(group))]
+        ladder = _temperature_ladder(group[0].request.options)
+        if len(ladder) > 1 and not ctx["with_ts"]:
+            self._fallback(ctx, outputs, langs, lang_ps, ladder)
         self._refresh_drafts(group, outputs, ctx["max_new"])
         elapsed = time.monotonic() - ctx["t_start"]
         if self._metrics is not None:
@@ -1037,6 +1270,83 @@ class WhisperEngine:
         for out in outputs:
             out.inference_sec = elapsed
         return outputs
+
+    def _fallback(self, ctx: Dict[str, Any], outputs: List[DecodeOutput], langs: List[str],
+                  lang_ps: List[float], ladder: List[float]) -> None:
+        """The temperature-fallback ladder (``stt_tpu/engine/engine.py:
+        2419-2530``), in place on ``outputs``: the rows that fail the quality
+        gate (every row when the first rung is above 0) are re-decoded by
+        sampling at each next rung from the group's rows, encoded anew, with
+        the resolved language in the prompt's slot and, above
+        ``prompt_reset_on_temperature``, the bare sot sequence; ``best_of``
+        samples a rung (one at temperature 0), seeded ``rung * 131 + sample
+        + 1``, the best average logprob kept per row, until no row fails.
+        Each decode holds the device lock, as a group's device phase does."""
+        group = ctx["group"]
+        if ladder[0] > 0:
+            failing, rungs = list(range(len(group))), ladder
+        else:
+            failing = [i for i, out in enumerate(outputs) if _needs_fallback(
+                " ".join(s.text for s in out.segments), out.avg_logprob,
+                group[i].request.options)]
+            rungs = ladder[1:]
+        if not failing:
+            return
+        dev, batch_n, p_len = self.device, ctx["batch_n"], ctx["p_len"]
+        bucket_sec, max_new = ctx["bucket_sec"], ctx["max_new"]
+        prompt_arr = ctx["prompt_arr"].copy()
+        for i, lang in enumerate(langs):
+            prompt_arr[i, ctx["lang_pos"]] = (self.layout.lang_begin
+                                              + W.WHISPER_LANG_CODES.index(lang))
+        bare = None
+        bare_prompts = [
+            W.build_prompt(self.config, langs[i], task=t.request.task,
+                           without_timestamps=bool(
+                               t.request.options.get("without_timestamps", True)))
+            for i, t in enumerate(group)
+        ]
+        if len(bare_prompts[0]) < p_len:
+            bare = np.full((batch_n, len(bare_prompts[0])), self.layout.eot, np.int64)
+            for i, bp in enumerate(bare_prompts):
+                bare[i] = bp
+        rep_arr = np.ones((batch_n,), np.float32)
+        for i, t in enumerate(group):
+            rep_arr[i] = _rep_penalty_of(t.request)
+        ngram = max(_ngram_of(t.request) for t in group)
+        reset_t, best_of = _reset_temp_of(group[0].request), _best_of_of(group[0].request)
+        with self._device_lock, torch.inference_mode():
+            enc = _mel_encode(self.model, ctx["rows_dev"], self._dtype)
+        for rung_idx, temp in enumerate(rungs):
+            use_bare = bare is not None and reset_t is not None and temp > reset_t
+            prompt = bare if use_bare else prompt_arr
+            pl = prompt.shape[1]
+            candidates = []
+            for sample_idx in range(best_of if temp > 0 else 1):
+                with self._device_lock, torch.inference_mode():
+                    packed = _sample_serve(
+                        self.model, self.graphs, bucket_sec, enc,
+                        torch.from_numpy(prompt).to(dev),
+                        torch.full((batch_n,), pl, dtype=torch.long, device=dev), max_new,
+                        temperature=temp, seed=rung_idx * 131 + sample_idx + 1,
+                        suppress_blank=_suppress_blank_of(group[0].request),
+                        rep_penalty=(None if (rep_arr == 1.0).all()
+                                     else torch.from_numpy(rep_arr).to(dev)),
+                        ngram_n=ngram, sot_pos=0 if use_bare else ctx["lang_pos"] - 1,
+                    )
+                arr = packed.cpu().numpy()
+                candidates.append([self._row_output(ctx, arr, i, langs[i], lang_ps[i], pl)
+                                   for i in failing])
+            still = []
+            for slot, i in enumerate(failing):
+                best = max((cand[slot] for cand in candidates), key=lambda o: o.avg_logprob)
+                best.temperature_used = float(temp)
+                outputs[i] = best
+                if _needs_fallback(" ".join(s.text for s in best.segments), best.avg_logprob,
+                                   group[i].request.options):
+                    still.append(i)
+            failing = still
+            if not failing:
+                break
 
     def _count_draft_verify(self, group: List[_Task], accepted: np.ndarray,
                             max_new: int) -> None:

@@ -5,7 +5,7 @@ is a jitted ``lax.while_loop`` that decides on the device when to stop, its
 programs sit in an exec cache (``stt_tpu/engine/engine.py:794``,
 ``:1390-1530``) and ``prewarm`` builds them before serving. The port keeps
 one :class:`DecodeEntry` per (audio bucket, rows, prompt length, max_new,
-compute type, attention policy, beam width, candidates, drafted):
+compute type, attention policy, beam width, candidates, drafted, route):
 
 - the decode state, allocated once: at beam 1
   (:class:`~stt_tpu_torch.models.whisper.DecodeState`: self-KV cache,
@@ -23,7 +23,14 @@ compute type, attention policy, beam width, candidates, drafted):
   shape, which is built first: every group rewrites both before it reads
   them, and the groups of one engine enqueue their device work one after
   another on one stream, so two entries never hold live data in them at
-  once;
+  once; an entry of another route
+  (:class:`~stt_tpu_torch.models.whisper.Route`: timestamps, sampled,
+  penalised with its n-gram size) holds the route's
+  :class:`~stt_tpu_torch.models.whisper.Rules` in its state and shares
+  the self cache and the cross K/V of the plain entry of its shape and
+  beam width in the same way; a sampled entry owns its generator, which
+  its graph registers, so every replay draws anew and a reseed reaches
+  the graph;
 - on the card, one ``torch.cuda.CUDAGraph`` of one chunk of
   ``FINISH_CHECK_EVERY`` steps (:func:`~stt_tpu_torch.models.whisper._decode_chunk`,
   :func:`~stt_tpu_torch.models.whisper._beam_chunk` or the drafted resume
@@ -55,7 +62,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, NamedTuple, Optional, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Union
 
 import torch
 
@@ -79,6 +86,7 @@ class GraphKey(NamedTuple):
     beam: int = 1        # beams per row; 1 is the greedy decode
     candidates: int = 1  # finished hypotheses kept per row (beam_candidates)
     drafted: bool = False  # the drafted greedy decode (beam 1)
+    route: W.Route = W.GREEDY  # the logit rules beyond the greedy argmax
 
 
 @dataclass
@@ -127,34 +135,38 @@ class DecodeGraphs:
 
     def key(self, bucket_sec: float, rows: int, p_len: int, max_new: int,
             beam: int = 1, candidates: Optional[int] = None,
-            drafted: bool = False) -> GraphKey:
+            drafted: bool = False, route: W.Route = W.GREEDY) -> GraphKey:
         """The entry key; ``max_new`` must be a positive multiple of
         ``FINISH_CHECK_EVERY`` (the engine's ``max_new_for`` always is), so
         the chunks cover it exactly. ``candidates`` defaults to the beam
         (the frozen-slot search) and is at least the beam; ``drafted``
-        needs beam 1."""
+        needs beam 1 and the greedy route, a sampled route beam 1."""
         if max_new <= 0 or max_new % W.FINISH_CHECK_EVERY:
             raise ValueError(f"max_new={max_new} is not a positive multiple of "
                              f"{W.FINISH_CHECK_EVERY}, the steps of one captured chunk")
         if not 1 <= int(beam) <= W.MAX_BEAM:
             raise ValueError(f"beam={beam} is not within 1..{W.MAX_BEAM}")
         beam = int(beam)
-        if drafted and beam != 1:
-            raise ValueError(f"a drafted entry decodes at beam 1, not {beam}")
+        if drafted and (beam != 1 or route != W.GREEDY):
+            raise ValueError(f"a drafted entry decodes greedy at beam 1, not {beam}, {route}")
+        if route.sampled and beam != 1:
+            raise ValueError(f"a sampled entry decodes at beam 1, not {beam}")
         candidates = beam if candidates is None or beam == 1 else max(beam, int(candidates))
         return GraphKey(float(bucket_sec), int(rows), int(p_len), int(max_new), self.dtype,
-                        self.model.decoder.policy, beam, candidates, bool(drafted))
+                        self.model.decoder.policy, beam, candidates, bool(drafted),
+                        W.Route(*route))
 
     def entry(self, bucket_sec: float, rows: int, p_len: int, max_new: int,
               n_audio: int, beam: int = 1, candidates: Optional[int] = None,
-              drafted: bool = False) -> DecodeEntry:
+              drafted: bool = False, route: W.Route = W.GREEDY) -> DecodeEntry:
         """The entry of this shape (``n_audio`` encoder positions at
         ``bucket_sec``), built and on the card captured on first use; a
-        drafted entry builds the greedy entry of its shape first, whose
-        self cache and cross K/V it shares."""
-        key = self.key(bucket_sec, rows, p_len, max_new, beam, candidates, drafted)
-        plain = (self.entry(bucket_sec, rows, p_len, max_new, n_audio) if drafted
-                 else None)
+        drafted entry, or one of another route, builds the plain entry of
+        its shape and beam width first, whose self cache and cross K/V it
+        shares."""
+        key = self.key(bucket_sec, rows, p_len, max_new, beam, candidates, drafted, route)
+        plain = (self.entry(bucket_sec, rows, p_len, max_new, n_audio, key.beam, key.candidates)
+                 if drafted or key.route != W.GREEDY else None)
         with self._lock:
             found = self._entries.get(key)
             if found is None:
@@ -167,9 +179,9 @@ class DecodeGraphs:
 
     def lookup(self, bucket_sec: float, rows: int, p_len: int, max_new: int,
                beam: int = 1, candidates: Optional[int] = None,
-               drafted: bool = False) -> DecodeEntry:
+               drafted: bool = False, route: W.Route = W.GREEDY) -> DecodeEntry:
         """The entry of this shape if it was built; KeyError otherwise."""
-        key = self.key(bucket_sec, rows, p_len, max_new, beam, candidates, drafted)
+        key = self.key(bucket_sec, rows, p_len, max_new, beam, candidates, drafted, route)
         with self._lock:
             return self._entries[key]
 
@@ -179,23 +191,25 @@ class DecodeGraphs:
                plain: Optional[DecodeEntry] = None) -> DecodeEntry:
         """Allocates the entry's buffers as normal tensors (also when the
         caller is in inference mode), so they can be updated in place
-        anywhere (a drafted entry takes the self cache and the cross K/V of
-        ``plain``, the greedy entry of its shape); on the card warms up and
-        captures the chunk."""
+        anywhere (a drafted entry, or one of another route, takes the self
+        cache and the cross K/V of ``plain``, the plain entry of its shape);
+        on the card warms up and captures the chunk."""
         dec = self.model.decoder
         config = self.model.config
+        cache = None if plain is None else plain.state.cache
         if key.drafted:
             state = W.init_draft_state(config, key.rows, key.p_len, key.max_new, key.max_new,
-                                       self.dtype, self.device, cache=plain.state.cache)
+                                       self.dtype, self.device, cache=cache)
         elif key.beam == 1:
             state = W.init_decode_state(config, key.rows, key.p_len, key.max_new,
-                                        self.dtype, self.device)
+                                        self.dtype, self.device, route=key.route, cache=cache)
         else:
             state = W.init_beam_state(config, key.rows, key.beam, key.candidates, key.p_len,
-                                      key.max_new, self.dtype, self.device)
+                                      key.max_new, self.dtype, self.device, route=key.route,
+                                      cache=cache)
         entry = DecodeEntry(
             key=key, state=state,
-            cross_kv=plain.cross_kv if key.drafted else W.empty_cross_kv(
+            cross_kv=plain.cross_kv if plain is not None else W.empty_cross_kv(
                 dec, key.rows * key.beam, n_audio, self.dtype, self.device),
         )
         if self.device.type != "cuda":
@@ -217,6 +231,8 @@ class DecodeGraphs:
         st.pos.fill_(key.p_len)
         before = {name: fn.launches for name, fn in KERNELS.items()}
         graph = torch.cuda.CUDAGraph()
+        if key.route.sampled:
+            graph.register_generator_state(st.rules.generator)
         with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
             entry.chunk_fn(dec, st, entry.cross_kv)
         entry.launches = {name: fn.launches - before[name] for name, fn in KERNELS.items()}
@@ -231,7 +247,8 @@ class DecodeGraphs:
                suppress_blank: bool = True, sot_pos: int = 0, length_penalty: float = 1.0,
                captured: Optional[bool] = None, draft: Optional[torch.Tensor] = None,
                draft_len: Optional[torch.Tensor] = None,
-               ) -> Union[W.DecodeResult, W.DraftedResult]:
+               rep_penalty: Optional[torch.Tensor] = None, temperature: float = 1.0,
+               seed: int = 0) -> Union[W.DecodeResult, W.DraftedResult]:
         """Decode of one group on ``entry``, whose cross K/V already holds
         the group's (``precompute_cross_kv(..., out=entry.cross_kv)``, over
         the beams for a beam entry: ``repeat_cross_kv``): the prefill, then
@@ -239,7 +256,9 @@ class DecodeGraphs:
         returns each row's best beam under ``length_penalty``; a drafted
         entry verifies ``draft`` (rows, max_new), eot-padded past
         ``draft_len``, first and returns a
-        :class:`~stt_tpu_torch.models.whisper.DraftedResult`. On the card
+        :class:`~stt_tpu_torch.models.whisper.DraftedResult`. A penalised
+        route takes each row's ``rep_penalty`` (rows,), a sampled one draws
+        at ``temperature`` from its generator reseeded with ``seed``. On the card
         the chunks replay the graph; ``captured=False`` runs the same chunks
         uncaptured instead (to hold the two against each other). The result
         is copied out of the entry's buffers, so the next group may reuse
@@ -260,10 +279,15 @@ class DecodeGraphs:
             no_speech = W.start_drafted(dec, st, prompt, prompt_len, draft, draft_len,
                                         entry.cross_kv, suppress_blank=suppress_blank,
                                         sot_pos=sot_pos)
+        elif beam:
+            no_speech = W.start_beam(dec, st, prompt, prompt_len, entry.cross_kv,
+                                     suppress_blank=suppress_blank, sot_pos=sot_pos,
+                                     rep_penalty=rep_penalty)
         else:
-            start = W.start_beam if beam else W.start_decode
-            no_speech = start(dec, st, prompt, prompt_len, entry.cross_kv,
-                              suppress_blank=suppress_blank, sot_pos=sot_pos)
+            no_speech = W.start_decode(dec, st, prompt, prompt_len, entry.cross_kv,
+                                       suppress_blank=suppress_blank, sot_pos=sot_pos,
+                                       rep_penalty=rep_penalty, temperature=temperature,
+                                       seed=seed)
         for _ in range(entry.chunks):
             if key.drafted and bool(st.finished.all()):
                 break
@@ -283,12 +307,15 @@ class DecodeGraphs:
             return W.finish_beam(st, key.p_len, no_speech, length_penalty)
         return W.finish_decode(st, key.p_len, no_speech)
 
+    def entries(self) -> List[DecodeEntry]:
+        """Every entry built so far."""
+        with self._lock:
+            return list(self._entries.values())
+
     def replayed_launches(self) -> Dict[str, int]:
         """Kernel launches made by graph replays so far: each entry's
         captured launches per chunk times its replays."""
-        with self._lock:
-            entries = list(self._entries.values())
-        return {name: sum(e.launches.get(name, 0) * e.replays for e in entries)
+        return {name: sum(e.launches.get(name, 0) * e.replays for e in self.entries())
                 for name in KERNELS}
 
 

@@ -669,11 +669,15 @@ def _decoder_step(dec: TextDecoder, tokens: torch.Tensor, pos: Union[int, torch.
     if not torch.is_tensor(pos):
         pos = torch.full((), pos, dtype=torch.long, device=tokens.device)
     slots = torch.arange(cache.k.shape[3], device=tokens.device)
+    # a position past the text context (a long prompt with a long decode)
+    # reads the table's last row, as the JAX package's dynamic_slice and
+    # gather clamp their index; the cache itself has a slot for every position
+    emb_pos = pos.clamp(max=dec.pos.shape[0] - 1) if len(slots) > dec.pos.shape[0] else pos
     if pos.dim() == 0:
-        emb = dec.pos.index_select(0, pos.reshape(1))
+        emb = dec.pos.index_select(0, emb_pos.reshape(1))
         mask = torch.where(slots <= pos, 0.0, -torch.inf)
     else:
-        emb = dec.pos.index_select(0, pos)
+        emb = dec.pos.index_select(0, emb_pos)
         mask = torch.where(slots[None, :] <= pos[:, None], 0.0, -torch.inf)[:, None, None, :]
     h = (dec.tok[tokens] + emb.to(dec.tok.dtype))[:, None, :]
     scale = (h.shape[-1] // n_head) ** -0.25
@@ -793,11 +797,264 @@ def _sample_begin_mask(config: WhisperConfig) -> np.ndarray:
     return mask
 
 
+def _ts_base_mask(config: WhisperConfig) -> np.ndarray:
+    """Additive suppression in timestamp mode: the specials in [sot,
+    ts_begin) stay banned, eot and the timestamp tokens are allowed."""
+    layout = token_layout(config.n_vocab)
+    mask = np.zeros(config.n_vocab, np.float32)
+    mask[layout.sot:layout.timestamp_begin] = -np.inf
+    mask[layout.eot] = 0.0
+    return mask
+
+
+def _ts_begin_mask(config: WhisperConfig) -> np.ndarray:
+    """The begin mask in timestamp mode: a lone space only (the first token
+    is a timestamp anyway)."""
+    mask = np.zeros(config.n_vocab, np.float32)
+    mask[BLANK_TOKEN] = -np.inf
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# Decode routes: repetition penalty, n-gram bans, sampling, timestamps
+# ---------------------------------------------------------------------------
+
+MAX_INITIAL_TIMESTAMP = 50  # 1.0 s at 0.02 s a token; the JAX engine passes no other
+
+
+class Route(NamedTuple):
+    """The logit rules a decode applies besides the suppress and begin
+    masks, fixed for a graph entry as the JAX package traces a program for
+    each: the repetition penalty and the n-gram bans of ``greedy_decode``
+    and ``beam_decode``, the categorical draw of ``sample_decode``, the
+    timestamp grammar of ``greedy_decode_timestamps`` and ``beam_decode``'s
+    ``with_timestamps``. The penalty's value is a per-row tensor of the
+    state, so one entry serves every value; ``ngram_n`` is the banned
+    n-gram's size (0: none)."""
+
+    timestamps: bool = False
+    sampled: bool = False
+    penalised: bool = False
+    ngram_n: int = 0
+
+
+GREEDY = Route()
+
+
+class Rules(NamedTuple):
+    """A route's state, allocated once beside the decode state and reset in
+    place for each group; ``rows`` is (B,) at beam 1 and (B, K) for beams.
+    A field the route does not use is None."""
+
+    p_len: torch.Tensor                    # () int64: the prompt's width
+    ngram: Optional[torch.Tensor]          # (n - 1,) int64: 0..n-2, the banned n-gram's tail
+    rep_penalty: Optional[torch.Tensor]    # (B,) float32
+    seen: Optional[torch.Tensor]           # (*rows, V) bool: text tokens prompted or emitted
+    temperature: Optional[torch.Tensor]    # () float32, at least 1e-3
+    generator: Optional[torch.Generator]   # the draws of the sampled route
+    last_ts: Optional[torch.Tensor]        # (*rows,) int64: ts_begin - 1 before the first
+    last_was_ts: Optional[torch.Tensor]    # (*rows,) bool
+    penult_was_ts: Optional[torch.Tensor]  # (*rows,) bool
+    vocab: Optional[torch.Tensor]          # (V,) int64: the token ids
+
+
+def init_rules(config: WhisperConfig, rows: tuple, route: Route,
+               device: torch.device) -> Rules:
+    """Zeroed rules of ``route`` for ``rows`` decode rows."""
+    v = config.n_vocab
+    ts_begin = token_layout(v).timestamp_begin
+
+    def opt(on, make):
+        return make() if on else None
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    pen, ts = route.penalised, route.timestamps
+    return Rules(
+        p_len=zeros((), torch.long),
+        ngram=opt(route.ngram_n > 0, lambda: torch.arange(route.ngram_n - 1, device=device)),
+        rep_penalty=opt(pen, lambda: torch.ones(rows[0], device=device)),
+        seen=opt(pen, lambda: zeros((*rows, v), torch.bool)),
+        temperature=opt(route.sampled, lambda: torch.ones((), device=device)),
+        generator=opt(route.sampled, lambda: torch.Generator(device=device)),
+        last_ts=opt(ts, lambda: torch.full(rows, ts_begin - 1, device=device)),
+        last_was_ts=opt(ts, lambda: zeros(rows, torch.bool)),
+        penult_was_ts=opt(ts, lambda: zeros(rows, torch.bool)),
+        vocab=opt(ts, lambda: torch.arange(v, device=device)),
+    )
+
+
+def _seen_text_mask(tokens: torch.Tensor, prompt_len: torch.Tensor, eot: int,
+                    v: int) -> torch.Tensor:
+    """(B, V) bool: the text tokens at each row's logical prompt positions
+    (specials excluded), the seen-set's seed
+    (``stt_tpu/models/whisper.py:1101``)."""
+    b, t = tokens.shape
+    in_prompt = torch.arange(t, device=tokens.device)[None, :] < prompt_len[:, None]
+    ids = torch.where(in_prompt, tokens, v)
+    seen = torch.zeros(b, v + 1, dtype=torch.bool, device=tokens.device).scatter_(1, ids, True)
+    seen = seen[:, :v].clone()
+    seen[:, eot:] = False
+    return seen
+
+
+def reset_rules(rules: Rules, prompt_rows: torch.Tensor, prompt_len: torch.Tensor,
+                p_len: int, *, rep_penalty: Optional[torch.Tensor] = None,
+                temperature: float = 1.0, seed: int = 0) -> None:
+    """Reset ``rules`` for a group: ``prompt_rows`` (B, T) are the rows'
+    tokens (beam 0's for beams, whose beams share the seed seen-set),
+    ``rep_penalty`` (B,) each row's penalty, ``temperature`` the draw's
+    (at least 1e-3, ``:1509``) and ``seed`` the generator's."""
+    rules.p_len.fill_(p_len)
+    if rules.seen is not None:
+        if rep_penalty is None:
+            raise ValueError("a penalised route needs rep_penalty")
+        rules.rep_penalty.copy_(rep_penalty)
+        seen = _seen_text_mask(prompt_rows, prompt_len, token_layout(rules.seen.shape[-1]).eot,
+                               rules.seen.shape[-1])
+        rules.seen.copy_(seen.view(seen.shape[0], *[1] * (rules.seen.dim() - 2), -1)
+                         .expand_as(rules.seen))
+    if rules.temperature is not None:
+        rules.temperature.fill_(max(float(np.float32(temperature)), float(np.float32(1e-3))))
+        rules.generator.manual_seed(int(seed))
+    if rules.last_ts is not None:
+        rules.last_ts.fill_(token_layout(rules.vocab.shape[0]).timestamp_begin - 1)
+        rules.last_was_ts.zero_()
+        rules.penult_was_ts.zero_()
+
+
+def _ngram_banned_tokens(tokens: torch.Tensor, pos: torch.Tensor, tail_at: torch.Tensor,
+                         v: int) -> torch.Tensor:
+    """(R, V) bool: the tokens that would complete an n-gram already in each
+    row of ``tokens`` (R, T), whose sequence fills [0, ``pos``)
+    (``stt_tpu/models/whisper.py:1081``), ``tail_at`` = 0..n-2: the
+    (n-1)-token tail ending at ``pos - 1`` is matched at every window
+    start, and a window whose next token lies before ``pos`` bans that
+    token."""
+    r, t = tokens.shape
+    n = len(tail_at) + 1
+    start = (pos - (n - 1)).clamp(0, t - (n - 1))  # lax.dynamic_slice's clamp
+    tail = tokens.index_select(1, start + tail_at)
+    match = torch.ones(r, t, dtype=torch.bool, device=tokens.device)
+    for j in range(n - 1):
+        match = match & torch.roll(tokens == tail[:, j:j + 1], -j, dims=1)
+    valid = match & (torch.arange(t, device=tokens.device) + n - 1 < pos)
+    nxt = torch.roll(tokens, -(n - 1), dims=1)
+    hits = torch.zeros(r, v, dtype=torch.int32, device=tokens.device)
+    return hits.scatter_add_(1, nxt, valid.to(torch.int32)) > 0
+
+
+def _penalise(rules: Rules, logits: torch.Tensor, tokens: torch.Tensor,
+              pos: torch.Tensor) -> torch.Tensor:
+    """The repetition penalty (a seen token's logit divided by the row's
+    penalty when positive, multiplied when negative, CTranslate2's rule),
+    then the n-gram bans, on logits (*rows, V), before the suppress and
+    begin masks (``stt_tpu/models/whisper.py:1216-1223``); ``tokens``
+    (R, T) holds every decode row's sequence."""
+    if rules.seen is not None:
+        rp = rules.rep_penalty.view(-1, *[1] * (logits.dim() - 1))
+        logits = torch.where(rules.seen, torch.where(logits > 0, logits / rp, logits * rp),
+                             logits)
+    if rules.ngram is not None:
+        banned = _ngram_banned_tokens(tokens, pos, rules.ngram, logits.shape[-1])
+        logits = torch.where(banned.view(logits.shape), -torch.inf, logits)
+    return logits
+
+
+def _ts_apply(rules: Rules, logits: torch.Tensor, gen_count: torch.Tensor) -> torch.Tensor:
+    """openai-whisper's timestamp rules on logits (*rows, V)
+    (``stt_tpu/models/whisper.py:_ts_apply``), ``gen_count`` the tokens
+    generated so far: after a lone timestamp only its pair or eot, after a
+    pair text only; timestamps never decrease and after a closed pair the
+    next opens strictly later; the first token is a timestamp within
+    ``MAX_INITIAL_TIMESTAMP``; and a timestamp is forced when their summed
+    probability beats the best text token's. With fewer than two generated
+    tokens the penultimate counts as a timestamp, so a lone initial one is
+    followed by text."""
+    layout = token_layout(logits.shape[-1])
+    ts_begin, vocab = layout.timestamp_begin, rules.vocab
+    is_ts, is_text = vocab >= ts_begin, vocab < layout.eot
+    penult = rules.penult_was_ts | (gen_count < 2)
+    ban_ts = rules.last_was_ts & penult
+    force_ts = rules.last_was_ts & ~penult
+    mask = torch.zeros_like(logits)
+    mask = torch.where(ban_ts[..., None] & is_ts, -torch.inf, mask)
+    mask = torch.where(force_ts[..., None] & is_text, -torch.inf, mask)
+    floor = rules.last_ts + torch.where(force_ts, 0, 1)
+    mask = torch.where(is_ts & (vocab < floor[..., None]), -torch.inf, mask)
+    init_allowed = is_ts & (vocab <= ts_begin + MAX_INITIAL_TIMESTAMP)
+    mask = torch.where((gen_count == 0) & ~init_allowed, -torch.inf, mask)
+    logits = logits + mask
+    logprobs = torch.log_softmax(logits, dim=-1)
+    ts_logprob = torch.logsumexp(torch.where(is_ts, logprobs, -torch.inf), dim=-1)
+    max_text = torch.amax(torch.where(is_ts, -torch.inf, logprobs), dim=-1)
+    force_sum = ts_logprob > max_text
+    return torch.where(force_sum[..., None] & ~is_ts, -torch.inf, logits)
+
+
+def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel draws in float32 on the generator's device,
+    ``-log(-log(u))`` for u uniform in [tiny, 1), the transform
+    ``jax.random.gumbel`` applies to its own bits (the bit streams differ:
+    threefry there, Philox here). The sampled route draws through this
+    function alone, so a test can feed in the JAX package's draws."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def _choose(rules: Rules, logits: torch.Tensor) -> torch.Tensor:
+    """The next token: the argmax, or on the sampled route the categorical
+    draw at the route's temperature, ``argmax(gumbel + logits / T)`` as
+    ``jax.random.categorical`` computes it."""
+    if rules.temperature is None:
+        return torch.argmax(logits, dim=-1)
+    noise = gumbel_noise(logits.shape, rules.generator)
+    return torch.argmax(noise + logits / rules.temperature, dim=-1)
+
+
+def _advance_rules(rules: Rules, next_tok: torch.Tensor, active: torch.Tensor, eot: int,
+                   parent: Optional[torch.Tensor] = None,
+                   run: Optional[torch.Tensor] = None) -> None:
+    """After ``next_tok`` (*rows) is appended: a text token joins its row's
+    seen-set, and the timestamp state advances where ``active``
+    (``stt_tpu/models/whisper.py:_ts_state_update``). For beams the state
+    first follows ``parent`` (B, K), and where ``run`` (0-d) is false all
+    of it keeps what it held."""
+    def take(x):
+        return x if parent is None else _gather_beams(x, parent)
+
+    def commit(buf, new):
+        buf.copy_(new if run is None else torch.where(run, new, buf))
+
+    if rules.seen is not None:
+        seen, idx = take(rules.seen), next_tok[..., None]
+        commit(rules.seen, seen.scatter(-1, idx, seen.gather(-1, idx)
+                                        | (next_tok < eot)[..., None]))
+    if rules.last_ts is not None:
+        ts_begin = token_layout(rules.vocab.shape[0]).timestamp_begin
+        last_ts, last_was, penult = (take(rules.last_ts), take(rules.last_was_ts),
+                                     take(rules.penult_was_ts))
+        is_ts = active & (next_tok >= ts_begin)
+        commit(rules.last_ts, torch.where(is_ts, next_tok, last_ts))
+        commit(rules.penult_was_ts, torch.where(active, last_was & is_ts, penult))
+        commit(rules.last_was_ts, torch.where(active, is_ts, last_was))
+
+
+def _route_masks(config: WhisperConfig, route: Route) -> tuple:
+    """(suppress, begin-if-suppress-blank) masks of ``route``: the
+    timestamp grammar's base mask and a blank-only begin mask, else
+    :func:`_suppress_mask` and :func:`_sample_begin_mask`."""
+    if route.timestamps:
+        return _ts_base_mask(config), _ts_begin_mask(config)
+    return _suppress_mask(config), _sample_begin_mask(config)
+
+
 class DecodeState(NamedTuple):
     """Everything the greedy loop reads and writes, allocated once for a
-    (rows, prompt length, max_new) shape and updated in place, so a CUDA
-    graph of :func:`_decode_chunk` can be replayed against it. The masks
-    are built once from numpy."""
+    (rows, prompt length, max_new, route) shape and updated in place, so a
+    CUDA graph of :func:`_decode_chunk` can be replayed against it. The
+    masks are built once from numpy."""
 
     tokens: torch.Tensor       # (B, T_max) int64: prompt + generated, eot-padded
     cache: KVCache             # self-attention K/V, (L, B, H, T_max, Dh)
@@ -805,39 +1062,43 @@ class DecodeState(NamedTuple):
     finished: torch.Tensor     # (B,) bool
     sum_lp: torch.Tensor       # (B,) float32: generated-token logprob sums
     prompt_len: torch.Tensor   # (B,) int64: each row's logical prompt length
-    suppress: torch.Tensor     # (V,) float32: :func:`_suppress_mask`
-    begin_blank: torch.Tensor  # (V,) float32: :func:`_sample_begin_mask`
+    suppress: torch.Tensor     # (V,) float32: the route's suppress mask
+    begin_blank: torch.Tensor  # (V,) float32: the route's begin mask
     begin: torch.Tensor        # (V,) float32: ``begin_blank`` or zeros, per call
+    rules: Rules               # the route's state
 
 
 def init_decode_state(config: WhisperConfig, batch: int, p_len: int, max_new: int,
-                      dtype: torch.dtype, device: torch.device) -> DecodeState:
+                      dtype: torch.dtype, device: torch.device, *, route: Route = GREEDY,
+                      cache: Optional[KVCache] = None) -> DecodeState:
     """Zeroed decode state for ``batch`` rows of a ``p_len``-token prompt
-    and up to ``max_new`` generated tokens; the self cache is in ``dtype``."""
+    and up to ``max_new`` generated tokens on ``route``; the self cache in
+    ``dtype``, or ``cache`` (of that shape) when given."""
     t_max = p_len + max_new
-
-    def const(mask: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(mask).to(device)
-
+    suppress, begin_blank = _route_masks(config, route)
     return DecodeState(
         tokens=torch.zeros((batch, t_max), dtype=torch.long, device=device),
-        cache=init_kv_cache(config, batch, t_max, dtype, device),
+        cache=init_kv_cache(config, batch, t_max, dtype, device) if cache is None else cache,
         pos=torch.zeros((), dtype=torch.long, device=device),
         finished=torch.zeros(batch, dtype=torch.bool, device=device),
         sum_lp=torch.zeros(batch, dtype=torch.float32, device=device),
         prompt_len=torch.zeros(batch, dtype=torch.long, device=device),
-        suppress=const(_suppress_mask(config)),
-        begin_blank=const(_sample_begin_mask(config)),
+        suppress=torch.from_numpy(suppress).to(device),
+        begin_blank=torch.from_numpy(begin_blank).to(device),
         begin=torch.zeros(config.n_vocab, dtype=torch.float32, device=device),
+        rules=init_rules(config, (batch,), route, device),
     )
 
 
 def start_decode(dec: TextDecoder, state: DecodeState, prompt: torch.Tensor,
                  prompt_len: torch.Tensor, cross_kv: CrossKV, *,
-                 suppress_blank: bool = True, sot_pos: int = 0) -> torch.Tensor:
+                 suppress_blank: bool = True, sot_pos: int = 0,
+                 rep_penalty: Optional[torch.Tensor] = None, temperature: float = 1.0,
+                 seed: int = 0) -> torch.Tensor:
     """Reset ``state`` for a new group: the prompt (B, P) right-padded with
-    eot, eot past it, position P, no row finished; then the prefill fills
-    cache positions [0, P - 1). Returns p(no_speech) at ``sot_pos``."""
+    eot, eot past it, position P, no row finished, the route's rules
+    (:func:`reset_rules`); then the prefill fills cache positions [0, P -
+    1). Returns p(no_speech) at ``sot_pos``."""
     layout = token_layout(dec.tok.shape[0])
     p_len = prompt.shape[1]
     state.tokens.fill_(layout.eot)
@@ -850,29 +1111,37 @@ def start_decode(dec: TextDecoder, state: DecodeState, prompt: torch.Tensor,
         state.begin.copy_(state.begin_blank)
     else:
         state.begin.zero_()
+    reset_rules(state.rules, state.tokens, prompt_len, p_len, rep_penalty=rep_penalty,
+                temperature=temperature, seed=seed)
     return _prefill(dec, state.tokens, p_len, state.cache, cross_kv, sot_pos, layout)
 
 
 def _decode_chunk(dec: TextDecoder, state: DecodeState, cross_kv: CrossKV,
                   n_steps: int = FINISH_CHECK_EVERY) -> None:
-    """``n_steps`` greedy steps on ``state`` in place, reading and writing
-    only its buffers and ``cross_kv`` (no host read, no allocation that
-    outlives the call): the body of the JAX package's ``greedy_decode``
-    while-loop, ``n_steps`` times. The caller keeps ``pos + n_steps`` within
-    the state's T_max."""
+    """``n_steps`` steps on ``state`` in place, reading and writing only its
+    buffers and ``cross_kv`` (no host read, no allocation that outlives the
+    call): the body of the JAX package's ``greedy_decode`` while-loop (its
+    penalty and bans on a penalised route), of ``sample_decode`` on a
+    sampled one and of ``greedy_decode_timestamps`` on a timestamp one,
+    ``n_steps`` times. The caller keeps ``pos + n_steps`` within the
+    state's T_max."""
     eot = token_layout(dec.tok.shape[0]).eot
-    pos = state.pos
+    pos, rules = state.pos, state.rules
     for _ in range(n_steps):
         last = state.tokens.index_select(1, pos.reshape(1) - 1)[:, 0]
         logits = _decoder_step(dec, last, pos - 1, state.cache, cross_kv)
+        logits = _penalise(rules, logits, state.tokens, pos)
         logits = logits + state.suppress + torch.where(
             (state.prompt_len == pos)[:, None], state.begin, 0.0
         )
+        if rules.last_ts is not None:
+            logits = _ts_apply(rules, logits, pos - rules.p_len)
         logprobs = torch.log_softmax(logits, dim=-1)
-        next_tok = torch.where(state.finished, eot, torch.argmax(logits, dim=-1))
+        next_tok = torch.where(state.finished, eot, _choose(rules, logits))
         tok_lp = torch.gather(logprobs, 1, next_tok[:, None])[:, 0]
         state.sum_lp.add_(torch.where(state.finished, 0.0, tok_lp))
         state.tokens.index_copy_(1, pos.reshape(1), next_tok[:, None])
+        _advance_rules(rules, next_tok, ~state.finished, eot)
         state.finished.logical_or_(next_tok == eot)
         pos.add_(1)
 
@@ -891,6 +1160,35 @@ def finish_decode(state: DecodeState, p_len: int,
     return DecodeResult(tokens.clone(), first_eot, state.sum_lp.clone(), no_speech_prob)
 
 
+def _route_decode(model: Whisper, enc_out: torch.Tensor, prompt: torch.Tensor,
+                  prompt_len: torch.Tensor, max_new_tokens: int, route: Route, *,
+                  suppress_blank: bool, sot_pos: int, cross_kv: Optional[CrossKV],
+                  rep_penalty: Optional[torch.Tensor] = None, temperature: float = 1.0,
+                  seed: int = 0) -> DecodeResult:
+    """The uncaptured decode at beam 1 on ``route``: chunks of
+    ``FINISH_CHECK_EVERY`` steps (the last one shorter when
+    ``max_new_tokens`` is not a multiple) until a chunk leaves every row
+    finished."""
+    dec = model.decoder
+    device = enc_out.device
+    b, p_len = prompt.shape
+    state = init_decode_state(model.config, b, p_len, max_new_tokens, enc_out.dtype, device,
+                              route=route)
+    if cross_kv is None:
+        cross_kv = precompute_cross_kv(dec, enc_out)
+    no_speech_prob = start_decode(
+        dec, state, prompt.to(device=device, dtype=torch.long), prompt_len.to(device),
+        cross_kv, suppress_blank=suppress_blank, sot_pos=sot_pos,
+        rep_penalty=None if rep_penalty is None else rep_penalty.to(device),
+        temperature=temperature, seed=seed,
+    )
+    for done in range(0, max_new_tokens, FINISH_CHECK_EVERY):
+        _decode_chunk(dec, state, cross_kv, min(FINISH_CHECK_EVERY, max_new_tokens - done))
+        if bool(state.finished.all()):
+            break
+    return finish_decode(state, p_len, no_speech_prob)
+
+
 def greedy_decode(
     model: Whisper,
     enc_out: torch.Tensor,
@@ -901,31 +1199,112 @@ def greedy_decode(
     suppress_blank: bool = True,
     sot_pos: int = 0,
     cross_kv: Optional[CrossKV] = None,
+    rep_penalty: Optional[torch.Tensor] = None,
+    ngram_n: int = 0,
 ) -> DecodeResult:
-    """Batched greedy decode with per-row early stop, uncaptured.
+    """Batched greedy decode with per-row early stop, uncaptured: the JAX
+    package's ``greedy_decode``. prompt: (B, P) integer, right-padded with
+    eot past ``prompt_len``; enc_out: (B, T_a, d). ``rep_penalty`` (B,),
+    when given, takes the penalised route (as an array there does);
+    ``ngram_n`` bans repeated n-grams of that size."""
+    route = Route(penalised=rep_penalty is not None, ngram_n=int(ngram_n))
+    return _route_decode(model, enc_out, prompt, prompt_len, max_new_tokens, route,
+                         suppress_blank=suppress_blank, sot_pos=sot_pos, cross_kv=cross_kv,
+                         rep_penalty=rep_penalty)
 
-    prompt: (B, P) integer, right-padded with eot past ``prompt_len``;
-    enc_out: (B, T_a, d). Same contract as the JAX package's
-    ``greedy_decode`` without repetition penalty or n-gram bans. Runs
-    chunks of ``FINISH_CHECK_EVERY`` steps (the last one shorter when
-    ``max_new_tokens`` is not a multiple) and stops after the first chunk
-    that leaves every row finished.
-    """
-    dec = model.decoder
-    device = enc_out.device
-    b, p_len = prompt.shape
-    state = init_decode_state(model.config, b, p_len, max_new_tokens, enc_out.dtype, device)
-    if cross_kv is None:
-        cross_kv = precompute_cross_kv(dec, enc_out)
-    no_speech_prob = start_decode(
-        dec, state, prompt.to(device=device, dtype=torch.long), prompt_len.to(device),
-        cross_kv, suppress_blank=suppress_blank, sot_pos=sot_pos,
-    )
-    for done in range(0, max_new_tokens, FINISH_CHECK_EVERY):
-        _decode_chunk(dec, state, cross_kv, min(FINISH_CHECK_EVERY, max_new_tokens - done))
-        if bool(state.finished.all()):
+
+def sample_decode(
+    model: Whisper,
+    enc_out: torch.Tensor,
+    prompt: torch.Tensor,
+    prompt_len: torch.Tensor,
+    max_new_tokens: int,
+    *,
+    temperature: float = 1.0,
+    seed: int = 0,
+    suppress_blank: bool = True,
+    sot_pos: int = 0,
+    cross_kv: Optional[CrossKV] = None,
+    rep_penalty: Optional[torch.Tensor] = None,
+    ngram_n: int = 0,
+) -> DecodeResult:
+    """Categorical sampling at ``temperature`` (the retry rungs of the
+    temperature-fallback ladder), uncaptured: the JAX package's
+    ``sample_decode``, each step's draw from :func:`gumbel_noise` on a
+    generator seeded with ``seed``."""
+    route = Route(sampled=True, penalised=rep_penalty is not None, ngram_n=int(ngram_n))
+    return _route_decode(model, enc_out, prompt, prompt_len, max_new_tokens, route,
+                         suppress_blank=suppress_blank, sot_pos=sot_pos, cross_kv=cross_kv,
+                         rep_penalty=rep_penalty, temperature=temperature, seed=seed)
+
+
+def greedy_decode_timestamps(
+    model: Whisper,
+    enc_out: torch.Tensor,
+    prompt: torch.Tensor,
+    prompt_len: torch.Tensor,
+    max_new_tokens: int,
+    *,
+    sot_pos: int = 0,
+    cross_kv: Optional[CrossKV] = None,
+) -> DecodeResult:
+    """Greedy decode with timestamp tokens under openai-whisper's grammar
+    (:func:`_ts_apply`), uncaptured: the JAX package's
+    ``greedy_decode_timestamps`` (its begin mask always on, no penalty or
+    bans). The prompt omits ``no_timestamps``; the segments come from
+    :func:`split_timestamp_segments`."""
+    return _route_decode(model, enc_out, prompt, prompt_len, max_new_tokens,
+                         Route(timestamps=True), suppress_blank=True, sot_pos=sot_pos,
+                         cross_kv=cross_kv)
+
+
+def split_timestamp_segments(token_ids, config: WhisperConfig, duration: float):
+    """Host-side: a timestamp-mode token sequence as ``[(start_sec, end_sec,
+    [text token ids]), ...]`` (``stt_tpu/models/whisper.py:1875``). Whisper
+    emits ``<|t0|> text <|t1|><|t1|> text <|t2|>``; a trailing open segment
+    ends at ``duration``."""
+    layout = token_layout(config.n_vocab)
+    ts_begin = layout.timestamp_begin
+    segments = []
+    seg_start: Optional[float] = None
+    seg_tokens: list = []
+    prev_was_ts = False
+    for tok in token_ids:
+        tok = int(tok)
+        if tok == layout.eot:
             break
-    return finish_decode(state, p_len, no_speech_prob)
+        if tok >= ts_begin:
+            t_sec = (tok - ts_begin) * 0.02
+            if seg_start is None:
+                seg_start = t_sec
+            elif not prev_was_ts:
+                # closing timestamp
+                if seg_tokens:
+                    segments.append((seg_start, t_sec, seg_tokens))
+                seg_start = None
+                seg_tokens = []
+            else:
+                # second of a pair: opens the next segment
+                seg_start = t_sec
+            prev_was_ts = True
+        else:
+            if seg_start is None:
+                seg_start = 0.0
+            seg_tokens.append(tok)
+            prev_was_ts = False
+    if seg_tokens:
+        segments.append((seg_start or 0.0, duration, seg_tokens))
+    return segments
+
+
+def compression_ratio(text: str) -> float:
+    """zlib compression ratio: whisper's repetition heuristic."""
+    import zlib
+
+    data = text.encode("utf-8")
+    if not data:
+        return 0.0
+    return len(data) / len(zlib.compress(data))
 
 
 # ---------------------------------------------------------------------------
@@ -1226,18 +1605,25 @@ class BeamState(NamedTuple):
     pool_tokens: Optional[torch.Tensor]  # (B, C, T_max) int64
     pool_lp: Optional[torch.Tensor]      # (B, C) float32, BEAM_NEG when empty
     pool_len: Optional[torch.Tensor]     # (B, C) int64: index of the eot
+    rules: Rules                         # the route's state, rows (B, K)
 
 
 def init_beam_state(config: WhisperConfig, batch: int, beam: int, candidates: int,
                     p_len: int, max_new: int, dtype: torch.dtype,
-                    device: torch.device) -> BeamState:
-    """Zeroed beam state for ``batch`` rows of ``beam`` beams, with a pool
-    of ``candidates`` entries when that exceeds the beam."""
+                    device: torch.device, *, route: Route = GREEDY,
+                    cache: Optional[KVCache] = None) -> BeamState:
+    """Zeroed beam state for ``batch`` rows of ``beam`` beams on ``route``
+    (never sampled), with a pool of ``candidates`` entries when that
+    exceeds the beam; the self cache of B*K rows in ``dtype``, or ``cache``
+    (of that shape) when given."""
+    if route.sampled:
+        raise ValueError("beam search does not sample")
     t_max = p_len + max_new
     layout = token_layout(config.n_vocab)
     eot_only = np.full(config.n_vocab, BEAM_NEG, np.float32)
     eot_only[layout.eot] = 0.0
     pooled = candidates > beam
+    suppress, begin_blank = _route_masks(config, route)
 
     def const(mask: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(mask).to(device)
@@ -1247,19 +1633,21 @@ def init_beam_state(config: WhisperConfig, batch: int, beam: int, candidates: in
 
     return BeamState(
         tokens=zeros(batch, beam, t_max),
-        cache=init_kv_cache(config, batch * beam, t_max, dtype, device),
+        cache=init_kv_cache(config, batch * beam, t_max, dtype, device) if cache is None
+        else cache,
         pos=zeros(),
         p_len=zeros(),
         finished=zeros(batch, beam, dtype=torch.bool),
         sum_lp=zeros(batch, beam, dtype=torch.float32),
         prompt_len=zeros(batch),
-        suppress=const(_suppress_mask(config)),
-        begin_blank=const(_sample_begin_mask(config)),
+        suppress=const(suppress),
+        begin_blank=const(begin_blank),
         begin=zeros(config.n_vocab, dtype=torch.float32),
         eot_only=const(eot_only),
         pool_tokens=zeros(batch, candidates, t_max) if pooled else None,
         pool_lp=zeros(batch, candidates, dtype=torch.float32) if pooled else None,
         pool_len=zeros(batch, candidates) if pooled else None,
+        rules=init_rules(config, (batch, beam), route, device),
     )
 
 
@@ -1280,13 +1668,14 @@ def repeat_cross_kv(ckv: CrossKV, beam: int, out: Optional[CrossKV] = None) -> C
 
 def start_beam(dec: TextDecoder, state: BeamState, prompt: torch.Tensor,
                prompt_len: torch.Tensor, cross_kv: CrossKV, *,
-               suppress_blank: bool = True, sot_pos: int = 0) -> torch.Tensor:
+               suppress_blank: bool = True, sot_pos: int = 0,
+               rep_penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Reset ``state`` for a new group (``stt_tpu/models/whisper.py:
     2157-2173``): every beam holds the prompt (B, P), eot past it; position
     P; beam 0 scores 0 and the others -1e9, so the first expansion
-    diversifies; the pool empty. The prefill runs on all B*K rows
-    (``cross_kv`` of B*K rows); returns p(no_speech) of beam 0 at
-    ``sot_pos``."""
+    diversifies; the pool empty; the route's rules reset, every beam with
+    its row's seen-set. The prefill runs on all B*K rows (``cross_kv`` of
+    B*K rows); returns p(no_speech) of beam 0 at ``sot_pos``."""
     layout = token_layout(dec.tok.shape[0])
     b, k, t_max = state.tokens.shape
     p_len = prompt.shape[1]
@@ -1306,6 +1695,7 @@ def start_beam(dec: TextDecoder, state: BeamState, prompt: torch.Tensor,
         state.pool_tokens.fill_(layout.eot)
         state.pool_lp.fill_(BEAM_NEG)
         state.pool_len.fill_(p_len)
+    reset_rules(state.rules, state.tokens[:, 0], prompt_len, p_len, rep_penalty=rep_penalty)
     nsp = _prefill(dec, state.tokens.view(b * k, t_max), p_len, state.cache, cross_kv,
                    sot_pos, layout)
     return nsp.view(b, k)[:, 0]
@@ -1326,12 +1716,17 @@ def beam_running(state: BeamState) -> torch.Tensor:
 def _beam_logprobs(dec: TextDecoder, st: BeamState, cross_kv: CrossKV,
                    run: torch.Tensor, begin_at: torch.Tensor) -> torch.Tensor:
     """One decoder step over every beam row at ``pos - 1`` (its cache write
-    gated by ``run``), the suppress mask and, where ``begin_at``, the begin
-    mask: log-probabilities (B, K, V)."""
+    gated by ``run``), the route's penalty and bans, the suppress mask and,
+    where ``begin_at``, the begin mask, then the timestamp rules on a
+    timestamp route: log-probabilities (B, K, V)."""
     b, k, t_max = st.tokens.shape
-    last = st.tokens.view(b * k, t_max).index_select(1, st.pos.reshape(1) - 1)[:, 0]
+    rows = st.tokens.view(b * k, t_max)
+    last = rows.index_select(1, st.pos.reshape(1) - 1)[:, 0]
     logits = _decoder_step(dec, last, st.pos - 1, st.cache, cross_kv, gate=run)
-    logits = logits.view(b, k, -1) + st.suppress + torch.where(begin_at, st.begin, 0.0)
+    logits = _penalise(st.rules, logits.view(b, k, -1), rows, st.pos)
+    logits = logits + st.suppress + torch.where(begin_at, st.begin, 0.0)
+    if st.rules.last_ts is not None:
+        logits = _ts_apply(st.rules, logits, st.pos - st.p_len)
     return torch.log_softmax(logits, dim=-1)
 
 
@@ -1373,7 +1768,9 @@ def _beam_step(dec: TextDecoder, st: BeamState, cross_kv: CrossKV) -> None:
     step_lp = torch.where(st.finished[:, :, None], st.eot_only, logprobs)
     top_vals, top_idx = _top_k((st.sum_lp[:, :, None] + step_lp).view(b, k * v), k)
     parent, new_tok = top_idx // v, top_idx % v
-    finished = torch.gather(st.finished, 1, parent) | (new_tok == eot)
+    was_finished = torch.gather(st.finished, 1, parent)
+    _advance_rules(st.rules, new_tok, ~was_finished, eot, parent, run)
+    finished = was_finished | (new_tok == eot)
     st.finished.copy_(torch.where(run, finished, st.finished))
     st.sum_lp.copy_(torch.where(run, top_vals, st.sum_lp))
     _commit_beams(st, run, parent, new_tok)
@@ -1406,7 +1803,10 @@ def _beam_pooled_step(dec: TextDecoder, st: BeamState, cross_kv: CrossKV) -> Non
 
     sum_lp, live = _top_k(torch.where(is_eot, BEAM_NEG, top_vals), k)
     st.sum_lp.copy_(torch.where(run, sum_lp, st.sum_lp))
-    _commit_beams(st, run, torch.gather(parent, 1, live), torch.gather(new_tok, 1, live))
+    live_parent, live_tok = torch.gather(parent, 1, live), torch.gather(new_tok, 1, live)
+    _advance_rules(st.rules, live_tok, torch.ones_like(live_tok, dtype=torch.bool), eot,
+                   live_parent, run)
+    _commit_beams(st, run, live_parent, live_tok)
 
 
 def _beam_chunk(dec: TextDecoder, state: BeamState, cross_kv: CrossKV,
@@ -1472,10 +1872,15 @@ def beam_decode(
     suppress_blank: bool = True,
     sot_pos: int = 0,
     cross_kv: Optional[CrossKV] = None,
+    rep_penalty: Optional[torch.Tensor] = None,
+    ngram_n: int = 0,
+    with_timestamps: bool = False,
 ) -> DecodeResult:
     """Batched beam search, uncaptured: the JAX package's ``beam_decode``
-    without repetition penalty, n-gram bans or timestamps. The frozen-slot
-    search when ``round(beam_size * patience) <= beam_size``, else the
+    (``rep_penalty`` (B,), when given, takes the penalised route; ``ngram_n``
+    bans repeated n-grams; ``with_timestamps`` applies the timestamp
+    grammar per beam, the prompt then without ``no_timestamps``). The
+    frozen-slot search when ``round(beam_size * patience) <= beam_size``, else the
     pooled one. enc_out (B, T_a, d); prompt (B, P) right-padded with eot
     past ``prompt_len``; ``cross_kv``, when given, holds B*K rows (else it
     is computed from ``enc_out`` and repeated over the beams). Runs chunks
@@ -1485,13 +1890,16 @@ def beam_decode(
     device = enc_out.device
     b, p_len = prompt.shape
     k = beam_size
+    route = Route(timestamps=with_timestamps, penalised=rep_penalty is not None,
+                  ngram_n=int(ngram_n))
     state = init_beam_state(model.config, b, k, beam_candidates(k, patience), p_len,
-                            max_new_tokens, enc_out.dtype, device)
+                            max_new_tokens, enc_out.dtype, device, route=route)
     if cross_kv is None:
         cross_kv = repeat_cross_kv(precompute_cross_kv(dec, enc_out), k)
     no_speech_prob = start_beam(
         dec, state, prompt.to(device=device, dtype=torch.long), prompt_len.to(device),
         cross_kv, suppress_blank=suppress_blank, sot_pos=sot_pos,
+        rep_penalty=None if rep_penalty is None else rep_penalty.to(device),
     )
     for done in range(0, max_new_tokens, FINISH_CHECK_EVERY):
         _beam_chunk(dec, state, cross_kv, min(FINISH_CHECK_EVERY, max_new_tokens - done))
@@ -1540,7 +1948,10 @@ __all__ = [
     "DecodeState",
     "DraftState",
     "DraftedResult",
+    "GREEDY",
     "KVCache",
+    "Route",
+    "Rules",
     "TokenLayout",
     "WHISPER_LANG_CODES",
     "Whisper",
@@ -1550,6 +1961,7 @@ __all__ = [
     "beam_running",
     "build_model",
     "build_prompt",
+    "compression_ratio",
     "decoder_forward",
     "detect_language",
     "empty_cross_kv",
@@ -1559,13 +1971,19 @@ __all__ = [
     "finish_beam",
     "greedy_decode",
     "greedy_decode_drafted",
+    "greedy_decode_timestamps",
+    "gumbel_noise",
     "init_beam_state",
     "init_decode_state",
     "init_draft_state",
     "init_kv_cache",
     "init_params",
+    "init_rules",
     "precompute_cross_kv",
     "repeat_cross_kv",
+    "reset_rules",
+    "sample_decode",
+    "split_timestamp_segments",
     "start_beam",
     "start_decode",
     "start_drafted",

@@ -123,7 +123,9 @@ def test_group_key_separates_beam_policies():
     assert key({}) == key({"beam_size": 1, "patience": 2.0, "length_penalty": 0.5})
     assert len({key({}), key({"beam_size": 5}), key({"beam_size": 5, "patience": 2.0}),
                 key({"beam_size": 5, "length_penalty": 0.5}), key({"beam_size": 3})}) == 5
-    assert key(ACCURATE) == key({"beam_size": 5})
+    # best_of joins the fallback policy in the key, as in the JAX engine's
+    # (stt_tpu/engine/engine.py:1633-1640): accurate groups with best_of 5 only
+    assert key(ACCURATE) == key({"beam_size": 5, "best_of": 5}) != key({"beam_size": 5})
 
 
 def test_graph_keys_and_entry_reuse_for_beams():

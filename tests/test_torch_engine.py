@@ -8,8 +8,9 @@ identical, and so must the text and language of every output; the float
 columns of the packed result (logprob sum, p(no_speech), language
 probability) come out of different softmax implementations and are held
 at rtol 1e-5. The rest checks the port's own contract: it imports no JAX,
-it never falls back to the CPU, it refuses what this slice does not
-serve, and its threads batch, resolve every future and stop.
+it never falls back to the CPU, it refuses what this slice does not serve
+(word timestamps) and serves every other option, and its threads batch,
+resolve every future and stop.
 """
 
 import subprocess
@@ -153,25 +154,42 @@ def test_unknown_device_name_raises():
 
 
 @pytest.mark.parametrize("options", [
+    {"word_timestamps": True},
+    {"beam_size": 5, "without_timestamps": False, "word_timestamps": True},
+])
+def test_unsupported_options_raise(served, options):
+    port, _ = served
+    req = TE.DecodeRequest(_audio(0.5, 9), language="en", options=options)
+    name = list(options)[-1]  # every other option is served; the last one is refused
+    with pytest.raises(NotImplementedError, match=name):
+        port.submit(req)
+    with pytest.raises(NotImplementedError, match=name):
+        port.transcribe_sync(req)
+
+
+@pytest.mark.parametrize("options", [
     {"beam_size": 5, "no_repeat_ngram_size": 3},
     {"without_timestamps": False},
     {"temperature": [0.0, 0.2, 0.4]},
     {"temperature": 0.7},
-    {"word_timestamps": True},
     {"prefix": "hello"},
     {"initial_prompt": "context"},
     {"repetition_penalty": 1.3},
     {"no_repeat_ngram_size": 3},
     {"clip_timestamps": "0,1"},
 ])
-def test_unsupported_options_raise(served, options):
+def test_lifted_options_are_served(served, options):
+    """The options earlier slices refused are served, through ``submit``
+    and ``transcribe_sync`` alike (the ladder's draws are seeded, so both
+    give one result); their outputs against the JAX engine's are in
+    ``tests/test_torch_{prompts,penalties,sampling,timestamps}.py``."""
     port, _ = served
     req = TE.DecodeRequest(_audio(0.5, 9), language="en", options=options)
-    name = list(options)[-1]  # beam options are served; the last one is refused
-    with pytest.raises(NotImplementedError, match=name):
-        port.submit(req)
-    with pytest.raises(NotImplementedError, match=name):
-        port.transcribe_sync(req)
+    queued = port.submit(req).result(timeout=120)
+    direct = port.transcribe_sync(req)
+    assert direct.info.language == queued.info.language == "en"
+    assert [s.text for s in direct.segments] == [s.text for s in queued.segments]
+    assert direct.temperature_used == queued.temperature_used
 
 
 def test_default_options_are_served(served):

@@ -208,8 +208,8 @@ def test_engine_refusal_fails_its_task_and_the_dispatcher_survives():
     try:
         pcm = float32_to_pcm16(np.zeros(8000, np.float32))
         refused = registry.submit_decode("default", "s1", pcm, 16000,
-                                         {"language": "en", "repetition_penalty": 1.2}, True)
-        with pytest.raises(NotImplementedError, match="repetition_penalty"):
+                                         {"language": "en", "word_timestamps": True}, True)
+        with pytest.raises(NotImplementedError, match="word_timestamps"):
             refused.result(timeout=60)
         served = registry.submit_decode("default", "s1", pcm, 16000, {"language": "en"}, True)
         result = served.result(timeout=120)

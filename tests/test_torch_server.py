@@ -20,11 +20,19 @@ WebSocket bridge. The same sessions stream to both:
 - drafted partials: 4 s of tone with ``partial="true"`` in 100 ms chunks
   paced in real time, once to warm the JAX server's drafted programs and
   once measured. Partials fire at 1.5 s and 3 s of audio (the interval
-  counts received audio) and the final 1 s after the last one, so the
-  results are deterministic while a decode takes under a second: every
-  result (partials and final) equal on both, the second partial and the
-  final drafted (each server's ``/metrics.json`` counts offered and
-  accepted draft tokens);
+  counts received audio) and the final 1 s after the last one; the stream
+  waits for each partial's result before sending on (``_stream``'s gates),
+  so the results do not depend on how long a decode takes: every result
+  (partials and final) equal on both, the second partial and the final
+  drafted (each server's ``/metrics.json`` counts offered and accepted
+  draft tokens);
+- a second pair of servers on a model config whose only profile is a
+  timestamp ``accurate`` one, so a session naming no profile takes the
+  built-in realtime profile with ``condition_on_previous_text``: a gated
+  session (2 s of tone, 1 s of silence, 3 s of tone, partials and a final
+  at the VAD endpoint) whose committed final conditions every decode after
+  it, every result equal on both; and one REST transcription on the
+  timestamp profile, text and segments equal;
 - the error probes (empty session id ERR1001, duplicate ERR1002, a 3 s chunk
   ERR1007) with the same codes on both.
 
@@ -42,6 +50,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -103,21 +112,22 @@ SESSIONS = {
 
 
 @contextlib.contextmanager
-def _server(kind: str, **env_vars: str):
-    """One server as a subprocess with ``env_vars`` in its environment,
-    yielding its gRPC port and process once a channel to it is ready (the
-    port's readiness signal; the JAX server's gRPC also starts only after
-    its model is loaded); the process's ``metrics_port`` is its HTTP
-    plane's."""
+def _server(kind: str, model_config=None, **env_vars: str):
+    """One server as a subprocess with ``env_vars`` in its environment (and
+    ``--model-config model_config`` when given), yielding its gRPC port and
+    process once a channel to it is ready (the port's readiness signal; the
+    JAX server's gRPC also starts only after its model is loaded); the
+    process's ``metrics_port`` is its HTTP plane's."""
     port, metrics_port = _free_port(), _free_port()
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "2", **env_vars}
     server_log = tempfile.TemporaryFile()
+    extra = [] if model_config is None else ["--model-config", str(model_config)]
     proc = subprocess.Popen(
         [sys.executable, "-m", MODULES[kind], "--model", "test",
          "--model-backend", BACKENDS[kind], "--device", "cpu",
          "--compute-type", "float32", "--language", "en", "--language-fix",
          "--decode-timeout", "120", "--port", str(port),
-         "--metrics-port", str(metrics_port), "--ws-port", "0"],
+         "--metrics-port", str(metrics_port), "--ws-port", "0", *extra],
         cwd=REPO, env=env, stdout=server_log, stderr=subprocess.STDOUT,
     )
     try:
@@ -148,11 +158,26 @@ def _server(kind: str, **env_vars: str):
         server_log.close()
 
 
+# how long a gate waits for the results it names
+GATE_WAIT_SEC = 180.0
+
+
 def _stream(port: int, sid: str, pcm: bytes, rate: int, *, attributes=None,
             profile=JPB.DECODE_PROFILE_UNSPECIFIED, chunk_sec: float = 0.2,
-            pace: float = 0.0):
+            pace: float = 0.0, gates=None):
     """CreateSession, then stream ``pcm`` in chunks and an ``is_final``
-    chunk; returns (results, trailing metadata keys)."""
+    chunk; returns (results, trailing metadata keys). ``gates`` maps a count
+    of chunks sent to a count of results: after sending that many chunks
+    the stream waits until that many results have arrived, sending an empty
+    chunk every ``chunk_sec`` meanwhile (a server emits ready results when a
+    chunk arrives; an empty one adds no audio, moves no VAD state and
+    schedules nothing). A server schedules partials on the audio it has
+    received, so with a gate after each partial point the sessions do not
+    depend on how long a decode takes: every decode sees the same audio and
+    the same earlier results on both servers, however loaded the host."""
+    gates = dict(gates or {})
+    results: list = []
+    arrived = threading.Condition()
     with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
         stub = JPBG.STTBackendStub(channel)
         stub.CreateSession(JPB.SessionRequest(session_id=sid, attributes=attributes or {},
@@ -160,16 +185,32 @@ def _stream(port: int, sid: str, pcm: bytes, rate: int, *, attributes=None,
         step = int(rate * chunk_sec) * 2
 
         def chunks():
-            for i in range(0, len(pcm), step):
+            for sent, i in enumerate(range(0, len(pcm), step), start=1):
                 if pace:
                     time.sleep(chunk_sec / pace)
                 yield JPB.AudioChunk(session_id=sid, pcm16=pcm[i:i + step], sample_rate=rate)
+                deadline = time.monotonic() + GATE_WAIT_SEC
+                while len(results) < gates.get(sent, 0):
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"{sid}: {len(results)} results after "
+                                           f"{sent} chunks, gate wants {gates[sent]}")
+                    with arrived:
+                        arrived.wait(timeout=chunk_sec)
+                    yield JPB.AudioChunk(session_id=sid, pcm16=b"", sample_rate=rate)
             yield JPB.AudioChunk(session_id=sid, is_final=True, sample_rate=rate)
 
         call = stub.StreamingRecognize(chunks(), metadata=(("session-id", sid),),
-                                       timeout=240)
-        results = list(call)
+                                       timeout=480)
+        for result in call:
+            with arrived:
+                results.append(result)
+                arrived.notify_all()
         return results, sorted(k for k, _ in call.trailing_metadata())
+
+
+# partials fire at 1.5 s and 3 s of received audio (chunks 15 and 30 of
+# 100 ms): the stream waits for each one's result a few chunks later
+DRAFTED_GATES = {18: 1, 33: 2}
 
 
 @pytest.fixture(scope="module")
@@ -189,7 +230,8 @@ def served():
                                       profile=JPB.DECODE_PROFILE_ACCURATE)
             for name in ("drafted-warm", "drafted"):
                 got[name] = _stream(port, f"{kind}-{name}", _pcm(_tone(4.0, 11)), SR,
-                                    attributes={"partial": "true"}, chunk_sec=0.1, pace=1.0)
+                                    attributes={"partial": "true"}, chunk_sec=0.1, pace=1.0,
+                                    gates=DRAFTED_GATES)
             got["metrics"] = _metrics_json(servers[kind][1].metrics_port)
             out[kind] = got
         yield ports, out
@@ -200,6 +242,74 @@ def _metrics_json(port: int) -> dict:
 
     with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics.json", timeout=30) as resp:
         return json.loads(resp.read())
+
+
+# the conditioned session: 2 s of tone, 1 s of silence, 3 s of tone, with
+# partials and a final at the VAD endpoint: a partial (scheduled at chunk
+# 15), the endpoint's final (chunk 25 or 26), whose text is committed, then
+# two partials (chunks 40 or 41, 55 to 57) and the closing final, each
+# decoded with the committed transcript as its conditioning prompt
+COND_PCM = _pcm(np.concatenate([_tone(2.0, 12), np.zeros(SR), _tone(3.0, 13)]))
+COND_GATES = {18: 1, 29: 2, 44: 3, 59: 4}
+# a model config whose only profile is `accurate` with timestamps: a session
+# that names no profile, and `realtime`, take the built-in realtime profile
+# (``condition_on_previous_text`` on), as a config without decode_profiles
+# does
+TIMESTAMP_ACCURATE = {"beam_size": 5, "best_of": 5, "patience": 1.0, "temperature": 0.0,
+                      "length_penalty": 1.0, "without_timestamps": False,
+                      "compression_ratio_threshold": 2.4, "no_speech_threshold": 0.6,
+                      "log_prob_threshold": -1.0}
+
+
+def _wav(seconds: float, seed: int) -> bytes:
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(SR)
+        wf.writeframes(_pcm(_tone(seconds, seed)))
+    return buf.getvalue()
+
+
+def _http_post(port: int, path: str, body: bytes):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method="POST",
+                                 headers={"content-type": "audio/wav"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+@pytest.fixture(scope="module")
+def cond_served(tmp_path_factory):
+    """Both servers on a model config with no realtime profile (so the
+    built-in one, conditioning on the committed transcript) and a timestamp
+    `accurate` profile, under ``STT_DRAFT_PARTIALS=on``: the conditioned
+    session streamed to each with its gates, then one REST transcription
+    with ``decode_profile=accurate``."""
+    import yaml
+
+    raw = yaml.safe_load((REPO / "config/model.yaml").read_text())
+    raw["model"]["decode_profiles"] = {"accurate": TIMESTAMP_ACCURATE}
+    model_config = tmp_path_factory.mktemp("cond") / "model.yaml"
+    model_config.write_text(yaml.safe_dump(raw))
+    out = {}
+    with contextlib.ExitStack() as stack:
+        for kind in MODULES:
+            port, proc = stack.enter_context(_server(kind, model_config,
+                                                     STT_DRAFT_PARTIALS="on"))
+            out[kind] = {
+                "cond": _stream(port, f"{kind}-cond", COND_PCM, SR, chunk_sec=0.1, pace=1.0,
+                                attributes={"partial": "true", "emit_final_on_vad": "true"},
+                                gates=COND_GATES),
+                "rest": _http_post(proc.metrics_port, "/v1/audio/transcriptions?"
+                                   "decode_profile=accurate&response_format=verbose_json",
+                                   _wav(2.0, 14)),
+            }
+    return out
 
 
 def _rows(results):
@@ -311,6 +421,34 @@ def test_drafted_partials_equal_to_jax_server(served):
         assert metrics["draft_rows"] > 0, (kind, metrics)
         assert 0 <= metrics["draft_tokens_accepted"] <= metrics["draft_tokens_offered"], kind
         assert metrics["draft_tokens_offered"] > 0, (kind, metrics)
+
+
+@integration
+def test_conditioned_session_equals_the_jax_server(cond_served):
+    """Under the built-in profile every decode after the endpoint's final
+    carries the committed transcript as its conditioning prompt (drafted
+    partials included); every result equals the JAX server's."""
+    (j_res, j_keys), (t_res, t_keys) = cond_served["jax"]["cond"], cond_served["torch"]["cond"]
+    t_rows, j_rows = _rows(t_res), _rows(j_res)
+    assert [r[1] for r in t_rows] == [False, True, False, False, True], t_rows
+    # the committed final is long enough to condition on (8 tokens at least)
+    assert len(t_rows[1][0].split()) >= 8, t_rows
+    assert len(t_rows) == len(j_rows), (t_rows, j_rows)
+    for t, j in zip(t_rows, j_rows):
+        assert t[:3] == j[:3]
+        assert t[3:] == pytest.approx(j[3:], abs=1e-6)
+    assert t_keys == j_keys
+
+
+@integration
+def test_rest_timestamp_profile_equals_the_jax_server(cond_served):
+    """One REST transcription on the timestamp `accurate` profile (beam 5):
+    the JAX server's text and timed segments."""
+    (j_status, j_body), (t_status, t_body) = (cond_served["jax"]["rest"],
+                                              cond_served["torch"]["rest"])
+    assert j_status == t_status == 200
+    assert t_body["text"].strip() and t_body["text"] == j_body["text"]
+    assert t_body["segments"] == j_body["segments"]
 
 
 # -- copies against their originals --------------------------------------------------
