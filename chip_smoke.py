@@ -117,6 +117,27 @@ PyTorch built for CUDA. In order:
       ``test`` model in bf16 on the card and the CPU, each row that differs
       printed with the card's top-2 gap (or the sum-probability rule's
       margin) at its first difference, failing above 0.05 (not a tie);
+   h. long finals, word timestamps and checkpoints (after g): on the
+      default path, a 75 s final (two 30 s windows and a 15 s tail,
+      conditioned on the text so far) submitted beside 4 partials of 5 s
+      from other sessions, which must resolve before it; each window where
+      the seek loop's rule puts it and the final's segments the windows'
+      shifted to global, monotone times; its window count, wall time, the
+      entries its conditioned windows captured while serving and the
+      memory reserved printed. Then word timestamps on 64 rows of 6-10 s
+      (every row with text has words, monotone inside its duration; the
+      pass's time and device memory printed); then the seed-0 weights
+      written as a bf16 HF checkpoint with the port's writer and an engine
+      built from ``weights_path`` (``STT_ALLOW_FALLBACK_TOKENIZER=1``),
+      whose greedy tokens at 4 x 10 s must be the seeded engine's (write
+      and load seconds and the file's bytes printed). On the fp8 path with
+      both kernels, the same final in timestamp mode (the seek checked by
+      segment, flash launched once per encoder layer per window,
+      ``xattn_decode`` once per decoder layer per step) and words on 4
+      rows of 24-30 s. Last the ``test`` model in float32 on the card
+      against the CPU: a 65 s final in timestamp mode with words, its
+      segments equal, its words equal in text with times within 0.02 s
+      (one frame);
    f. drafted partials (run before e): the ``test`` model in float32 on the
    card, 4 rows of 5 s with an empty, a perfect, an adversarial and a
    mid-mutation draft, must give the plain decode's tokens and lengths,
@@ -202,7 +223,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-WATCHDOG_SEC = 600
+WATCHDOG_SEC = 900
 MEL_ATOL, MEL_RTOL = 2e-4, 1e-4          # tests/test_pallas_mel.py:28
 REF_ATOL = 1e-3                          # float32 card vs float32 CPU, test model
 # kernel vs plain, set from the values at the served shapes: outputs there
@@ -1788,6 +1809,255 @@ def route_reference_f32(torch, E, W) -> None:
         f"{[t for _, t, _ in outs['cpu']['ladder/0']]})")
 
 
+# -- phase 3h: long finals, word timestamps, checkpoints ---------------------------
+
+LONG_SEC = 75.0      # two full 30 s windows and a 15 s tail
+WORDS = {"word_timestamps": True, "no_speech_threshold": None}
+
+
+class WindowLog:
+    """Records each seek window an engine decodes (its samples and output)
+    by wrapping the engine's ``_decode_window``."""
+
+    def __init__(self, engine) -> None:
+        self.engine, self.real, self.windows = engine, engine._decode_window, []
+
+    def __enter__(self):
+        def spy(sub, cancel_event):
+            out = self.real(sub, cancel_event)
+            self.windows.append((len(sub.audio), out))
+            return out
+
+        self.engine._decode_window = spy
+        return self
+
+    def __exit__(self, *exc) -> None:
+        del self.engine._decode_window
+
+
+def check_long(tag: str, out, windows, n_samples: int, win: int, with_ts: bool) -> None:
+    """A long final against its windows: each window starts where the seek
+    loop's rule puts it (the end of a full window's last closed segment in
+    timestamp mode, else the window's end; at least one second on), the
+    windows cover the audio, and the final's segments are the windows'
+    shifted by their offsets, global and monotone inside the audio."""
+    seek, expect = 0, []
+    for n, w_out in windows:
+        if n != min(win, n_samples - seek):
+            fail(f"long final ({tag}): a window of {n} samples at {seek}")
+        expect += [(s.start + seek / 16000, s.end + seek / 16000, s.text)
+                   for s in w_out.segments]
+        advance = n
+        if with_ts and w_out.segments and n == win:
+            last_end = w_out.segments[-1].end
+            if 0.0 < last_end < n / 16000:
+                advance = int(last_end * 16000)
+        seek += max(advance, 16000)
+    got = [(s.start, s.end, s.text) for s in out.segments]
+    if seek < n_samples or got != expect:
+        fail(f"long final ({tag}): windows end at {seek} of {n_samples} samples, or the "
+             f"segments {got[:3]} are not the windows' {expect[:3]}")
+    starts = [s[0] for s in got]
+    if not got or starts != sorted(starts) or not all(
+            0.0 <= a <= b <= n_samples / 16000 + 1e-6 for a, b, _ in got):
+        fail(f"long final ({tag}): segments not global and monotone: {got}")
+
+
+def timed_word_pass(torch, engine) -> dict:
+    """Wraps the engine's word-timestamp pass to record its wall time and
+    the device memory it takes above what was allocated before it."""
+    real, stats = engine._word_timestamp_pass, {}
+
+    def timed(ctx, outputs, wt_rows):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        real(ctx, outputs, wt_rows)
+        torch.cuda.synchronize()
+        stats.update(sec=time.monotonic() - t0, rows=len(wt_rows),
+                     peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+
+    engine._word_timestamp_pass = timed
+    return stats
+
+
+def word_group(torch, E, W, engine, tag: str, seconds: list, seed: int) -> dict:
+    """One group with ``word_timestamps`` (a row per entry of ``seconds``):
+    every row with text has words, monotone inside its duration. Prints the
+    pass's time and memory; returns the group's launch counts."""
+    stats = timed_word_pass(torch, engine)
+    tasks = [E._Task(E.DecodeRequest(synth_audio(s, seed=seed + i), language="en",
+                                     options=dict(WORDS)), None) for i, s in enumerate(seconds)]
+    try:
+        outs, counts = counted_run(W, engine, lambda: engine._harvest(engine._device_phase(tasks)))
+    finally:
+        del engine._word_timestamp_pass
+    n_words = 0
+    for out, secs in zip(outs, seconds):
+        starts = [w[0] for w in out.words]
+        if (out.segments and not out.words) or starts != sorted(starts) or not all(
+                0.0 <= a <= b <= secs + 1e-6 for a, b, _ in out.words):
+            fail(f"words ({tag}): a row of {secs:g} s gave {out.words[:4]} for "
+                 f"{len(out.segments)} segments")
+        n_words += len(out.words)
+    if not stats or counts["mel_logspec"] != 2:
+        fail(f"words ({tag}): the pass did not run once after one encode: {stats}, {counts}")
+    log(f"words ({tag}, {len(seconds)} x {max(seconds):g} s): pass {stats['sec']:.3f} s for "
+        f"{stats['rows']} rows ({stats['sec'] / len(seconds) * 1e3:.2f} ms a row), "
+        f"{stats['peak_gib']:.3f} GiB device memory above the engine's, {n_words} words; "
+        f"launches {({k: counts[k] for k in ('mel_logspec', 'xattn_decode', 'flash_attention')})}")
+    return counts
+
+
+def long_words_phase(torch, E, W) -> dict:
+    """Phase 3h on whisper-small bf16: long finals, word timestamps and the
+    checkpoint loader; returns the launch counts of its served runs."""
+    import os
+    import tempfile
+
+    from stt_tpu_torch import convert
+    from stt_tpu_torch.parallel.checkpoint import export_hf_safetensors
+
+    totals = {"mel_logspec": 0, "xattn_decode": 0, "flash_attention": 0}
+
+    def add(counts: dict) -> None:
+        for k in totals:
+            totals[k] += counts[k]
+
+    win = 30 * 16000
+    long_audio = synth_audio(LONG_SEC, seed=70)
+    n_long = len(long_audio)
+    kw = dict(device="cuda", compute_type="bfloat16", batch_buckets=(1, 4, 16, 64),
+              max_decode_tokens=224)
+    default = dict(cross_kv_dtype="int8", xattn_kernel="off", flash_attention="off")
+
+    # -- the default path: a conditioned long final beside 4 partials ----------
+    engine = E.WhisperEngine("small", **kw, **default)
+    try:
+        t0 = time.monotonic()
+        engine.prewarm([5.0, 10.0, 30.0], [1, 4])
+        engine.prewarm([10.0], [64])
+        captures0 = engine.graph_captures
+        log(f"long (int8): prewarmed 5/10/30 s x 1/4 rows and 10 s x 64 in "
+            f"{time.monotonic() - t0:.2f} s ({captures0} captures)")
+        final = E.DecodeRequest(long_audio, language="en", is_final=True, session_id="long",
+                                options={"no_speech_threshold": None})
+        partials = [E.DecodeRequest(synth_audio(5.0, seed=71 + i), language="en",
+                                    session_id=f"p{i}") for i in range(4)]
+        done = {}
+
+        def run():
+            futs = {"final": engine.submit(final)}
+            futs.update({f"p{i}": engine.submit(r) for i, r in enumerate(partials)})
+            for name, fut in futs.items():
+                fut.add_done_callback(lambda f, name=name: done.setdefault(name, time.monotonic()))
+            return {name: fut.result(timeout=300) for name, fut in futs.items()}
+
+        with WindowLog(engine) as wl:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            outs, counts = counted_run(W, engine, run)
+        add(counts)
+        check_long("int8", outs["final"], wl.windows, n_long, win, with_ts=False)
+        late = [n for n in done if n != "final" and done[n] >= done["final"]]
+        if len(wl.windows) != 3 or late or counts["mel_logspec"] < 4:
+            fail(f"long (int8): {len(wl.windows)} windows, partials {late} resolved after the "
+                 f"final, launches {counts}")
+        log(f"long (int8, {LONG_SEC:g} s final beside 4 x 5 s partials): {len(wl.windows)} "
+            f"windows, final {done['final'] - t0:.3f} s, partials "
+            f"{max(done[n] for n in done if n != 'final') - t0:.3f} s; conditioned windows "
+            f"captured {engine.graph_captures - captures0} entries while serving, "
+            f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved; launches "
+            f"{({k: counts[k] for k in totals})}, {len(outs['final'].segments)} segments")
+
+        add(word_group(torch, E, W, engine, "int8", [6.0 + 4.0 * (i % 8) / 7 for i in range(64)],
+                       seed=100))
+
+        # -- the loader: the same weights through a checkpoint --------------------
+        with tempfile.TemporaryDirectory(prefix="smoke_ckpt_") as tmp:
+            t0 = time.monotonic()
+            n_bytes = export_hf_safetensors(
+                tmp, convert.to_jax_params(engine.model.state_dict()), engine.config,
+                dtype=torch.bfloat16)
+            write_s = time.monotonic() - t0
+            os.environ["STT_ALLOW_FALLBACK_TOKENIZER"] = "1"
+            try:
+                loaded = E.WhisperEngine("small", weights_path=tmp, **kw, **default)
+            finally:
+                del os.environ["STT_ALLOW_FALLBACK_TOKENIZER"]
+            try:
+                rows = [(synth_audio(10.0 - i, seed=120 + i), lang)
+                        for i, lang in enumerate(("en", None, "de", "en"))]
+                got = []
+                for eng in (loaded, engine):
+                    tasks = [E._Task(E.DecodeRequest(a, language=lang), None) for a, lang in rows]
+                    got.append([o._tokens[: o._p_len + o._n_gen].tolist()
+                                for o in eng._harvest(eng._device_phase(tasks))])
+            finally:
+                loaded.close()
+        if got[0] != got[1]:
+            fail("loader: the checkpoint's engine decodes other tokens than the seeded one")
+        log(f"loader: wrote {n_bytes} bytes (bf16) in {write_s:.2f} s; the engine from "
+            f"weights_path loaded in {loaded.load_seconds:.2f} s; greedy tokens at 4 x 10 s "
+            f"equal the seeded engine's")
+    finally:
+        engine.close()
+
+    # -- fp8 cross K/V with both kernels: a timestamp long final, words at 30 s --
+    engine = E.WhisperEngine("small", **kw, cross_kv_dtype="fp8", xattn_kernel="mm",
+                             flash_attention="auto")
+    cfg = engine.config
+    try:
+        engine.prewarm([30.0], [1, 4])
+        final = E.DecodeRequest(long_audio, language="en", is_final=True,
+                                options={"without_timestamps": False,
+                                         "no_speech_threshold": None}, session_id="long-ts")
+        with WindowLog(engine) as wl:
+            t0 = time.monotonic()
+            out, counts = counted_run(W, engine, lambda: engine.submit(final).result(timeout=300))
+            wall = time.monotonic() - t0
+        add(counts)
+        check_long("fp8, timestamps", out, wl.windows, n_long, win, with_ts=True)
+        if (counts["flash_attention"] != cfg.n_audio_layer * len(wl.windows)
+                or counts["xattn_decode"] != cfg.n_text_layer * counts["decoder_steps"]):
+            fail(f"long (fp8): launches {counts} for {len(wl.windows)} windows")
+        log(f"long (fp8, both kernels, timestamps, {LONG_SEC:g} s): {len(wl.windows)} windows "
+            f"at {[round(n / 16000, 2) for n, _ in wl.windows]} s, {wall:.3f} s, "
+            f"{len(out.segments)} segments; launches "
+            f"{({k: counts[k] for k in (*totals, 'decoder_steps')})}")
+        counts = word_group(torch, E, W, engine, "fp8, both kernels", [24.0, 26.0, 28.0, 30.0],
+                            seed=130)
+        if counts["flash_attention"] != 2 * cfg.n_audio_layer:
+            fail(f"words (fp8): flash launched {counts['flash_attention']} times for 2 encodes")
+        add(counts)
+    finally:
+        engine.close()
+
+    # -- float32 test model: the card against the CPU ------------------------------
+    outs = {}
+    for device in ("cuda", "cpu"):
+        eng = E.WhisperEngine("test", device=device, compute_type="float32",
+                              batch_buckets=(1, 4))
+        try:
+            outs[device] = eng.transcribe_sync(E.DecodeRequest(
+                synth_audio(65.0, seed=140), language="en", is_final=True,
+                options={**WORDS, "without_timestamps": False}))
+        finally:
+            eng.close()
+    card, host = outs["cuda"], outs["cpu"]
+    seg = [[(s.start, s.end, s.text) for s in o.segments] for o in (card, host)]
+    gaps = [max(abs(a[0] - b[0]), abs(a[1] - b[1])) for a, b in zip(card.words, host.words)]
+    if (seg[0] != seg[1] or not host.words or [w[2] for w in card.words] != [w[2] for w in host.words]
+            or max(gaps) > 0.02 + 1e-9):
+        fail(f"long f32 (test model, card vs CPU): segments equal {seg[0] == seg[1]}, words "
+             f"{card.words[:4]} vs {host.words[:4]}")
+    log(f"long f32 (test model, 65 s, timestamps and words, card vs CPU): {len(seg[0])} "
+        f"segments equal, {len(host.words)} words equal in text, times within "
+        f"{max(gaps):.3f} s")
+    return totals
+
+
 def bench_phase() -> None:
     """Phase 3d: one steady round of the port's bench at 64 x 10 s."""
     from stt_tpu_torch import bench as B
@@ -2472,6 +2742,11 @@ def main() -> None:
     route_reference_f32(torch, E, W)
     timestamp_ties_bf16(torch, E, W)
 
+    # -- 3h. long finals (the seek loop), word timestamps, checkpoint loading ---
+    t_3h = time.monotonic()
+    long_words = long_words_phase(torch, E, W)
+    log(f"phase 3h: {time.monotonic() - t_3h:.1f} s")
+
     # -- 5. the gRPC streaming path (before 4: the server's engine is shut down first)
     grpc_phase(torch, card)
 
@@ -2488,7 +2763,7 @@ def main() -> None:
         "source": "stt_tpu_torch/ops/cuda/mel.cu",
         "replaces": "stt_tpu/ops/pallas/mel.py:84",
         "launches": (launches + beam_int8["mel_logspec"] + beam_30s["mel_logspec"]
-                     + drafted_launches + routes["mel_logspec"]),
+                     + drafted_launches + routes["mel_logspec"] + long_words["mel_logspec"]),
         "max_abs_err": max(mel_err.values()),
         **headline,
     }, {
@@ -2497,7 +2772,7 @@ def main() -> None:
         "source": "stt_tpu_torch/ops/cuda/xattn_decode.cu",
         "replaces": "stt_tpu/ops/pallas/xattn_decode.py:186",
         "launches": (counts_30s["xattn_decode"] + beam_30s["xattn_decode"]
-                     + routes["xattn_decode"]),
+                     + routes["xattn_decode"] + long_words["xattn_decode"]),
         "max_abs_err": xattn_err,
         **xattn_headline,
     }, {
@@ -2506,7 +2781,7 @@ def main() -> None:
         "source": "stt_tpu_torch/ops/cuda/flash_attention.cu",
         "replaces": "stt_tpu/models/whisper.py:378",
         "launches": (counts_30s["flash_attention"] + beam_30s["flash_attention"]
-                     + routes["flash_attention"]),
+                     + routes["flash_attention"] + long_words["flash_attention"]),
         "max_abs_err": flash_err,
         **flash_headline,
     }, {

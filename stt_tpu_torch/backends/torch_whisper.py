@@ -43,7 +43,7 @@ class TorchWhisperBackend:
             task=str(options.get("task", "transcribe")),
             options=dict(options),
             # a standalone transcribe() is a complete decode: audio past the
-            # largest window needs the seek loop, which this slice refuses
+            # largest window runs the seek loop instead of being truncated
             is_final=True,
         )
         out = self.engine.transcribe_sync(request)

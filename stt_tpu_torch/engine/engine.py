@@ -2,8 +2,8 @@
 
 Counterpart of ``stt_tpu/engine/engine.py`` for the serving step — greedy
 at beam 1, what every streaming partial and final takes, beam search above
-it (the shipped ``accurate`` profile), and every decode option of the JAX
-engine but word timestamps:
+it (the shipped ``accurate`` profile), every decode option of the JAX
+engine, and finals of any length:
 
 - Requests enter a queue; the engine thread collects up to ``max_batch``
   of them within ``batch_window_ms``, groups compatible requests (same
@@ -27,6 +27,20 @@ engine but word timestamps:
   ``prompt_reset_on_temperature``): rows that fail the quality gate are
   re-decoded by sampling, re-encoded from the group's rows. Each route
   decodes on its own graph entry, captured at first use.
+- Word timestamps (``word_timestamps``, ``stt_tpu/engine/engine.py:
+  2634-2690``): after the ladder, the group's rows are encoded again and
+  one teacher-forced pass over each row's tokens gives the last two
+  decoder layers' cross-attention maps
+  (:func:`~stt_tpu_torch.models.whisper.cross_attention_weights`); the
+  host aligns them by DTW (:mod:`~stt_tpu_torch.models.timing`) into
+  ``DecodeOutput.words``. A failed alignment is logged and leaves no
+  words.
+- Finals longer than the largest audio bucket run the seek loop
+  (``stt_tpu/engine/engine.py:1834-1997``) on one of two side threads:
+  windows of the largest bucket, each submitted through the queue so that
+  it batches with other sessions' requests, conditioned on the text so
+  far, the language pinned from the first window, segment and word times
+  made global.
 - Audio pads to second buckets and rows to batch buckets, as in the JAX
   package, so the shapes a deployment sees stay few.
 - Rows travel to the device on the audio wire (``audio_wire``): 8-bit
@@ -84,8 +98,12 @@ and ``record_engine_compile`` once per decode-graph capture (the port's
 compile); ``pad_to_30s`` pads every window to the 30 s bucket;
 ``use_pallas`` (default True) is the hand-written log-mel kernel, and
 False on the card raises, since nothing swaps in the plain version there;
-``weights_path`` other than None raises (deterministic init from ``seed``
-only, for now).
+``weights_path`` names an HF Whisper checkpoint directory
+(``model.safetensors`` + ``config.json``, :func:`~stt_tpu_torch.models.
+whisper.load_hf_safetensors`), whose config replaces ``model_size``'s and
+whose vocabulary files the tokenizer then requires
+(``STT_ALLOW_FALLBACK_TOKENIZER=1`` opts out); without it the weights are
+drawn from ``seed``.
 
 Four switches of the JAX package select behaviour the port does not have
 yet; they are read at engine build, parsed as the JAX package parses them,
@@ -97,9 +115,6 @@ int8/int8_native (under bfloat16), ``STT_FUSED_QKV`` on,
 Beam options are read as the JAX package reads them: ``beam_size``
 clamped to 1..8, ``patience`` (1..4, steps of 0.25; above 1 the pooled
 search), ``length_penalty`` (0..2, steps of 0.25) and ``suppress_blank``.
-Left for later slices (a request asking for them raises
-``NotImplementedError`` naming the option): word timestamps and the
-long-audio seek loop.
 """
 
 from __future__ import annotations
@@ -110,7 +125,8 @@ import queue
 import threading
 import time
 from collections import OrderedDict
-from concurrent.futures import Future
+from concurrent.futures import CancelledError, Future, ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FutureTimeout
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -119,6 +135,7 @@ import torch
 
 from ..backends.base import BackendInfo, Segment
 from ..device import resolve_device
+from ..models import timing as T
 from ..models import whisper as W
 from ..models.tokenizer import load_tokenizer
 from ..ops.kernels.mel import mel_logspec
@@ -134,6 +151,8 @@ DEFAULT_BATCH_BUCKETS = (1, 4, 16)
 PIPELINE_DEPTH = 2
 # how long close() waits for each thread to stop
 CLOSE_JOIN_TIMEOUT_SEC = 120.0
+# seek loops of long finals that run at once; more queue behind them
+LONG_FINAL_THREADS = 2
 
 
 def _build_mulaw_lut() -> np.ndarray:
@@ -258,6 +277,8 @@ class DecodeOutput:
     # the ladder rung's temperature that produced the result (0.0: the
     # primary pass)
     temperature_used: float = 0.0
+    # [(start_sec, end_sec, word), ...] under the word_timestamps option
+    words: List[Tuple[float, float, str]] = field(default_factory=list)
     # the decoded token row + prompt length that produced this output
     _tokens: Any = None
     _p_len: int = 0
@@ -289,9 +310,12 @@ def _draft_option_ok(request: "DecodeRequest", mode: str = "on") -> bool:
     (``stt_tpu/engine/engine.py:143-172``): a mode other than ``off``, a
     real session id to correlate ticks under, greedy (beam 1), no
     timestamps, no repetition penalty or n-gram bans and a ladder whose
-    first rung is greedy. Conditioning prompts and prefixes may draft. (The
-    JAX function's seek-window condition waits for the long-audio loop.)"""
+    first rung is greedy, and not a window of a long final's seek loop
+    (each window is other audio, and its tokens would spoil the session's
+    streaming draft). Conditioning prompts and prefixes may draft."""
     if mode == "off":
+        return False
+    if request.options.get("_seek_window"):
         return False
     if not request.session_id or request.session_id == "unknown":
         return False
@@ -440,14 +464,6 @@ def _patience_of(request: DecodeRequest) -> float:
     except (TypeError, ValueError):
         p = 1.0
     return max(1.0, min(round(p * 4) / 4, 4.0))
-
-
-def _unsupported_option(options: Dict[str, Any]) -> Optional[str]:
-    """The option that asks for behaviour this slice does not serve, as
-    ``"name=value"``, or None: word timestamps alone."""
-    if options.get("word_timestamps"):
-        return f"word_timestamps={options.get('word_timestamps')!r}"
-    return None
 
 
 def _pack_result(res: Union[W.DecodeResult, W.DraftedResult], lang_idx: torch.Tensor,
@@ -636,11 +652,6 @@ class WhisperEngine:
         weights_path: Optional[str] = None,
         draft_mode: Optional[str] = None,
     ) -> None:
-        if weights_path is not None:
-            raise NotImplementedError(
-                f"weights_path={weights_path!r} is not served by stt_tpu_torch yet "
-                f"(deterministic init from the seed only; the checkpoint loader is a "
-                f"later slice)")
         if compute_type not in _DTYPES:
             raise ValueError(f"compute_type must be one of {sorted(_DTYPES)}, "
                              f"got {compute_type!r}")
@@ -681,23 +692,33 @@ class WhisperEngine:
         self._draft_ema = 0.0
         self._draft_obs = 0
         self._draft_engaged = self._draft_mode == "on"
-        config = W.get_config(model_size)
-        self.config = config
         self.policy = W.AttentionPolicy.from_env(
             cross_kv_dtype=cross_kv_dtype, xattn_kernel=xattn_kernel,
             flash_attention=flash_attention,
         )
-        self.model = W.build_model(
-            config, W.init_params(config, seed=seed), self.device, self._dtype,
-            self.policy,
-        )
+        t0 = time.monotonic()
+        if weights_path:
+            params, config = W.load_hf_safetensors(weights_path)
+        else:
+            config = W.get_config(model_size)
+            params = W.init_params(config, seed=seed)
+        self.config = config
+        self.model = W.build_model(config, params, self.device, self._dtype, self.policy)
+        del params
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.load_seconds = time.monotonic() - t0
         self.graphs = DecodeGraphs(
             self.model, self.device, self._dtype,
             on_capture=None if metrics is None else metrics.record_engine_compile,
         )
         self.audio_wire = _audio_wire(audio_wire)
         self.pipeline_depth = _pipeline_depth(pipeline_depth)
-        self.tokenizer = load_tokenizer(tokenizer_path, config.n_vocab)
+        # an HF checkpoint ships its tokenizer files beside the weights, and
+        # real weights require a real vocabulary (stt_tpu/engine/engine.py:
+        # 1080-1091)
+        self.tokenizer = load_tokenizer(tokenizer_path or weights_path, config.n_vocab,
+                                        require_real=bool(weights_path))
         self.layout = W.token_layout(config.n_vocab)
 
         if pad_to_30s:
@@ -720,6 +741,8 @@ class WhisperEngine:
         self._running = False
         self._closing = False
         self._lock = threading.Lock()
+        # the seek loops of long finals (_spawn_long), made at first use
+        self._long_pool: Optional[ThreadPoolExecutor] = None
         # one group at a time enqueues device work: the graph entries'
         # buffers are shared by every group of their shape
         self._device_lock = threading.Lock()
@@ -752,20 +775,16 @@ class WhisperEngine:
     def _max_new_for(self, bucket_sec: float) -> int:
         return max_new_for(bucket_sec, self.max_decode_tokens)
 
-    def _check_supported(self, request: DecodeRequest) -> None:
-        bad = _unsupported_option(request.options)
-        if bad is not None:
-            raise NotImplementedError(
-                f"option {bad} is not served by stt_tpu_torch yet "
-                f"(it serves every decode option but word timestamps so far)"
-            )
-        max_win = int(self.audio_buckets_sec[-1] * SAMPLE_RATE)
-        max_win -= max_win % HOP_LENGTH
-        if request.is_final and len(request.audio) > max_win:
-            raise NotImplementedError(
-                f"long-audio seek loop: a final of {len(request.audio)} "
-                f"samples exceeds the largest window ({max_win} samples)"
-            )
+    def _window_samples(self) -> int:
+        """Samples of the largest audio bucket, whole hops: a seek window."""
+        win = int(self.audio_buckets_sec[-1] * SAMPLE_RATE)
+        return win - win % HOP_LENGTH
+
+    def _is_long(self, request: DecodeRequest) -> bool:
+        """A final longer than the largest window runs the seek loop
+        (``stt_tpu/engine/engine.py:1644-1651``); a partial keeps its
+        newest window, which is what a live caption needs."""
+        return request.is_final and len(request.audio) > self._window_samples()
 
     # -- public API -----------------------------------------------------------
 
@@ -805,6 +824,11 @@ class WhisperEngine:
         if self._harvest_thread is not None:
             self._harvest_thread.join(timeout=CLOSE_JOIN_TIMEOUT_SEC)
             self._harvest_thread = None
+        if self._long_pool is not None:
+            # a seek loop sees _closing at its next wait for a window and
+            # fails its final; then the pool joins
+            self._long_pool.shutdown(wait=True)
+            self._long_pool = None
         while True:
             try:
                 leftover = self._queue.get_nowait()
@@ -818,9 +842,7 @@ class WhisperEngine:
 
     def submit(self, request: DecodeRequest,
                cancel_event: Optional[threading.Event] = None) -> Future:
-        """Queue a request for the batching loop; returns a Future. Raises
-        ``NotImplementedError`` for options this slice does not serve."""
-        self._check_supported(request)
+        """Queue a request for the batching loop; returns a Future."""
         task = _Task(request, cancel_event)
         while True:
             self.start()  # no-op while running or closing
@@ -839,9 +861,11 @@ class WhisperEngine:
         return self._queue.qsize()
 
     def transcribe_sync(self, request: DecodeRequest) -> DecodeOutput:
-        """Run one request on the calling thread (no batching)."""
-        self._check_supported(request)
+        """Run one request on the calling thread (no batching); a long
+        final runs its seek loop here, its windows through the queue."""
         task = _Task(request, None)
+        if self._is_long(request):
+            return self._run_long(task)
         self._attach_draft(task)
         return self._harvest(self._device_phase([task]))[0]
 
@@ -1009,6 +1033,10 @@ class WhisperEngine:
                 continue
             if task.future.set_running_or_notify_cancel():
                 live.append(task)
+        # long finals run their seek loop on a side thread, feeding windows
+        # back through the queue, so other sessions' requests keep batching
+        long_tasks = [t for t in live if self._is_long(t.request)]
+        live = [t for t in live if not self._is_long(t.request)]
         groups: Dict[Tuple, List[_Task]] = {}
         for task in live:
             # the route resolves once, before grouping
@@ -1030,6 +1058,29 @@ class WhisperEngine:
                             task.future.set_exception(exc)
                     continue
                 self._harvest_q.put((sub, ctx))
+        for task in long_tasks:
+            self._spawn_long(task)
+
+    def _spawn_long(self, task: _Task) -> None:
+        """Run one long final's seek loop on the pool of
+        ``LONG_FINAL_THREADS`` side threads (``stt_tpu/engine/engine.py:
+        1702-1724``)."""
+        if self._long_pool is None:
+            self._long_pool = ThreadPoolExecutor(
+                max_workers=LONG_FINAL_THREADS,
+                thread_name_prefix=f"engine-long-{self.model_size}")
+
+        def run() -> None:
+            try:
+                out = self._run_long(task)
+            except Exception as exc:
+                if not task.future.done():
+                    task.future.set_exception(exc)
+            else:
+                if not task.future.done():
+                    task.future.set_result(out)
+
+        self._long_pool.submit(run)
 
     def _harvest_loop(self) -> None:
         """Readback, detokenization and future resolution, in dispatch order."""
@@ -1102,6 +1153,133 @@ class WhisperEngine:
         if not ids:
             return []
         return [self.layout.sot_prev] + list(ids)
+
+    # -- long finals: the seek loop --------------------------------------------
+
+    def _run_long(self, task: _Task) -> DecodeOutput:
+        """A final longer than the largest window, transcribed window by
+        window (``stt_tpu/engine/engine.py:1834-1960``, whisper's seek loop):
+
+        - ``clip_timestamps`` are resolved over the whole audio first;
+        - each window is the largest bucket's width of audio from ``seek``;
+        - under ``condition_on_previous_text`` (default on) the text so far,
+          after any ``initial_prompt``, conditions the next window (marked
+          ``_cond_ctx``, so its length is bucketed), and a window decoded
+          above ``prompt_reset_on_temperature`` drops what came before it;
+        - ``prefix`` is forced on the first window only;
+        - the first window's language pins the others;
+        - in timestamp mode a full window's seek moves to the end of its
+          last segment, so an utterance cut by the window's end is decoded
+          again whole; it moves at least one second;
+        - segment and word times are shifted by the window's offset;
+        - the session's streaming draft is evicted at the end.
+        """
+        req = task.request
+        audio = np.asarray(req.audio, np.float32)
+        opts = dict(req.options)
+        clips = _clip_ranges_of(req)
+        if clips is not None:
+            audio = _apply_clips(audio, clips)
+            opts.pop("clip_timestamps", None)
+        win = self._window_samples()
+        condition = bool(opts.get("condition_on_previous_text", True))
+        with_ts = not bool(opts.get("without_timestamps", True))
+        reset_t = _reset_temp_of(req)
+        base_prompt = str(opts.get("initial_prompt") or opts.get("hotwords") or "").strip()
+        prefix_once = opts.pop("prefix", None)
+
+        segments: List[Segment] = []
+        words: List[Tuple[float, float, str]] = []
+        info: Optional[BackendInfo] = None
+        language = req.language
+        prev_text = ""
+        lp_sum = ns_sum = inference = max_temp = 0.0
+        n_windows = seek = 0
+        while seek < len(audio):
+            if task.cancel_event is not None and task.cancel_event.is_set():
+                break
+            chunk = audio[seek: seek + win]
+            w_opts = dict(opts)
+            cond_text = (" ".join(x for x in (base_prompt, prev_text) if x).strip()
+                         if condition else base_prompt)
+            w_opts.pop("hotwords", None)
+            if cond_text:
+                w_opts["initial_prompt"] = cond_text
+                if prev_text:
+                    # a growing context: bucketed prompt lengths; a first
+                    # window with only the user's prompt keeps its length
+                    w_opts["_cond_ctx"] = True
+            else:
+                w_opts.pop("initial_prompt", None)
+            if prefix_once is not None and seek == 0:
+                w_opts["prefix"] = prefix_once
+            w_opts["_seek_window"] = True
+            sub = DecodeRequest(audio=chunk, language=language, task=req.task,
+                                options=w_opts, is_final=False, session_id=req.session_id)
+            out = self._decode_window(sub, task.cancel_event)
+            if out is None:
+                break
+            offset = seek / SAMPLE_RATE
+            dur = len(chunk) / SAMPLE_RATE
+            segments.extend(Segment(x.start + offset, x.end + offset, x.text)
+                            for x in out.segments)
+            words.extend((ws + offset, we + offset, wt) for ws, we, wt in out.words)
+            if info is None:
+                info = out.info
+                if not language:
+                    language = out.info.language
+            lp_sum += out.avg_logprob
+            ns_sum += out.no_speech_prob
+            inference += out.inference_sec
+            max_temp = max(max_temp, out.temperature_used)
+            n_windows += 1
+            advance = len(chunk)
+            if with_ts and out.segments and len(chunk) == win:
+                last_end = out.segments[-1].end
+                if 0.0 < last_end < dur:
+                    advance = int(last_end * SAMPLE_RATE)
+            seek += max(advance, SAMPLE_RATE)
+            if condition:
+                window_text = "".join(x.text for x in out.segments)
+                if reset_t is not None and out.temperature_used > reset_t:
+                    prev_text = window_text.strip()
+                else:
+                    prev_text = (prev_text + " " + window_text).strip()
+                # the prompt keeps the last n_text_ctx // 2 tokens
+                prev_text = prev_text[-4000:]
+        if req.session_id:
+            self._draft_evict(req.session_id)
+        return DecodeOutput(
+            segments=segments, info=info or BackendInfo(language, 1.0),
+            inference_sec=inference, batch_rows=1,
+            avg_logprob=lp_sum / max(1, n_windows),
+            no_speech_prob=ns_sum / max(1, n_windows),
+            temperature_used=max_temp, words=words,
+        )
+
+    def _decode_window(self, sub: DecodeRequest,
+                       cancel_event: Optional[threading.Event]) -> Optional[DecodeOutput]:
+        """One seek-loop window, submitted through the queue so that it
+        batches with other sessions' requests (``stt_tpu/engine/engine.py:
+        1962-1997``). None when the final was cancelled; raises when the
+        engine closes, or its thread is gone, while the window waits."""
+        fut = self.submit(sub, cancel_event=cancel_event)
+        while True:
+            try:
+                return fut.result(timeout=0.5)
+            except CancelledError:
+                return None
+            except FutureTimeout:
+                if self._closing:
+                    fut.cancel()
+                    raise RuntimeError("engine closed during a long-audio decode") from None
+                thread = self._thread
+                if thread is None or not thread.is_alive():
+                    if fut.done():
+                        continue
+                    fut.cancel()
+                    raise RuntimeError(
+                        "engine thread is not running during a long-audio decode") from None
 
     def _device_phase(self, group: List[_Task]) -> Dict[str, Any]:
         """Host prep and every device launch for one group; returns a
@@ -1263,6 +1441,14 @@ class WhisperEngine:
         ladder = _temperature_ladder(group[0].request.options)
         if len(ladder) > 1 and not ctx["with_ts"]:
             self._fallback(ctx, outputs, langs, lang_ps, ladder)
+        wt_rows = [i for i, t in enumerate(group)
+                   if t.request.options.get("word_timestamps") and outputs[i].segments
+                   and outputs[i]._n_gen > 0]
+        if wt_rows:
+            try:
+                self._word_timestamp_pass(ctx, outputs, wt_rows)
+            except Exception:
+                LOGGER.exception("word-timestamp alignment failed; results carry no words")
         self._refresh_drafts(group, outputs, ctx["max_new"])
         elapsed = time.monotonic() - ctx["t_start"]
         if self._metrics is not None:
@@ -1347,6 +1533,47 @@ class WhisperEngine:
             failing = still
             if not failing:
                 break
+
+    def _word_timestamp_pass(self, ctx: Dict[str, Any], outputs: List[DecodeOutput],
+                             wt_rows: List[int]) -> None:
+        """Word times for rows ``wt_rows`` of a harvested group
+        (``stt_tpu/engine/engine.py:2634-2690``), in place on ``outputs``:
+        the group's rows encoded again, one teacher-forced pass over each
+        row's prompt and generated tokens (eot-padded to the group's prompt
+        length plus the bucket's ``max_new``) for the last two decoder
+        layers' cross-attention maps, then DTW on the host. A row decoded
+        without timestamps has its one segment narrowed to its words'
+        extent. The device work holds the device lock, as a group's device
+        phase does."""
+        t_seq = ctx["p_len"] + ctx["max_new"]
+        tokens2d = np.full((ctx["batch_n"], t_seq), self.layout.eot, np.int64)
+        for i in wt_rows:
+            out = outputs[i]
+            row = out._tokens[: out._p_len + out._n_gen][:t_seq]
+            tokens2d[i, : len(row)] = row
+        with self._device_lock, torch.inference_mode():
+            enc = _mel_encode(self.model, ctx["rows_dev"], self._dtype)
+            maps = W.cross_attention_weights(
+                self.model, torch.from_numpy(tokens2d).to(self.device), enc, n_align_layers=2)
+            picked = torch.tensor(wt_rows, device=self.device)
+            k, _, h, t, ta = maps.shape
+            # (K, R, H, T, Ta) -> (R, K*H, T, Ta): the rows' heads, layer-major
+            flat = maps.index_select(1, picked).transpose(0, 1).reshape(
+                len(wt_rows), k * h, t, ta).cpu().numpy()
+            del maps, enc
+        for r, i in enumerate(wt_rows):
+            out = outputs[i]
+            gen = out._tokens[out._p_len: out._p_len + out._n_gen]
+            positions = [out._p_len + j for j, tok in enumerate(gen)
+                         if int(tok) < self.layout.eot and out._p_len + j < t_seq]
+            ids = [int(tokens2d[i, pos]) for pos in positions]
+            words = T.word_alignments(flat[r], ids, positions, self.tokenizer,
+                                      ctx["durations"][i])
+            out.words = [(w.start, w.end, w.word) for w in words]
+            if out.words and not ctx["with_ts"] and out.segments:
+                seg = out.segments[0]
+                out.segments = [Segment(out.words[0][0], max(out.words[-1][1], out.words[0][0]),
+                                        seg.text)] + out.segments[1:]
 
     def _count_draft_verify(self, group: List[_Task], accepted: np.ndarray,
                             max_new: int) -> None:

@@ -316,7 +316,7 @@ class EnginePool(_BasePool):
                     rtf=rtf,
                     queue_wait_sec=queue_wait,
                     audio_duration=duration,
-                    words=(),  # word timestamps are refused by the engine
+                    words=tuple(out.words),
                 )
             )
 

@@ -225,14 +225,24 @@ class FallbackTokenizer:
         return "".join(parts)
 
 
-def load_tokenizer(path: Optional[str], n_vocab: int):
+def load_tokenizer(path: Optional[str], n_vocab: int, *, require_real: bool = False):
     """Real tokenizer from a local file/dir when present, else the fallback.
 
     ``path`` may be a directory (an HF checkpoint or tokenizer dir — the
     usual case, searched in preference order: tokenizer.json,
     vocab.json+merges.txt, ``*.tiktoken``) or a direct path to a
     ``tokenizer.json`` / ``*.tiktoken`` file.
+
+    ``require_real=True`` (the engine sets it whenever real weights are
+    loaded) makes the fallback an error: a genuine checkpoint served
+    through the byte-fallback tokenizer would give confidently wrong
+    transcripts, so a checkpoint directory without its vocabulary fails
+    when the engine is built. ``STT_ALLOW_FALLBACK_TOKENIZER=1`` (or
+    true/yes) opts out, for hermetic checks that pair synthetic weights
+    with no vocabulary.
     """
+    allow_fallback = os.getenv("STT_ALLOW_FALLBACK_TOKENIZER", "").strip() in (
+        "1", "true", "yes")
     try:
         if path and os.path.isfile(path):
             if path.endswith(".tiktoken"):
@@ -251,7 +261,17 @@ def load_tokenizer(path: Optional[str], n_vocab: int):
             if tk:
                 return TiktokenTokenizer(tk[0], n_vocab)
     except Exception:
+        if require_real and not allow_fallback:
+            raise
         LOGGER.exception("tokenizer load failed for %r; using fallback", path)
+    if require_real and not allow_fallback:
+        raise FileNotFoundError(
+            f"real weights were loaded but no tokenizer vocab was found under {path!r} "
+            f"(looked for tokenizer.json, vocab.json+merges.txt, *.tiktoken); refusing "
+            f"to serve a genuine checkpoint through the byte-fallback tokenizer. Add "
+            f"the vocab files to the checkpoint dir, point tokenizer_path at them, or "
+            f"set STT_ALLOW_FALLBACK_TOKENIZER=1 (hermetic checks only)."
+        )
     if path:
         LOGGER.warning(
             "no tokenizer vocab found under %r; using the byte-fallback "

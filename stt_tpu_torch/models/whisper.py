@@ -9,7 +9,9 @@ other on identical weights:
 - Parameters keep the JAX layouts (linear weights (d_in, d_out), conv
   kernels (K, C_in, C_out)); :func:`init_params` draws them with the same
   numpy generator calls, so a seed gives bit-identical weights in both
-  packages. ``stt_tpu_torch.convert`` maps the JAX tree onto the modules.
+  packages, and :func:`load_hf_safetensors` reads an HF checkpoint into
+  the same tree. ``stt_tpu_torch.convert`` maps the JAX tree onto the
+  modules.
 - Layer norm takes float32 statistics (eps 1e-5); linear layers
   accumulate in float32 and add the bias before rounding to the compute
   type (``addmm``); the attention products and the vocabulary logits take
@@ -36,6 +38,10 @@ other on identical weights:
   :func:`~stt_tpu_torch.ops.kernels.flash_attention.flash_attention`. Both
   wrappers launch their CUDA kernel on the card and take their plain
   version on the CPU.
+
+:func:`cross_attention_weights` is the word-timestamp pass: the last two
+decoder layers' float32 cross-attention maps over a teacher-forced
+sequence.
 
 The decode step has one shape for every position, as the JAX package's
 scalar-``pos`` ``_decoder_step``: ``pos`` is a 0-d device tensor, the
@@ -73,10 +79,11 @@ draft in float32.
 
 from __future__ import annotations
 
+import json
 import math
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -254,6 +261,81 @@ def init_params(config: WhisperConfig, seed: int = 0) -> Dict[str, Any]:
         "ln": {"g": np.ones(d_t, np.float32), "b": np.zeros(d_t, np.float32)},
     }
     return {"encoder": enc, "decoder": dec}
+
+
+def load_hf_safetensors(path: str, config: Optional[WhisperConfig] = None,
+                        ) -> Tuple[Dict[str, Any], WhisperConfig]:
+    """A local HF Whisper checkpoint directory (``model.safetensors`` +
+    ``config.json``, the ``WhisperForConditionalGeneration`` names) as the
+    JAX-layout tree :func:`build_model` takes, with its config
+    (``stt_tpu/models/whisper.py::load_hf_safetensors``): linear weights
+    (out, in) transposed to (in, out), conv kernels (out, in, k) to
+    (k, in, out), per-layer leaves stacked. Leaves are float32 numpy (F16
+    and BF16 widen exactly). Read by the port's own reader
+    (:mod:`stt_tpu_torch.utils.safetensors_io`)."""
+    from ..utils.safetensors_io import read_safetensors
+
+    if config is None:
+        with open(os.path.join(path, "config.json")) as f:
+            hf = json.load(f)
+        config = WhisperConfig(
+            name=os.path.basename(path.rstrip("/")),
+            n_mels=hf["num_mel_bins"],
+            n_audio_state=hf["d_model"],
+            n_audio_head=hf["encoder_attention_heads"],
+            n_audio_layer=hf["encoder_layers"],
+            n_vocab=hf["vocab_size"],
+            n_text_state=hf["d_model"],
+            n_text_head=hf["decoder_attention_heads"],
+            n_text_layer=hf["decoder_layers"],
+            n_audio_ctx=hf.get("max_source_positions", 1500),
+            n_text_ctx=hf.get("max_target_positions", 448),
+        )
+    tensors = {key.replace("model.", "", 1): value.float().numpy()
+               for key, value in read_safetensors(os.path.join(path, "model.safetensors")).items()}
+
+    def lin(name, bias=True):  # (out, in) -> (in, out)
+        out = {"w": np.ascontiguousarray(tensors[f"{name}.weight"].T)}
+        if bias:
+            out["b"] = tensors[f"{name}.bias"]
+        return out
+
+    def attn(prefix):
+        return {"q": lin(f"{prefix}.q_proj"), "k": lin(f"{prefix}.k_proj", bias=False),
+                "v": lin(f"{prefix}.v_proj"), "o": lin(f"{prefix}.out_proj")}
+
+    def ln(prefix):
+        return {"g": tensors[f"{prefix}.weight"], "b": tensors[f"{prefix}.bias"]}
+
+    def block(prefix, cross):
+        out = {"ln1": ln(f"{prefix}.self_attn_layer_norm"), "attn": attn(f"{prefix}.self_attn"),
+               "ln2": ln(f"{prefix}.final_layer_norm"),
+               "mlp": {"fc1": lin(f"{prefix}.fc1"), "fc2": lin(f"{prefix}.fc2")}}
+        if cross:
+            out["ln_x"] = ln(f"{prefix}.encoder_attn_layer_norm")
+            out["xattn"] = attn(f"{prefix}.encoder_attn")
+        return out
+
+    def conv(name):  # (out, in, k) -> (k, in, out)
+        return {"w": np.ascontiguousarray(tensors[f"{name}.weight"].transpose(2, 1, 0)),
+                "b": tensors[f"{name}.bias"]}
+
+    enc = {
+        "conv1": conv("encoder.conv1"),
+        "conv2": conv("encoder.conv2"),
+        "pos": tensors["encoder.embed_positions.weight"],
+        "blocks": _stack_blocks([block(f"encoder.layers.{i}", False)
+                                 for i in range(config.n_audio_layer)]),
+        "ln_post": ln("encoder.layer_norm"),
+    }
+    dec = {
+        "tok": tensors["decoder.embed_tokens.weight"],
+        "pos": tensors["decoder.embed_positions.weight"],
+        "blocks": _stack_blocks([block(f"decoder.layers.{i}", True)
+                                 for i in range(config.n_text_layer)]),
+        "ln": ln("decoder.layer_norm"),
+    }
+    return {"encoder": enc, "decoder": dec}, config
 
 
 # ---------------------------------------------------------------------------
@@ -759,6 +841,46 @@ def decoder_forward(model: Whisper, tokens: torch.Tensor,
         h = h + block.xattn.o(x_out)
         h = h + block.mlp(block.ln2(h))
     return _tok_logits(dec, dec.ln(h))
+
+
+def cross_attention_weights(model: Whisper, tokens: torch.Tensor, enc_out: torch.Tensor,
+                            n_align_layers: int = 2) -> torch.Tensor:
+    """Teacher-forced decoder pass returning the cross-attention maps of
+    the last ``n_align_layers`` decoder layers: (K, B, H, T_text, T_audio)
+    float32 softmax weights, the word-timestamp alignment signal
+    (``stt_tpu/models/whisper.py::cross_attention_weights``). The cross K/V
+    are stored as the decoder's policy says, then dequantised
+    (:func:`_cross_dequant`); every product takes the compute type in and
+    gives float32 (:func:`_bmm_f32`). Each map is written into the output
+    as its layer runs, so no more than one layer's logits are alive at
+    once, and the last layer stops once its map is in."""
+    dec = model.decoder
+    n_head = dec.n_head
+    b, t = tokens.shape
+    h = dec.tok[tokens] + dec.pos[:t][None].to(dec.tok.dtype)
+    causal = _causal_mask(t, h.device)
+    xk, xv = _cross_dequant(precompute_cross_kv(dec, enc_out))
+    n_layers = len(dec.blocks)
+    k_layers = max(1, min(n_align_layers, n_layers))
+    split = n_layers - k_layers
+    scale = (h.shape[-1] // n_head) ** -0.25
+    out = torch.empty((k_layers, b, n_head, t, xk.shape[3]), dtype=torch.float32,
+                      device=h.device)
+    for li, block in enumerate(dec.blocks):
+        h = h + _self_attn(block.ln1(h), block.attn, n_head, causal)
+        qx = _split_heads(block.xattn.q(block.ln_x(h)), n_head) * scale
+        ck, cv = xk[li].to(h.dtype), xv[li].to(h.dtype)
+        if li < split:
+            x_out = _attn_cached(qx, ck, cv)
+        else:
+            w = out[li - split]
+            w.copy_(torch.softmax(_bmm_f32(qx, ck.transpose(-1, -2)), dim=-1))
+            if li == n_layers - 1:
+                break  # the last map is in; the rest of the layer feeds nothing
+            x_out = _bmm_f32(w.to(cv.dtype), cv)
+        h = h + block.xattn.o(_merge_heads(x_out.to(h.dtype)))
+        h = h + block.mlp(block.ln2(h))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1962,6 +2084,7 @@ __all__ = [
     "build_model",
     "build_prompt",
     "compression_ratio",
+    "cross_attention_weights",
     "decoder_forward",
     "detect_language",
     "empty_cross_kv",
@@ -1979,6 +2102,7 @@ __all__ = [
     "init_kv_cache",
     "init_params",
     "init_rules",
+    "load_hf_safetensors",
     "precompute_cross_kv",
     "repeat_cross_kv",
     "reset_rules",

@@ -28,6 +28,7 @@ import torch
 
 from stt_tpu.models import whisper as JW
 from stt_tpu_torch.models import whisper as TW
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 SUM_ATOL, SUM_RTOL = 1e-5, 1e-6
 
@@ -72,7 +73,19 @@ CASES = [
 ]
 
 
+_RUNS = {}
+
+
 def _run_both(pair, beam, patience, lp, sb, max_new, rows, plen):
+    """Both packages' beam decodes of one case, each case decoded once per
+    model (the checks that reuse a parity case read its result)."""
+    key = (pair[0].config.name, beam, patience, lp, sb, max_new, rows, plen)
+    if key not in _RUNS:
+        _RUNS[key] = _decode_both(pair, beam, patience, lp, sb, max_new, rows, plen)
+    return _RUNS[key]
+
+
+def _decode_both(pair, beam, patience, lp, sb, max_new, rows, plen):
     model, jparams, enc, prompt = pair
     enc, prompt = enc[:rows], prompt[:rows].clone()
     plen = torch.tensor(plen)

@@ -19,6 +19,7 @@ import pytest
 from stt_tpu.engine import engine as JE
 from stt_tpu_torch.engine import engine as TE
 from stt_tpu_torch.models import whisper as TW
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 SUM_ATOL = 1e-5
 ACCURATE = {"beam_size": 5, "best_of": 5, "patience": 1.0, "temperature": 0.0,

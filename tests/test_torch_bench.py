@@ -26,6 +26,7 @@ import yaml
 from stt_tpu_torch import bench as B
 from stt_tpu_torch.engine import engine as TE
 from stt_tpu_torch.models.presets import PRESETS
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 PARTIAL_KEYS = {"partial_p95_loaded_ms", "partial_p50_loaded_ms", "partial_p95_iv_median_ms",
@@ -90,10 +91,14 @@ E2E_KEYS = {"e2e_boot_s", "e2e_sessions", "e2e_error_rate", "e2e_create_p95_ms",
 
 
 def test_bench_e2e_phase_on_the_cpu():
+    """The E2E phase alone (``--e2e-only``): the engine and partial phases
+    run in ``test_bench_prints_one_json_line_on_the_cpu``. Under ``--device
+    cpu`` the load tool drives 4 x 2 sessions at 1x, which a host running
+    other test workers serves inside the shipped 30 s decode timeout."""
     env = {**os.environ, "OMP_NUM_THREADS": "2"}
     out = subprocess.run(
         [sys.executable, "-m", "stt_tpu_torch.bench", "--device", "cpu", "--model", "test",
-         "--streams", "2", "--rounds", "1"],
+         "--e2e-only"],
         cwd=REPO, capture_output=True, text=True, timeout=900, env=env,
     )
     # on a failure the bench's stderr carries the limit it hit, the server
@@ -101,11 +106,15 @@ def test_bench_e2e_phase_on_the_cpu():
     assert out.returncode == 0, out.stderr[-6000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert E2E_KEYS <= set(result) and "e2e_error" not in result, out.stderr[-6000:]
-    assert result["e2e_sessions"] == 32 and result["e2e_error_rate"] == 0.0, out.stderr[-6000:]
+    assert B.E2E_LOAD_ARGS_CPU[:4] == ["--sessions", "4", "--iterations", "2"]
+    assert result["e2e_sessions"] == 8 and result["e2e_error_rate"] == 0.0, out.stderr[-6000:]
     assert result["e2e_boot_s"] > 0 and result["e2e_create_p95_ms"] > 0, result
     for key in ("e2e_first_partial_p95_s", "e2e_final_p95_s"):
         assert result[key] is not None and result[key] > 0, (key, out.stderr[-6000:])
-    assert PARTIAL_KEYS <= set(result)
+    # the card's load is unchanged
+    assert B.E2E_LOAD_ARGS[:4] == ["--sessions", "16", "--iterations", "2"]
+    assert B.E2E_LOAD_ARGS[B.E2E_LOAD_ARGS.index("--speed") + 1] == "2.0"
+    assert not PARTIAL_KEYS & set(result) and "rtfx_best" not in result
 
 
 def test_e2e_configs_narrow_the_shipped_matrix(tmp_path):
@@ -165,9 +174,16 @@ def test_kind_of_names(name, kind):
     assert B.kind_of(name) == kind
 
 
-def test_decode_step_bytes_counts_each_buffer_once():
+@pytest.fixture(scope="module")
+def prewarmed():
+    """A bf16 ``test`` engine with its 1 s x 4-row entries at beams 1 and 5."""
     eng = TE.WhisperEngine("test", device="cpu", compute_type="bfloat16", max_decode_tokens=16)
-    eng.prewarm([1.0], [4])
+    eng.prewarm([1.0], [4], beam_sizes=[1, 5])
+    return eng
+
+
+def test_decode_step_bytes_counts_each_buffer_once(prewarmed):
+    eng = prewarmed
     cfg = eng.config
     d, layers = cfg.n_text_state, cfg.n_text_layer
     # 3 layer norms, self and cross attention (4 d x d, 3 biases each), MLP
@@ -181,11 +197,10 @@ def test_decode_step_bytes_counts_each_buffer_once():
     assert B.decode_step_bytes(eng, 1.0, 4) == expect
 
 
-def test_beam_step_bytes_count_the_cross_kv_once_a_row():
+def test_beam_step_bytes_count_the_cross_kv_once_a_row(prewarmed):
     """At beam 5 a step needs the self cache and the logits of rows x beam
     rows, but the cross K/V of its rows only once: the beams share it."""
-    eng = TE.WhisperEngine("test", device="cpu", compute_type="bfloat16", max_decode_tokens=16)
-    eng.prewarm([1.0], [4], beam_sizes=[1, 5])
+    eng = prewarmed
     cfg = eng.config
     t_max = 4 + TE.max_new_for(1.0, 16)
     self_kv_row = 2 * 2 * cfg.n_text_layer * t_max * cfg.n_text_state      # bf16 K and V

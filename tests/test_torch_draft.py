@@ -30,6 +30,7 @@ from stt_tpu.ops.mel import log_mel_spectrogram
 from stt_tpu_torch.engine import engine as TE
 from stt_tpu_torch.engine.graphs import DecodeGraphs
 from stt_tpu_torch.models import whisper as TW
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = JW.PRESETS["test"]
 MAX_NEW = 12

@@ -8,9 +8,8 @@ identical, and so must the text and language of every output; the float
 columns of the packed result (logprob sum, p(no_speech), language
 probability) come out of different softmax implementations and are held
 at rtol 1e-5. The rest checks the port's own contract: it imports no JAX,
-it never falls back to the CPU, it refuses what this slice does not serve
-(word timestamps) and serves every other option, and its threads batch,
-resolve every future and stop.
+it never falls back to the CPU, it serves every decode option, and its
+threads batch, resolve every future and stop.
 """
 
 import subprocess
@@ -26,6 +25,7 @@ from stt_tpu.engine import engine as JE
 from stt_tpu_torch import device as D
 from stt_tpu_torch.backends.torch_whisper import TorchWhisperBackend
 from stt_tpu_torch.engine import engine as TE
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -154,20 +154,6 @@ def test_unknown_device_name_raises():
 
 
 @pytest.mark.parametrize("options", [
-    {"word_timestamps": True},
-    {"beam_size": 5, "without_timestamps": False, "word_timestamps": True},
-])
-def test_unsupported_options_raise(served, options):
-    port, _ = served
-    req = TE.DecodeRequest(_audio(0.5, 9), language="en", options=options)
-    name = list(options)[-1]  # every other option is served; the last one is refused
-    with pytest.raises(NotImplementedError, match=name):
-        port.submit(req)
-    with pytest.raises(NotImplementedError, match=name):
-        port.transcribe_sync(req)
-
-
-@pytest.mark.parametrize("options", [
     {"beam_size": 5, "no_repeat_ngram_size": 3},
     {"without_timestamps": False},
     {"temperature": [0.0, 0.2, 0.4]},
@@ -177,12 +163,14 @@ def test_unsupported_options_raise(served, options):
     {"repetition_penalty": 1.3},
     {"no_repeat_ngram_size": 3},
     {"clip_timestamps": "0,1"},
+    {"word_timestamps": True},
+    {"beam_size": 5, "without_timestamps": False, "word_timestamps": True},
 ])
 def test_lifted_options_are_served(served, options):
     """The options earlier slices refused are served, through ``submit``
     and ``transcribe_sync`` alike (the ladder's draws are seeded, so both
     give one result); their outputs against the JAX engine's are in
-    ``tests/test_torch_{prompts,penalties,sampling,timestamps}.py``."""
+    ``tests/test_torch_{prompts,penalties,sampling,timestamps,word_timestamps}.py``."""
     port, _ = served
     req = TE.DecodeRequest(_audio(0.5, 9), language="en", options=options)
     queued = port.submit(req).result(timeout=120)
@@ -190,6 +178,7 @@ def test_lifted_options_are_served(served, options):
     assert direct.info.language == queued.info.language == "en"
     assert [s.text for s in direct.segments] == [s.text for s in queued.segments]
     assert direct.temperature_used == queued.temperature_used
+    assert direct.words == queued.words
 
 
 def test_default_options_are_served(served):
@@ -199,13 +188,6 @@ def test_default_options_are_served(served):
         options={"beam_size": 1, "temperature": 0.0, "without_timestamps": True},
     ))
     assert out.info.language == "en" and out.batch_rows == 1
-
-
-def test_long_final_raises(served):
-    port, _ = served
-    req = TE.DecodeRequest(np.zeros(16000 * 31, np.float32), language="en", is_final=True)
-    with pytest.raises(NotImplementedError, match="seek loop"):
-        port.transcribe_sync(req)
 
 
 def test_submit_batches_and_close_stops_threads():

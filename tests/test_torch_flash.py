@@ -22,6 +22,7 @@ import torch
 from stt_tpu.models import whisper as JW
 from stt_tpu_torch.models import whisper as TW
 from stt_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 TOLS = {"bfloat16": (2e-3, 1e-2), "float32": (1e-5, 1e-5)}  # (atol, rtol)
 

@@ -31,6 +31,7 @@ import torch
 
 from stt_tpu.models import whisper as JW
 from stt_tpu_torch.ops.kernels import flash_attention as FA
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL, RTOL = 1e-5, 1e-5
 ROWS, KEYS, LANES = FA.F32_ROWS, FA.F32_KEYS, 8

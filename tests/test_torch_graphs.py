@@ -27,6 +27,7 @@ import jax.numpy as jnp
 from stt_tpu.models import whisper as JW
 from stt_tpu_torch.engine import engine as TE
 from stt_tpu_torch.models import whisper as TW
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 STEP_ATOL = 1e-5
 
@@ -283,7 +284,7 @@ def test_engine_serves_through_one_entry_per_shape():
 
 
 def test_prewarm_runs_each_combination_once(monkeypatch):
-    eng = _engine(max_decode_tokens=16, batch_buckets=(1, 4))
+    eng = _engine(max_decode_tokens=8, batch_buckets=(1, 4))
     seen = []
     real = eng._device_phase
 
@@ -318,7 +319,7 @@ def test_prewarm_include_drafted_builds_drafted_entries_at_beam_1(monkeypatch):
     """``include_drafted`` adds one drafted group per (bucket, rows), at beam
     1 only, whatever the beam widths; each drafted entry shares its greedy
     entry's self cache and cross K/V."""
-    eng = _engine(max_decode_tokens=16, batch_buckets=(1, 4))
+    eng = _engine(max_decode_tokens=8, batch_buckets=(1, 4))
     seen = []
     real = eng._device_phase
 
@@ -341,7 +342,7 @@ def test_prewarm_include_drafted_builds_drafted_entries_at_beam_1(monkeypatch):
 def test_prewarm_builds_beam_entries(monkeypatch):
     """Beam widths are prewarmed (clamped to 1..8), each (bucket, rows, beam)
     once, into entries of their own."""
-    eng = _engine(max_decode_tokens=16, batch_buckets=(1, 4))
+    eng = _engine(max_decode_tokens=8, batch_buckets=(1, 4))
     seen = []
     real = eng._device_phase
 

@@ -368,9 +368,9 @@ def test_system_card_section_on_a_mocked_card(monkeypatch):
 
 
 def test_admin_weights_path_fails_the_job_and_the_plane_serves(monkeypatch):
-    """A weights path that passes the allowlist reaches the port's registry,
-    which refuses it with ``NotImplementedError``: the background job
-    reports ``failed`` with the message, and the plane keeps serving."""
+    """A weights path that passes the allowlist reaches the port's engine,
+    whose loader finds no checkpoint there: the background job reports
+    ``failed`` with the missing file, and the plane keeps serving."""
     monkeypatch.setenv("STT_ADMIN_ENABLED", "1")
     monkeypatch.setenv("STT_ADMIN_TOKEN", "tok")
     monkeypatch.setenv("STT_ADMIN_ALLOW_MODEL_PATH", "1")
@@ -388,7 +388,7 @@ def test_admin_weights_path_fails_the_job_and_the_plane_serves(monkeypatch):
         assert status == 200 and payload["status"] == "loading_started"
         _, payload = _wait_load(plane, headers, "ckpt")
         assert payload["status"] == "failed"
-        assert "weights_path" in payload["error"]
+        assert "/models/small/config.json" in payload["error"]
         assert not rt.model_registry.has_model("ckpt")
         # outside the allowlist it is refused before any load
         body = json.dumps({"model_id": "c2", "model_path": "/etc/x"}).encode()

@@ -24,6 +24,7 @@ from stt_tpu_torch.engine import engine as TE
 from stt_tpu_torch.models import whisper as TW
 from stt_tpu_torch.ops import mel as tmel
 from stt_tpu_torch.ops.kernels.mel import mel_logspec
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL, RTOL = 2e-4, 1e-4
 

@@ -31,6 +31,7 @@ from stt_tpu.ops import mel as jmel
 from stt_tpu_torch.engine.engine import _encode_wire_rows
 from stt_tpu_torch.ops import mel as M
 from stt_tpu_torch.ops.kernels import mel as K
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL, RTOL = 2e-4, 1e-4
 TILE_F, HOP, N_FFT, N = 16, 160, 400, 200

@@ -26,6 +26,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from stt_tpu.models import whisper as JW
 from stt_tpu_torch.models import whisper as TW
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 BF16_LOGITS_ATOL = 0.05
 

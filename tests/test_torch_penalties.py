@@ -23,6 +23,7 @@ import torch
 from stt_tpu.models import whisper as JW
 from stt_tpu_torch.models import whisper as TW
 from tests.test_torch_beam import _eot_prone
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 SUM_ATOL, SUM_RTOL = 1e-5, 1e-6
 CFG = JW.PRESETS["test"]

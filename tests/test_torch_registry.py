@@ -4,9 +4,10 @@ The registry is a copy of the JAX package's but where the card differs, so
 its fair queue is held to the original on one scripted sequence, and the
 rest checks the port's own contract: device names, no serving on the CPU in
 place of a missing card, ``draft_mode`` and the boot prewarm of the drafted
-entries, the refusals (``mesh_shape``, ``weights_path``, ``use_pallas=False`` on the card, the unported VAD
-options), the engine's metrics hook and ``pad_to_30s``, and that a refusal
-at submit time fails its task without stopping the dispatcher. The
+entries, the refusals (``mesh_shape``, ``use_pallas=False`` on the card, the
+unported VAD options), the engine's metrics hook and ``pad_to_30s``, and
+that a task the engine fails (an option it cannot read) fails alone,
+without stopping the dispatcher. The
 resampler is held to the JAX package's ``resample_np`` at atol 1e-5.
 """
 
@@ -26,6 +27,7 @@ from stt_tpu_torch.engine import registry as TR
 from stt_tpu_torch.ops.resample import resample, resample_np
 from stt_tpu_torch.server.runtime.runtime import ApplicationRuntime
 from stt_tpu_torch.utils.audio import float32_to_pcm16
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 CPU_TEST = {"backend": "torch_whisper", "model_size": "test", "device": "cpu",
             "compute_type": "float32"}
@@ -152,12 +154,6 @@ def test_draft_mode_loads_and_sets_the_boot_prewarm(monkeypatch, mode, drafted):
         registry.unload_model("m")
 
 
-def test_weights_path_raises():
-    with pytest.raises(NotImplementedError, match="weights_path"):
-        TE.WhisperEngine("test", device="cpu", compute_type="float32",
-                         weights_path="/nonexistent")
-
-
 def test_use_pallas_false_on_the_card_raises(monkeypatch):
     # a card as resolve_device would return it; the refusal comes before
     # anything is allocated there
@@ -203,13 +199,17 @@ def test_metrics_hook_records_one_batch_per_group():
 
 
 def test_engine_refusal_fails_its_task_and_the_dispatcher_survives():
+    """An option the engine cannot read (a no-speech threshold that is not
+    a number) fails its own task; the dispatcher and the engine serve the
+    next one."""
     registry = TR.ModelRegistry()
     registry.load_model("default", CPU_TEST)
     try:
         pcm = float32_to_pcm16(np.zeros(8000, np.float32))
         refused = registry.submit_decode("default", "s1", pcm, 16000,
-                                         {"language": "en", "word_timestamps": True}, True)
-        with pytest.raises(NotImplementedError, match="word_timestamps"):
+                                         {"language": "en", "no_speech_threshold": "high"},
+                                         True)
+        with pytest.raises(ValueError, match="high"):
             refused.result(timeout=60)
         served = registry.submit_decode("default", "s1", pcm, 16000, {"language": "en"}, True)
         result = served.result(timeout=120)

@@ -12,9 +12,11 @@ same results on the same bytes, and the two planes the same answers.
 ``test_rest_end_to_end_matches_the_jax_server`` runs both servers as
 subprocesses on the ``test`` model (float32, seed 0, ``--language en``),
 posts the same WAV to each with ``decode_profile=realtime`` and requires the
-same text and segments. The port answers a request that names no profile
-(``accurate``: beam 5, not served yet) with ERR2002 as the JAX plane maps
-it, and then serves the next request.
+same text and segments; then one request that names no profile
+(``accurate``: beam 5, given ``word_timestamps`` by the test's model
+config) with ``timestamp_granularities`` word and segment, whose text,
+segments and words must be the JAX server's; then the port serves a
+realtime request again.
 """
 
 import contextlib
@@ -774,10 +776,12 @@ def _http_post(port, path, body, timeout=300.0):
 
 
 @contextlib.contextmanager
-def _server(pkg):
+def _server(pkg, model_config=None):
     """One server as a subprocess (the ``test`` model, float32, seed 0,
-    English), yielding its HTTP port once ``/health`` answers 200."""
+    English, and ``--model-config model_config`` when given), yielding its
+    HTTP port once ``/health`` answers 200."""
     http_port = _free_port()
+    extra = [] if model_config is None else ["--model-config", str(model_config)]
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "2"}
     backend = {"stt_tpu": "jax_whisper", "stt_tpu_torch": "torch_whisper"}[pkg]
     server_log = tempfile.TemporaryFile()
@@ -786,7 +790,7 @@ def _server(pkg):
          "--model-backend", backend, "--device", "cpu", "--compute-type", "float32",
          "--language", "en", "--language-fix", "--decode-timeout", "120",
          "--port", str(_free_port()), "--metrics-port", str(http_port),
-         "--ws-port", "0"],
+         "--ws-port", "0", *extra],
         cwd=REPO, env=env, stdout=server_log, stderr=subprocess.STDOUT,
     )
     try:
@@ -829,12 +833,19 @@ def _tone_wav(seconds: float, seed: int) -> bytes:
     return buf.getvalue()
 
 
-def test_rest_end_to_end_matches_the_jax_server():
+def test_rest_end_to_end_matches_the_jax_server(tmp_path):
+    import yaml
+
+    # the shipped profiles, `accurate` with word timestamps
+    raw = yaml.safe_load((REPO / "config/model.yaml").read_text())
+    raw["model"]["decode_profiles"]["accurate"]["word_timestamps"] = True
+    model_config = tmp_path / "model.yaml"
+    model_config.write_text(yaml.safe_dump(raw))
     wav = _tone_wav(2.0, seed=11)
     realtime = "/v1/audio/transcriptions?decode_profile=realtime&response_format=verbose_json"
     got = {}
     with contextlib.ExitStack() as stack:
-        ports = {p: stack.enter_context(_server(p)) for p in PACKAGES}
+        ports = {p: stack.enter_context(_server(p, model_config)) for p in PACKAGES}
         for p, port in ports.items():
             got[p] = _http_post(port, realtime, wav)
         # the port's health and metrics carry the JAX plane's keys
@@ -844,10 +855,12 @@ def test_rest_end_to_end_matches_the_jax_server():
         metrics = {p: json.loads(_http_get(port, "/metrics.json")[1])
                    for p, port in ports.items()}
         assert set(metrics["stt_tpu_torch"]) == set(metrics["stt_tpu"])
-        # no profile: accurate (beam 5), served by both planes alike; then the
-        # port's server serves a realtime request again
+        # no profile: accurate (beam 5, word timestamps), served by both planes
+        # alike; then the port's server serves a realtime request again
         accurate = {p: _http_post(port, "/v1/audio/transcriptions?response_format="
-                                  "verbose_json", wav) for p, port in ports.items()}
+                                  "verbose_json&timestamp_granularities=word"
+                                  "&timestamp_granularities=segment", wav)
+                    for p, port in ports.items()}
         again = _http_post(ports["stt_tpu_torch"], realtime, wav)
     (js, jp), (ts, tp) = got["stt_tpu"], got["stt_tpu_torch"]
     assert js == ts == 200, (jp, tp)
@@ -860,3 +873,5 @@ def test_rest_end_to_end_matches_the_jax_server():
     assert tp["text"].strip()
     assert tp["text"] == jp["text"]
     assert tp["segments"] == jp["segments"]
+    assert tp["words"] and tp["words"] == jp["words"], (tp.get("words"), jp.get("words"))
+    assert "words" not in got["stt_tpu_torch"][1]

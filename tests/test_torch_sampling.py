@@ -43,6 +43,7 @@ from stt_tpu_torch.engine import engine as TE
 from stt_tpu_torch.models import whisper as TW
 from tests.test_torch_beam import _eot_prone
 from tests.test_torch_timestamps import ENGINE_KW, _audio, assert_outputs_equal
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = JW.PRESETS["test"]
 SUM_ATOL, SUM_RTOL = 1e-5, 1e-6

@@ -18,6 +18,7 @@ import logging
 import pytest
 
 from stt_tpu_torch.engine import engine as TE
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 SWITCHES = ("STT_DRAFT_PARTIALS", "STT_DECODER_WEIGHTS_DTYPE", "STT_FUSED_QKV",
             "STT_SELF_KV_DTYPE", "STT_PREFILL")

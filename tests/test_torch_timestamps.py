@@ -29,6 +29,7 @@ from stt_tpu.models import whisper as JW
 from stt_tpu_torch.engine import engine as TE
 from stt_tpu_torch.models import whisper as TW
 from tests.test_torch_beam import _eot_prone
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = JW.PRESETS["test"]
 LAYOUT = JW.token_layout(CFG.n_vocab)

@@ -31,6 +31,20 @@ from stt_tpu_torch.models import whisper as TW
 BF16_LOGITS_ATOL = 0.05
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for a module's torch work (port test modules
+    import this fixture). Their models are tiny, so more threads gain
+    nothing, and with the suite's six workers on one 8-core host each
+    worker's threads spend most of their time waiting at barriers: two
+    ``tests/test_torch_graphs.py`` cases in six processes at once took
+    459 s at 8 threads and 12 s at 1."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
 

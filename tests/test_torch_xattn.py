@@ -28,6 +28,7 @@ from stt_tpu_torch.engine import engine as TE
 from stt_tpu_torch.models import whisper as TW
 from stt_tpu_torch.ops.kernels import xattn_decode as XK
 from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode, xattn_decode_plain
+from tests.test_torch_whisper import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-2
 DTYPES = {"bf16": (jnp.bfloat16, torch.bfloat16),
