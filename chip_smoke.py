@@ -138,6 +138,47 @@ PyTorch built for CUDA. In order:
       against the CPU: a 65 s final in timestamp mode with words, its
       segments equal, its words equal in text with times within 0.02 s
       (one frame);
+   i. the decoder policies, any decode bound and ``use_pallas=False``
+      (after h): the default whisper-small bf16 engine (int8 cross K/V,
+      einsum) serves 64 x 10 s greedy and 4 x 10 s at beam 5; an engine at
+      ``use_pallas=False`` serves a 16 x 10 s group with no log-mel kernel
+      launch where the default engine launches it once, its plain log-mel
+      within the kernel's tolerance (atol 2e-4, rtol 1e-4); then one engine
+      per policy switch (``STT_DECODER_WEIGHTS_DTYPE`` int8 and int8_native,
+      ``STT_FUSED_QKV``, ``STT_SELF_KV_DTYPE=fp8``, ``STT_PREFILL=seq``, and
+      fused with int8) serves the same two groups with no capture, its
+      greedy (64 rows) and beam-5 (4 rows) replays bitwise their uncaptured
+      runs, one decode step's logits within 0.05 of the same policy's model
+      on the CPU (plain versions, 8 rows of the card's encoder output; 0.1
+      for int8_native, which re-quantizes every activation), and against
+      the default engine's within 0.05 for fused and seq and within the JAX
+      package's own bars for 8-bit storage (0.06 of the largest |logit| for
+      int8 weights and the fp8 self cache, 0.12 for int8_native,
+      ``tests/test_quant_weights.py``), the greedy token agreement printed
+      beside it (every policy is measured before the phase fails on any),
+      and prints its
+      captured greedy and beam-5 steps beside the default engine's, its
+      decoder's bytes on the card and, for seq, a conditioned 30 s window's
+      prefill (228 tokens); then an engine at ``max_decode_tokens=100``
+      serves 4 x 30 s greedy, at beam 5 and as two drafted ticks, no row
+      past 100, the 30 s entries' replays (12 chunks and a captured tail of
+      4) bitwise their uncaptured runs. The ``test`` model in float32 on
+      the card gives the CPU's tokens at ``use_pallas=False``, under fused
+      and seq (greedy, beam 5, drafted) and at the bound 100;
+   j. opt-in VAD (after i): the batched VAD scorer on the card at 64
+      sessions x 3 frames (probabilities within 1e-5 of the numpy path; ms
+      per tick idle and right behind ~60 ms of products queued on the
+      default stream, on the scorer's own stream and, for comparison, on
+      the default stream); a graph with the Silero v5 signature (input
+      [B, 576], state [2, B, 128], sr), hand-encoded with seeded weights,
+      scoring 30 frames on the card within 1e-5 of the port's executor on
+      the CPU (ms per 3-frame chunk); then the gRPC server in-process with
+      ``vad.device: device`` and again with host VAD (batch bucket 16 only,
+      drafting off), 16 sessions of the load tool's audio at 2x with
+      partials on and a final at each VAD endpoint: the scorer's batches
+      above 0 and its fallbacks 0, every session's finals (endpoints and
+      texts) equal with both, first-partial and final p95 of each; a JSON
+      line summarises phases i and j;
    f. drafted partials (run before e): the ``test`` model in float32 on the
    card, 4 rows of 5 s with an empty, a perfect, an adversarial and a
    mid-mutation draft, must give the plain decode's tokens and lengths,
@@ -707,7 +748,7 @@ def narrow_phase(torch, W, dev) -> None:
         ks = torch.rand((1, rows, h, 1, 1), generator=gen, device=dev) * 0.01 + 0.005
         vs = torch.rand((1, rows, h, 1, 1), generator=gen, device=dev) * 0.01 + 0.005
         ckv = W.CrossKV(randq(1, rows, h, ta, dh), randq(1, rows, h, ta, dh), ks, vs)
-        dec = types.SimpleNamespace(tok=randn(vocab, d, sc=0.02))
+        dec = types.SimpleNamespace(tok=randn(vocab, d, sc=0.02), tok_q=None)
         x = randn(rows, d)
         eq, ek, ev = (randn(rows, h, ta, dh, sc=sc) for sc in (scale, scale, 1.0))
         cases = {
@@ -812,12 +853,13 @@ def counted_run(W, engine, run):
     return result, counts
 
 
-def graphs_phase(torch, E, W, engine, seconds: float, rows: int, tag: str) -> None:
+def graphs_phase(torch, E, W, engine, seconds: float, rows: int, tag: str) -> dict:
     """Phase 3c on one prewarmed engine: a group of ``rows`` requests of
     ``seconds`` (alternately a fixed and a detected language) decoded on
-    its entry by replaying the captured chunk and by the same chunk
-    uncaptured; tokens, lengths and logprob sums must be bitwise identical.
-    Prints both ms per decode step (CUDA events)."""
+    its entry by replaying the captured chunk (and tail) and by the same
+    steps uncaptured; tokens, lengths and logprob sums must be bitwise
+    identical. Prints and returns both ms per decode step (CUDA events),
+    keyed captured True / False."""
     from stt_tpu_torch import bench as B
 
     bucket = engine._bucket_for(int(seconds * 16000))
@@ -857,6 +899,7 @@ def graphs_phase(torch, E, W, engine, seconds: float, rows: int, tag: str) -> No
         f"{a.lengths.tolist()}); ms per decode step: captured {ms[True]:.4f}, uncaptured "
         f"{ms[False]:.4f}; {nbytes / 1e6:.1f} MB a step, bound {bound_ms:.4f} ms (bytes), "
         f"captured at {bound_ms / ms[True]:.1%} of it")
+    return ms
 
 
 def serve_default_phase(torch, E, W, audio_wire: str) -> int:
@@ -1140,12 +1183,11 @@ def graphs_f32_phase(torch, E, W) -> None:
     engine.close()
 
 
-def drafted_group(torch, E, W, engine, rows: int, seed: int):
-    """A group of ``rows`` requests of 3-5 s (the 5 s bucket, the partial
-    window) in language en, encoded into the cross K/V that the shape's
-    greedy and drafted entries share; returns (plain entry, drafted entry,
-    prompt, prompt lengths)."""
-    bucket = 5.0
+def drafted_group(torch, E, W, engine, rows: int, seed: int, bucket: float = 5.0):
+    """A group of ``rows`` requests of 60-100% of ``bucket`` (by default
+    5 s, the partial window) in language en, encoded into the cross K/V
+    that the shape's greedy and drafted entries share; returns (plain
+    entry, drafted entry, prompt, prompt lengths)."""
     pcm = np.zeros((rows, int(bucket * 16000)), np.int16)
     for i in range(rows):
         audio = synth_audio(bucket * (0.6 + 0.4 * i / max(1, rows - 1)), seed=seed + i % 8)
@@ -2058,6 +2100,783 @@ def long_words_phase(torch, E, W) -> dict:
     return totals
 
 
+# -- phase 3i: the decoder policies, any decode bound, use_pallas false -------------
+
+POLICY_SWITCHES = ("STT_DECODER_WEIGHTS_DTYPE", "STT_FUSED_QKV", "STT_SELF_KV_DTYPE",
+                   "STT_PREFILL", "STT_DRAFT_PARTIALS")
+POLICIES = {
+    "int8": {"STT_DECODER_WEIGHTS_DTYPE": "int8"},
+    "int8_native": {"STT_DECODER_WEIGHTS_DTYPE": "int8_native"},
+    "fused": {"STT_FUSED_QKV": "on"},
+    "fp8_self": {"STT_SELF_KV_DTYPE": "fp8"},
+    "seq": {"STT_PREFILL": "seq"},
+    "fused_int8": {"STT_FUSED_QKV": "on", "STT_DECODER_WEIGHTS_DTYPE": "int8"},
+}
+POLICY_LOGITS_ATOL = 0.05    # the bf16 bound of tests/test_torch_policies.py
+# 8-bit storage against the bf16 engine: the JAX package's own bars, relative
+# to the largest |logit| (at least 1), tests/test_quant_weights.py:97 (int8
+# weights, also taken for the fp8 self cache, its other 8-bit storage) and
+# :259 (int8_native)
+STORAGE_LOGITS_REL = {"int8": 0.06, "int8_native": 0.12, "fp8": 0.06}
+# int8_native against its own model on the CPU: it re-quantizes every
+# activation a row at a time, so a bf16 rounding difference upstream can move
+# a code across a rounding edge; twice the bf16 bound, the ratio of the JAX
+# package's native and int8 bars
+NATIVE_CPU_ATOL = 2 * POLICY_LOGITS_ATOL
+QUANT_AGREEMENT_BAR = 0.6    # tests/test_quant_weights.py:106, seed-averaged, tiny model
+BOUND = 100                  # a max_decode_tokens off the 8-step chunk
+COND_PROMPT = 223            # a conditioned window's context: the half-context budget
+
+
+class Switches:
+    """The decoder-policy switches (and ``STT_DRAFT_PARTIALS``) for a
+    block: every one unset, then ``values`` set; restored after."""
+
+    def __init__(self, values: dict) -> None:
+        self.values = values
+
+    def __enter__(self):
+        import os
+
+        self.saved = {k: os.environ.get(k) for k in POLICY_SWITCHES}
+        for k in POLICY_SWITCHES:
+            os.environ.pop(k, None)
+        os.environ.update(self.values)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+class SeededParams:
+    """``W.init_params`` memoised per (preset, seed) for a block, so the
+    block's engines draw their seed-0 weights once (the draws are the same
+    numbers every time)."""
+
+    def __init__(self, W) -> None:
+        self.W = W
+
+    def __enter__(self):
+        real, memo = self.W.init_params, {}
+
+        def cached(config, seed=0):
+            key = (config.name, seed)
+            if key not in memo:
+                memo[key] = real(config, seed=seed)
+            return memo[key]
+
+        self.real = real
+        self.W.init_params = cached
+        return self
+
+    def __exit__(self, *exc):
+        self.W.init_params = self.real
+        return False
+
+
+def release(engine) -> None:
+    """Close an engine and give its device memory back."""
+    import gc
+
+    import torch
+
+    engine.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def small_engine(E, **kw):
+    """whisper-small bf16 on the default attention path (int8 cross K/V,
+    einsum attention) with ``kw``."""
+    opts = dict(device="cuda", compute_type="bfloat16", batch_buckets=(4, 16, 64),
+                cross_kv_dtype="int8", xattn_kernel="off", flash_attention="off",
+                draft_mode="off")
+    opts.update(kw)
+    return E.WhisperEngine("small", **opts)
+
+
+def group_tasks(E, seconds: float, rows: int, seed: int, options=None, prefix: str = ""):
+    """``rows`` requests of 60-100% of ``seconds`` (one bucket), language
+    en, as tasks; with ``prefix`` each gets a session id."""
+    return [E._Task(E.DecodeRequest(
+        synth_audio(seconds * (0.6 + 0.4 * i / max(1, rows - 1)), seed=seed + i % 8),
+        language="en", options=dict(options or {}),
+        session_id=f"{prefix}{i}" if prefix else ""), None) for i in range(rows)]
+
+
+def group_pcm(E, engine, seconds: float, rows: int, seed: int) -> np.ndarray:
+    """The int16 rows (one bucket wide) of :func:`group_tasks`'s audio."""
+    bucket = engine._bucket_for(int(seconds * 16000))
+    pcm = np.zeros((rows, int(bucket * 16000)), np.int16)
+    for i in range(rows):
+        audio = synth_audio(seconds * (0.6 + 0.4 * i / max(1, rows - 1)), seed=seed + i % 8)
+        pcm[i, : len(audio)] = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    return pcm
+
+
+def encoder_states(torch, E, engine, pcm: np.ndarray):
+    """The engine's encoder output for ``pcm`` (int16 rows of one bucket)."""
+    with engine._device_lock, torch.inference_mode():
+        rows_dev = torch.from_numpy(E._encode_wire_rows(pcm, engine.audio_wire)).to(engine.device)
+        return E._mel_encode(engine.model, rows_dev, engine._dtype, engine.use_pallas)
+
+
+def step_logits(torch, W, model, enc):
+    """float32 logits (rows, V) of the decode step at the last prompt
+    position after the prefill of the sot sequence (language en), from the
+    encoder output ``enc`` on ``model``'s device: the cross K/V in its
+    storage, the self cache in its decoder policy's, the prefill and the
+    step as the policy says."""
+    dev = enc.device
+    rows = enc.shape[0]
+    prompt = np.array([W.build_prompt(model.config, "en")] * rows, np.int64)
+    dec = model.decoder
+    with torch.inference_mode():
+        ckv = W.precompute_cross_kv(dec, enc)
+        p_len = prompt.shape[1]
+        cache = W.init_kv_cache(model.config, rows, p_len + 8,
+                                dec.decoder_policy.cache_dtype(enc.dtype), dev)
+        toks = torch.from_numpy(prompt).to(dev)
+        W._prefill(dec, toks, p_len, cache, ckv, 0, W.token_layout(model.config.n_vocab))
+        return W._decoder_step(dec, toks[:, -1], p_len - 1, cache, ckv).float().cpu()
+
+
+def cpu_step_logits(torch, W, engine, enc, rows: int = 8):
+    """:func:`step_logits` of the engine's model rebuilt on the CPU (the
+    same seed-0 weights, the same policies, the plain versions) for the
+    first ``rows`` rows of the card's encoder output."""
+    model = W.build_model(engine.config, W.init_params(engine.config, seed=0),
+                          torch.device("cpu"), engine._dtype, engine.policy,
+                          engine.decoder_policy)
+    try:
+        return step_logits(torch, W, model, enc[:rows].cpu())
+    finally:
+        del model
+
+
+def decoder_bytes(engine) -> int:
+    """Bytes of the decoder's weights on the device, as stored."""
+    dec = engine.model.decoder
+    return int(sum(t.numel() * t.element_size() for t in (*dec.parameters(), *dec.buffers())))
+
+
+def prefill_ms(torch, W, engine, bucket: float = 30.0) -> float:
+    """Device ms of one conditioned window's prefill at ``bucket``, 1 row:
+    ``[sot_prev]`` + ``COND_PROMPT`` context tokens + the sot sequence,
+    through the engine's prefill policy (CUDA events, median of 5)."""
+    dev = engine.device
+    dec = engine.model.decoder
+    layout = engine.layout
+    ctx = np.random.default_rng(5).integers(100, 40000, COND_PROMPT).tolist()
+    prompt = [layout.sot_prev] + ctx + W.build_prompt(engine.config, "en")
+    with torch.inference_mode():
+        enc = torch.randn(1, int(bucket * 50), engine.config.n_text_state,
+                          device=dev).to(engine._dtype)
+        ckv = W.precompute_cross_kv(dec, enc)
+        cache = W.init_kv_cache(engine.config, 1, len(prompt) + 8,
+                                dec.decoder_policy.cache_dtype(engine._dtype), dev)
+        toks = torch.tensor([prompt], device=dev)
+    return group_ms(torch, engine, lambda: W._prefill(dec, toks, len(prompt), cache, ckv,
+                                                       1 + COND_PROMPT, layout), reps=2)
+
+
+def f32_card_vs_cpu(E, tag: str, groups, switches=None, **engine_kw) -> None:
+    """The ``test`` model in float32 on the card and on the CPU with the
+    same engine options and policy switches: each group, a list of
+    ((seconds, language) clips, options, ticks), through the device phase
+    (ticks > 1: sessions whose later ticks ride the drafted decode); token
+    rows and texts must be equal."""
+    outs = {}
+    with Switches(switches or {}):
+        for device in ("cuda", "cpu"):
+            eng = E.WhisperEngine("test", device=device, compute_type="float32",
+                                  batch_buckets=(1, 4), **engine_kw)
+            try:
+                got = []
+                for gi, (clips, opts, ticks) in enumerate(groups):
+                    for _ in range(ticks):
+                        tasks = []
+                        for i, (secs, lang) in enumerate(clips):
+                            tasks.append(E._Task(E.DecodeRequest(
+                                synth_audio(secs, seed=50 + i), language=lang,
+                                options=dict(opts),
+                                session_id=f"f32-{gi}-{i}" if ticks > 1 else ""), None))
+                            eng._attach_draft(tasks[-1])
+                        res = eng._harvest(eng._device_phase(tasks))
+                        got.append([(o._tokens[: o._p_len + o._n_gen].tolist(),
+                                     [s.text for s in o.segments]) for o in res])
+                outs[device] = got
+                policy = eng.decoder_policy
+            finally:
+                eng.close()
+    differ = [i for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])) if a != b]
+    if differ or len(outs["cuda"]) != len(outs["cpu"]):
+        fail(f"{tag} f32 (test model, card vs CPU): groups {differ} differ: "
+             f"{[outs['cuda'][i][0][0][:12] for i in differ][:1]} vs "
+             f"{[outs['cpu'][i][0][0][:12] for i in differ][:1]}")
+    log(f"{tag} f32 (test model, card vs CPU, {policy}): {len(outs['cpu'])} groups, every "
+        f"token row and text equal (generated "
+        f"{[len(r[0]) for g in outs['cpu'] for r in g]} tokens with the prompts)")
+
+
+def no_pallas_phase(torch, E, W, M, base) -> dict:
+    """Item 8 of phase 3i: ``use_pallas=False`` on the card. A whisper-small
+    engine so built serves a 16 x 10 s group with no log-mel kernel launch
+    while ``base`` (the default engine, prewarmed at 16 rows) launches it
+    once for the same group; the plain log-mel of the group's rows is
+    within the kernel's tolerance of the kernel's; the ``test`` model in
+    float32 at ``use_pallas=False`` gives the CPU's tokens."""
+    from stt_tpu_torch.ops.kernels.mel import mel_logspec
+
+    engine = small_engine(E, batch_buckets=(16,), use_pallas=False)
+    try:
+        engine.prewarm([10.0], [16])
+        captures = engine.graph_captures
+        tasks = group_tasks(E, 10.0, 16, seed=60)
+        outs, counts = counted_run(W, engine, lambda: engine._harvest(engine._device_phase(tasks)))
+        if counts["mel_logspec"] != 0 or engine.graph_captures != captures:
+            fail(f"use_pallas=False: {counts['mel_logspec']} log-mel kernel launches, "
+                 f"{engine.graph_captures - captures} captures while serving")
+        base_outs, base_counts = counted_run(
+            W, base, lambda: base._harvest(base._device_phase(group_tasks(E, 10.0, 16, 60))))
+        if base_counts["mel_logspec"] != 1:
+            fail(f"use_pallas=False: the default engine launched the log-mel kernel "
+                 f"{base_counts['mel_logspec']} times for the same group, not once")
+        pcm = group_pcm(E, engine, 10.0, 16, 60)
+        rows = torch.from_numpy(E._encode_wire_rows(pcm, "mulaw")).cuda()
+        with torch.inference_mode():
+            plain = M.normalize_log_mel(M.log_mel_raw(M.expand_wire(rows), 80))
+            kernel = M.normalize_log_mel(mel_logspec(rows, 80))
+            ms = {"plain": cuda_ms(torch, lambda: M.log_mel_raw(M.expand_wire(rows), 80)),
+                  "kernel": cuda_ms(torch, lambda: mel_logspec(rows, 80))}
+        err = (plain - kernel).abs().max().item()
+        try:
+            torch.testing.assert_close(plain, kernel, atol=MEL_ATOL, rtol=MEL_RTOL)
+        except AssertionError as exc:
+            fail(f"use_pallas=False: the plain log-mel disagrees with the kernel: {exc}")
+        same = float(np.mean([np.array_equal(a._tokens, b._tokens)
+                              for a, b in zip(outs, base_outs)]))
+    finally:
+        release(engine)
+    f32_card_vs_cpu(E, "use_pallas=False", [([(1.5, "en"), (0.7, None)], {}, 1),
+                                            ([(8.0, "en")], {"beam_size": 5}, 1)],
+                    use_pallas=False)
+    log(f"use_pallas=False (whisper-small bf16, 16 x 10 s): 0 log-mel kernel launches, the "
+        f"default engine 1 for the same group; plain log-mel vs kernel max abs err "
+        f"{err:.3g} (limit {MEL_ATOL:g} / {MEL_RTOL:g}); plain {ms['plain']:.4f} ms, kernel "
+        f"{ms['kernel']:.4f} ms back to back; {same:.0%} of the rows' tokens identical to "
+        f"the kernel path's")
+    return {"plain_ms": ms["plain"], "kernel_ms": ms["kernel"], "err": err}
+
+
+def policy_phase(torch, E, W, M, card: str) -> dict:
+    """Phase 3i, items 8 and 11: the default bf16 engine (64 x 10 s greedy,
+    4 x 10 s at beam 5), ``use_pallas=False`` (:func:`no_pallas_phase`),
+    then each decoder policy of ``POLICIES`` on an engine of its own: the
+    switches read at build, a 64 x 10 s greedy group and a beam-5 group of
+    4 served with no capture, the captured greedy and beam chunks bitwise
+    their uncaptured runs; one decode step's logits on the card within
+    ``POLICY_LOGITS_ATOL`` of the same policy's model on the CPU (plain
+    versions, 8 rows of the card's encoder output; ``NATIVE_CPU_ATOL`` for
+    int8_native), and against the default engine's within
+    ``POLICY_LOGITS_ATOL`` for fused and seq and within the JAX package's
+    relative bars for 8-bit storage (``STORAGE_LOGITS_REL``: int8 weights,
+    int8_native, the fp8 self cache), the greedy token agreement beside it; the
+    captured greedy step and the beam-5 step timed, the decoder's bytes on
+    the device, for ``seq`` a conditioned 30 s window's prefill; fused and
+    seq also in float32 against the CPU. Every policy is measured before
+    the phase fails on any. Returns the summary and the launches of the
+    served groups."""
+    from stt_tpu_torch import bench as B
+
+    summary, launches, failures = {}, 0, []
+    base = small_engine(E)
+    try:
+        if base.decoder_policy != W.DecoderPolicy():
+            fail(f"policies: the default engine built {base.decoder_policy}")
+        base.prewarm([10.0], [16, 64])
+        base.prewarm([10.0], [4], beam_sizes=[5])
+        summary["no_pallas"] = no_pallas_phase(torch, E, W, M, base)
+        enc = encoder_states(torch, E, base, group_pcm(E, base, 10.0, 64, 90))
+        base_logits = step_logits(torch, W, base.model, enc)
+        base_cpu_err = (cpu_step_logits(torch, W, base, enc) - base_logits[:8]).abs().max().item()
+        base_outs, counts = counted_run(
+            W, base, lambda: base._harvest(base._device_phase(group_tasks(E, 10.0, 64, 90))))
+        launches += counts["mel_logspec"]
+        base_tokens = np.stack([o._tokens for o in base_outs])
+        summary["bf16"] = {
+            "step_ms": B.decode_step_ms(base, 10.0, 64, captured=True),
+            "beam_ms": B.decode_step_ms(base, 10.0, 4, captured=True, beam=BEAM),
+            "decoder_bytes": decoder_bytes(base), "cpu_logits_err": base_cpu_err,
+            "prefill_ms": prefill_ms(torch, W, base),
+        }
+    finally:
+        release(base)
+    log(f"policies: the default engine's step logits on the card within {base_cpu_err:.4f} "
+        f"of its model on the CPU (8 rows, bf16 both)")
+    for name, switches in POLICIES.items():
+        t0 = time.monotonic()
+        with Switches(switches):
+            engine = small_engine(E)
+        try:
+            pol = engine.decoder_policy
+            if pol == W.DecoderPolicy():
+                fail(f"policy {name}: the switches {switches} built the default policy")
+            engine.prewarm([10.0], [64])
+            engine.prewarm([10.0], [4], beam_sizes=[5])
+            captures = engine.graph_captures
+            outs, counts = counted_run(W, engine, lambda: engine._harvest(
+                engine._device_phase(group_tasks(E, 10.0, 64, 90))))
+            beam_outs, beam_counts = counted_run(W, engine, lambda: engine._harvest(
+                engine._device_phase(group_tasks(E, 10.0, 4, 70, {"beam_size": BEAM}))))
+            launches += counts["mel_logspec"] + beam_counts["mel_logspec"]
+            if engine.graph_captures != captures:
+                fail(f"policy {name}: {engine.graph_captures - captures} captures while serving")
+            for o in outs + beam_outs:
+                if not (0 < o._n_gen <= engine._max_new_for(10.0)
+                        and np.isfinite(o.avg_logprob)):
+                    fail(f"policy {name}: malformed output (n_gen {o._n_gen}, avg logprob "
+                         f"{o.avg_logprob})")
+            ms = graphs_phase(torch, E, W, engine, 10.0, 64, f"whisper-small bf16, {name}")
+            beam_graphs_check(torch, E, W, engine, 10.0, 4, f"whisper-small bf16, {name}")
+            logits = step_logits(torch, W, engine.model, enc)
+            cpu_err = (cpu_step_logits(torch, W, engine, enc) - logits[:8]).abs().max().item()
+            err = (logits - base_logits).abs().max().item()
+            scale = max(base_logits.abs().max().item(), 1.0)
+            storage = pol.weights if pol.int8 else pol.self_kv
+            rel = STORAGE_LOGITS_REL.get(storage)
+            limit = rel * scale if rel else POLICY_LOGITS_ATOL
+            cpu_limit = NATIVE_CPU_ATOL if pol.native else POLICY_LOGITS_ATOL
+            agree = float((np.stack([o._tokens for o in outs]) == base_tokens).mean())
+            if not torch.isfinite(logits).all() or cpu_err > cpu_limit:
+                failures.append(f"{name}: step logits on the card {cpu_err:.4g} from the same "
+                                f"policy on the CPU (limit {cpu_limit})")
+            if err > limit:
+                failures.append(f"{name}: step logits {err:.4g} from the default engine's "
+                                f"(limit {limit:.4g})")
+            row = {
+                "policy": str(pol), "step_ms": ms[True], "eager_ms": ms[False],
+                "beam_ms": B.decode_step_ms(engine, 10.0, 4, captured=True, beam=BEAM),
+                "decoder_bytes": decoder_bytes(engine), "logits_err": err,
+                "logits_limit": limit, "cpu_logits_err": cpu_err, "cpu_limit": cpu_limit,
+                "token_agreement": agree,
+                "bytes_a_step": B.decode_step_bytes(engine, 10.0, 64),
+            }
+            if name == "seq":
+                row["prefill_ms"] = prefill_ms(torch, W, engine)
+            summary[name] = row
+        finally:
+            release(engine)
+        log(f"policy {name} ({row['policy']}; {time.monotonic() - t0:.1f} s): step logits "
+            f"{cpu_err:.4f} from the same policy on the CPU (limit {cpu_limit}; the default "
+            f"engine's own {base_cpu_err:.4f}), {err:.4f} from the default engine's (limit "
+            f"{limit:.4f}"
+            + (f": {rel} of the largest |logit| {scale:.3f}, the JAX package's bar for 8-bit "
+               f"storage" if rel else "") + f"), greedy token agreement "
+            f"{agree:.3f} over 64 x 10 s (the JAX package's bar on its tiny model "
+            f"{QUANT_AGREEMENT_BAR}); captured greedy step {row['step_ms']:.4f} ms at 64 x 10 s "
+            f"(default {summary['bf16']['step_ms']:.4f}), beam-5 step {row['beam_ms']:.4f} ms at "
+            f"4 x 10 s (default {summary['bf16']['beam_ms']:.4f}); decoder "
+            f"{row['decoder_bytes'] / 1e6:.1f} MB on the device (default "
+            f"{summary['bf16']['decoder_bytes'] / 1e6:.1f})"
+            + (f"; a conditioned 30 s window's prefill ({COND_PROMPT + 5} tokens) "
+               f"{row['prefill_ms']:.2f} ms (parallel {summary['bf16']['prefill_ms']:.2f})"
+               if name == "seq" else "") + f" ({card})")
+    if failures:
+        fail("policies: " + "; ".join(failures))
+    for name in ("fused", "seq"):
+        f32_card_vs_cpu(E, f"policy {name}", [([(1.5, "en"), (0.7, None)], {}, 1),
+                                             ([(1.2, "en"), (0.9, "en")], {"beam_size": 5}, 1),
+                                             ([(1.8, "en"), (1.1, "en")], {}, 2)],
+                        switches=POLICIES[name], draft_mode="on")
+    return {"summary": summary, "mel_logspec": launches}
+
+
+def bound_phase(torch, E, W) -> dict:
+    """Phase 3i, item 9: whisper-small bf16 at ``max_decode_tokens=BOUND``
+    (the 30 s bucket's bound 100: 12 chunks and a captured tail of 4). A
+    4 x 30 s greedy group, a beam-5 group and two ticks of drafted
+    partials served with no capture and no row past the bound; the greedy,
+    beam and drafted entries' replays bitwise their uncaptured runs; the
+    ``test`` model in float32 at the same bound gives the CPU's tokens."""
+    engine = small_engine(E, batch_buckets=(1, 4), max_decode_tokens=BOUND, draft_mode="on")
+    try:
+        max_new = engine._max_new_for(30.0)
+        engine.prewarm([30.0], [4], beam_sizes=[1, BEAM], include_drafted=True)
+        captures = engine.graph_captures
+        entry = engine.graphs.lookup(30.0, 4, 4, max_new)
+        if max_new != BOUND or entry.tail != BOUND % 8 or entry.tail_graph is None:
+            fail(f"bound {BOUND}: the 30 s bucket's bound {max_new}, tail {entry.tail}")
+        served, launches = {}, 0
+        for name, opts, prefix, ticks in (("greedy", {}, "", 1), ("beam", {"beam_size": BEAM}, "", 1),
+                                          ("drafted", {}, "bound-", 2)):
+            for _ in range(ticks):
+                tasks = group_tasks(E, 30.0, 4, 100, opts, prefix)
+                for t in tasks:
+                    engine._attach_draft(t)
+                outs, counts = counted_run(W, engine, lambda: engine._harvest(
+                    engine._device_phase(tasks)))
+                launches += counts["mel_logspec"]
+            served[name] = ([o._n_gen for o in outs], counts["graph_replays"],
+                            tasks[0].draft is not None)
+            if any(not 0 < o._n_gen <= BOUND for o in outs):
+                fail(f"bound {BOUND} ({name}): generated {[o._n_gen for o in outs]}")
+        if not served["drafted"][2]:
+            fail(f"bound {BOUND}: the second tick did not ride the drafted decode")
+        if engine.graph_captures != captures:
+            fail(f"bound {BOUND}: {engine.graph_captures - captures} captures while serving")
+        graphs_phase(torch, E, W, engine, 30.0, 4, f"whisper-small bf16, bound {BOUND}")
+        beam_graphs_check(torch, E, W, engine, 30.0, 4, f"whisper-small bf16, bound {BOUND}")
+        plain, drafted, prompt, plen = drafted_group(torch, E, W, engine, 4, seed=110, bucket=30.0)
+        with engine._device_lock, torch.inference_mode():
+            base = engine.graphs.decode(plain, prompt, plen)
+        draft = base.tokens[:, plain.key.p_len:].clone()
+        draft[1, 20:] = (draft[1, 20:] + 7) % 1000
+        dlen = base.lengths - plain.key.p_len
+        got = {c: drafted_decodes(torch, engine, plain, drafted, prompt, plen, draft, dlen, c)[1]
+               for c in (True, False)}
+        for field in ("tokens", "lengths", "sum_logprob", "n_accepted"):
+            if not torch.equal(getattr(got[True], field), getattr(got[False], field)):
+                fail(f"bound {BOUND} drafted: captured and uncaptured {field} differ")
+    finally:
+        release(engine)
+    f32_card_vs_cpu(E, f"bound {BOUND}", [([(25.0, "en"), (30.0, None)], {}, 1),
+                                          ([(28.0, "en")], {"beam_size": BEAM}, 1),
+                                          ([(26.0, "en"), (29.0, "en")], {}, 2)],
+                    max_decode_tokens=BOUND, draft_mode="on", audio_buckets_sec=(10.0, 30.0))
+    log(f"bound {BOUND} (whisper-small bf16, 4 x 30 s, {max_new // 8} chunks + a tail of "
+        f"{max_new % 8}): generated {served['greedy'][0]} greedy, {served['beam'][0]} at beam "
+        f"{BEAM}, {served['drafted'][0]} drafted, no capture while serving; greedy, beam and "
+        f"drafted replays bitwise their uncaptured runs (drafted accepted "
+        f"{got[True].n_accepted.tolist()})")
+    return {"greedy": served["greedy"][0], "mel_logspec": launches}
+
+
+# -- phase 3j: opt-in VAD (the batched device scorer, Silero through ONNX) ---------
+
+VAD_ATOL = 1e-5              # tests/test_torch_vad_scorer.py, tests/test_torch_onnx.py
+VAD_SESSIONS = 16
+
+
+def _pb_varint(v: int) -> bytes:
+    out = b""
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if not v:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _pb(no: int, wire: int, payload) -> bytes:
+    tag = _pb_varint((no << 3) | wire)
+    return tag + (_pb_varint(payload) if wire == 0 else _pb_varint(len(payload)) + payload)
+
+
+def _onnx_tensor(name: str, arr: np.ndarray) -> bytes:
+    code = {np.dtype("float32"): 1, np.dtype("int64"): 7}[arr.dtype]
+    msg = b"".join(_pb(1, 0, d) for d in arr.shape) + _pb(2, 0, code)
+    return msg + _pb(8, 2, name.encode()) + _pb(9, 2, arr.tobytes())
+
+
+def _onnx_attr(name: str, atype: int, body: bytes) -> bytes:
+    return _pb(5, 2, _pb(1, 2, name.encode()) + body + _pb(20, 0, atype))
+
+
+def _onnx_ints(name: str, vals) -> bytes:
+    return _onnx_attr(name, 7, b"".join(_pb(8, 0, v & ((1 << 64) - 1)) for v in vals))
+
+
+def _onnx_int(name: str, v: int) -> bytes:
+    return _onnx_attr(name, 2, _pb(3, 0, v & ((1 << 64) - 1)))
+
+
+def _onnx_node(op: str, inputs, outputs, attrs: bytes = b"") -> bytes:
+    return (b"".join(_pb(1, 2, i.encode()) for i in inputs)
+            + b"".join(_pb(2, 2, o.encode()) for o in outputs) + _pb(4, 2, op.encode()) + attrs)
+
+
+def _onnx_graph(nodes, inits, inputs, outputs) -> bytes:
+    def value_info(name, shape=None):
+        msg = _pb(1, 2, name.encode())
+        if shape is not None:
+            dims = b"".join(_pb(1, 2, _pb(2, 2, b"B") if d is None else _pb(1, 0, d))
+                            for d in shape)
+            msg += _pb(2, 2, _pb(1, 2, _pb(1, 0, 1) + _pb(2, 2, dims)))
+        return msg
+
+    return (b"".join(_pb(1, 2, n) for n in nodes) + b"".join(_pb(5, 2, t) for t in inits)
+            + b"".join(_pb(11, 2, value_info(n, s)) for n, s in inputs)
+            + b"".join(_pb(12, 2, value_info(o)) for o in outputs))
+
+
+def silero_v5_shaped(path: Path, seed: int = 0, hidden: int = 128) -> str:
+    """A graph with the published Silero v5 signature, hand-encoded with
+    seeded weights: ``input`` [B, 576] (64 context samples + a 512 frame),
+    ``state`` [2, B, 128] (h and c), ``sr``, an ``If`` on the sample rate
+    (16 kHz scales the window by 1, else by 0.5), a strided conv feature
+    stack, one LSTM step, a linear head and a sigmoid; outputs the speech
+    probability and the new state."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale):
+        return rng.normal(0, scale, shape).astype(np.float32)
+
+    def branch(const, value):
+        return _onnx_graph([_onnx_node("Mul", ["input", const], ["x_sr"])],
+                           [_onnx_tensor(const, np.asarray(value, np.float32))], [], ["x_sr"])
+
+    if_attrs = (_onnx_attr("then_branch", 5, _pb(6, 2, branch("one", 1.0)))
+                + _onnx_attr("else_branch", 5, _pb(6, 2, branch("half", 0.5))))
+    g = _onnx_graph(
+        nodes=[
+            _onnx_node("Equal", ["sr", "sr16"], ["is16"]),
+            _onnx_node("If", ["is16"], ["x_sr"], if_attrs),
+            _onnx_node("Unsqueeze", ["x_sr", "one_ax"], ["x3"]),
+            _onnx_node("Conv", ["x3", "w1", "b1"], ["f1"],
+                       _onnx_ints("strides", [8]) + _onnx_ints("kernel_shape", [16])),
+            _onnx_node("Relu", ["f1"], ["f2"]),
+            _onnx_node("Conv", ["f2", "w2", "b2"], ["f3"],
+                       _onnx_ints("strides", [2]) + _onnx_ints("pads", [1, 1])),
+            _onnx_node("Relu", ["f3"], ["f4"]),
+            _onnx_node("ReduceMean", ["f4"], ["feat"],
+                       _onnx_ints("axes", [-1]) + _onnx_int("keepdims", 0)),
+            _onnx_node("Unsqueeze", ["feat", "zero_ax"], ["seq"]),
+            _onnx_node("Gather", ["state", "i0"], ["h0s"], _onnx_int("axis", 0)),
+            _onnx_node("Gather", ["state", "i1"], ["c0s"], _onnx_int("axis", 0)),
+            _onnx_node("Unsqueeze", ["h0s", "zero_ax"], ["h0"]),
+            _onnx_node("Unsqueeze", ["c0s", "zero_ax"], ["c0"]),
+            _onnx_node("LSTM", ["seq", "W", "R", "B", "", "h0", "c0"], ["y", "hn", "cn"],
+                       _onnx_int("hidden_size", hidden)),
+            _onnx_node("Squeeze", ["y", "sq_ax"], ["y2"]),
+            _onnx_node("Gemm", ["y2", "hw", "hb"], ["logit"], _onnx_int("transB", 1)),
+            _onnx_node("Sigmoid", ["logit"], ["output"]),
+            _onnx_node("Concat", ["hn", "cn"], ["stateN"], _onnx_int("axis", 0)),
+        ],
+        inits=[
+            _onnx_tensor("sr16", np.asarray(16000, np.int64)),
+            _onnx_tensor("one_ax", np.asarray([1], np.int64)),
+            _onnx_tensor("zero_ax", np.asarray([0], np.int64)),
+            _onnx_tensor("sq_ax", np.asarray([0, 1], np.int64)),
+            _onnx_tensor("i0", np.asarray(0, np.int64)),
+            _onnx_tensor("i1", np.asarray(1, np.int64)),
+            _onnx_tensor("w1", normal(64, 1, 16, scale=0.25)),
+            _onnx_tensor("b1", normal(64, scale=0.1)),
+            _onnx_tensor("w2", normal(64, 64, 3, scale=0.07)),
+            _onnx_tensor("b2", normal(64, scale=0.1)),
+            _onnx_tensor("W", normal(1, 4 * hidden, 64, scale=0.12)),
+            _onnx_tensor("R", normal(1, 4 * hidden, hidden, scale=0.09)),
+            _onnx_tensor("B", normal(1, 8 * hidden, scale=0.1)),
+            _onnx_tensor("hw", normal(1, hidden, scale=0.09)),
+            _onnx_tensor("hb", normal(1, scale=0.1)),
+        ],
+        inputs=[("input", (None, 576)), ("state", (2, None, hidden)), ("sr", ())],
+        outputs=["output", "stateN"],
+    )
+    path.write_bytes(_pb(7, 2, g))
+    return str(path)
+
+
+def scorer_ticks(torch, scorer, frames, states, load=None) -> float:
+    """Median host ms of 20 device calls of the batched scorer over
+    ``frames`` (copies in and out included); with ``load``, each call is
+    made right after ``load()`` has enqueued work on the default stream."""
+    times = []
+    for i in range(21):
+        if load is not None:
+            load()
+        t0 = time.perf_counter()
+        scorer._score_device(frames, states)
+        dt = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if i:
+            times.append(dt)
+    return float(np.median(times))
+
+
+def vad_server_run(torch, vad_device: str) -> dict:
+    """The port's gRPC server in-process (the bench's narrowed YAML, batch
+    bucket 16 only, so every group pads to 16 rows and a row's decode does
+    not depend on its neighbours; ``vad.device`` as given; drafting off),
+    ``VAD_SESSIONS`` paced sessions of the load tool's audio (a mid-stream
+    silence gap that trips the VAD) with partials on and a final at each
+    VAD endpoint. Returns each session's finals (text, start, end), the
+    latencies and the scorer's counters."""
+    import tempfile
+
+    import grpc
+    import yaml
+
+    from stt_tpu_torch import bench as B
+    from stt_tpu_torch.gen import stt_pb2, stt_pb2_grpc
+    from stt_tpu_torch.server import main as S
+    from stt_tpu_torch.server.runtime.runtime import ApplicationRuntime
+    from stt_tpu_torch.server.transport.grpc_servicer import STTGrpcServicer
+
+    with tempfile.TemporaryDirectory(prefix="smoke_vad_") as tmp:
+        server_yaml, model_yaml = B.e2e_configs(Path(tmp))
+        cfg = yaml.safe_load(server_yaml.read_text())
+        cfg["tpu"]["batch_buckets"] = [16]
+        cfg.setdefault("vad", {})["device"] = vad_device
+        server_yaml.write_text(yaml.safe_dump(cfg))
+        config = S.configure_from_args(S.parse_args([
+            "--config", str(server_yaml), "--model-config", str(model_yaml),
+            "--model", "small", "--compute-type", "bfloat16", "--language", "en",
+            "--port", "0", "--ws-port", "0"]))
+    t0 = time.monotonic()
+    with Switches({"STT_DRAFT_PARTIALS": "off"}):
+        server = S.build_grpc_server(config)
+        runtime = ApplicationRuntime(config)
+    attrs = {"partial": "true", "emit_final_on_vad": "true"}
+    try:
+        stt_pb2_grpc.add_STTBackendServicer_to_server(STTGrpcServicer(runtime), server)
+        port = S.bind_grpc_port(server, config)
+        server.start()
+        boot = time.monotonic() - t0
+        sessions = [None] * VAD_SESSIONS
+
+        def run(i: int) -> None:
+            sessions[i] = grpc_session(grpc, stt_pb2, stt_pb2_grpc, port, f"smoke-vad-{i}",
+                                       load_tool_audio(5.0, seed=200 + i), attributes=attrs)
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(VAD_SESSIONS)]
+        t1 = time.monotonic()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=180)
+        wall = time.monotonic() - t1
+        scorer = runtime._vad_scorer
+        counters = ({"batches": scorer.batches, "fallbacks": scorer.fallbacks,
+                     "metrics": {k: v for k, v in runtime.metrics.render().items()
+                                 if k.startswith("vad_scorer")}}
+                    if scorer is not None else None)
+    finally:
+        server.stop(5.0).wait()
+        runtime.shutdown()
+    if any(th.is_alive() for th in threads) or None in sessions:
+        fail(f"vad ({vad_device}): a session did not finish")
+    for i, s in enumerate(sessions):
+        if s["error"] or not s["finals"]:
+            fail(f"vad ({vad_device}) session {i}: {s['error'] or 'no final'}")
+    return {"finals": [[(r.text, round(r.start_sec, 3), round(r.end_sec, 3))
+                        for r in s["finals"]] for s in sessions],
+            "first": [s["first_partial_s"] for s in sessions if s["first_partial_s"] is not None],
+            "final": [s["final_s"] for s in sessions], "boot": boot, "wall": wall,
+            "scorer": counters}
+
+
+def vad_phase(torch, card: str) -> dict:
+    """Phase 3j, item 10: the batched VAD scorer on the card (ms per tick
+    at 64 sessions x 3 frames, idle and right behind decode-sized work on
+    the default stream, on its own stream and, for comparison, on the
+    default stream; probabilities within ``VAD_ATOL`` of the numpy path);
+    a Silero-v5-shaped ONNX graph scoring a stream on the card within
+    ``VAD_ATOL`` of the port's executor on the CPU (ms per 3-frame chunk);
+    then the gRPC server with ``vad_device: device`` and again with host
+    VAD, 16 paced sessions each: the scorer's batches above 0 and its
+    fallbacks 0, every session's VAD finals (endpoint decisions and texts)
+    equal, first-partial and final p95 of both."""
+    import tempfile
+
+    from stt_tpu_torch.ops import vad as V
+    from stt_tpu_torch.ops.silero import SileroVad, SileroVadSession
+    from stt_tpu_torch.server.component.vad_scorer import BatchedVadScorer
+
+    rng = np.random.default_rng(7)
+    frames = (0.1 * rng.standard_normal((64, 3, V.VAD_FRAME_SAMPLES))).astype(np.float32)
+    states = [V.init_state(np) for _ in range(64)]
+    scorer = BatchedVadScorer("cuda")
+    scorer.prewarm()
+    got = scorer._score_device(frames, states)
+    err = max(float(np.abs(p - V.vad_step(np, f, s)[0]).max())
+              for (p, _), f, s in zip(got, frames, states))
+    if err > VAD_ATOL:
+        fail(f"vad scorer: probabilities differ from the numpy path by {err:.3g}")
+    x = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+
+    def load():
+        for _ in range(40):
+            x @ x    # ~44 TFLOP of bf16 products queued on the default stream
+
+    own = scorer._stream
+    ticks = {"idle": scorer_ticks(torch, scorer, frames, states),
+             "loaded, own stream": scorer_ticks(torch, scorer, frames, states, load)}
+    scorer._stream = None
+    ticks["loaded, default stream"] = scorer_ticks(torch, scorer, frames, states, load)
+    scorer._stream = own
+    del x
+    log(f"vad scorer (64 sessions x 3 frames, one device call a tick): probabilities within "
+        f"{err:.3g} of the numpy path; ms per tick (host clock, copies in and out): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ticks.items()) + f" ({card})")
+
+    with tempfile.TemporaryDirectory(prefix="smoke_silero_") as tmp:
+        path = silero_v5_shaped(Path(tmp) / "silero_v5.onnx")
+        stream = (0.2 * np.random.default_rng(8).standard_normal((30, 512))).astype(np.float32)
+        probs = {}
+        chunk_ms = []
+        for device in ("cuda", "cpu"):
+            vad = SileroVad.from_onnx(path, device=device)
+            if vad.state_names != ["state"] or vad.context_samples != 64 or vad.sr_name != "sr":
+                fail(f"silero: signature read as {vad.state_names} / {vad.context_samples} / "
+                     f"{vad.sr_name}")
+            session = SileroVadSession(vad)
+            out = []
+            for i in range(0, len(stream), 3):
+                t0 = time.perf_counter()
+                out.append(session.score(stream[i:i + 3]))
+                if device == "cuda" and i:
+                    chunk_ms.append((time.perf_counter() - t0) * 1e3)
+            probs[device] = np.concatenate(out)
+            if device == "cuda" and (session._states[0].device.type != "cuda"
+                                     or tuple(session._states[0].shape) != (2, 1, 128)):
+                fail(f"silero: the state is {tuple(session._states[0].shape)} on "
+                     f"{session._states[0].device}, not (2, 1, 128) on the card")
+    s_err = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+    if not np.isfinite(probs["cuda"]).all() or s_err > VAD_ATOL:
+        fail(f"silero (v5-shaped, card vs CPU executor): max abs err {s_err:.3g}")
+    log(f"silero (v5-shaped graph, input [1, 576], state [2, 1, 128], seeded weights): 30 "
+        f"frames on the card within {s_err:.3g} of the CPU executor (probabilities "
+        f"{probs['cuda'].min():.3f}-{probs['cuda'].max():.3f}); "
+        f"{float(np.median(chunk_ms)):.3f} ms per 3-frame chunk on the card ({card})")
+
+    runs = {name: vad_server_run(torch, name) for name in ("device", "auto")}
+    dev, host = runs["device"], runs["auto"]
+    sc = dev["scorer"]
+    if sc is None or sc["batches"] <= 0 or sc["fallbacks"] != 0 \
+            or sc["metrics"].get("vad_scorer_fallbacks") != 0:
+        fail(f"vad e2e: the scorer's counters {sc}")
+    if host["scorer"] is not None:
+        fail("vad e2e: the host-VAD server built a scorer")
+    differ = [i for i, (a, b) in enumerate(zip(dev["finals"], host["finals"])) if a != b]
+    if differ:
+        fail(f"vad e2e: sessions {differ} end differently with device and host VAD: "
+             f"{dev['finals'][differ[0]]} vs {host['finals'][differ[0]]}")
+    endpoints = [len(f) for f in dev["finals"]]
+
+    def p95(values):
+        return float(np.percentile(values, 95)) if values else float("nan")
+
+    log(f"vad e2e ({VAD_SESSIONS} sessions x 5 s at 2x, partials on, a final at each VAD "
+        f"endpoint): device VAD {sc['batches']} scorer batches, {sc['fallbacks']} fallbacks; "
+        f"every session's finals (texts and times) equal with host VAD ({endpoints} finals a "
+        f"session); first partial p95 {p95(dev['first']):.3f} s device / "
+        f"{p95(host['first']):.3f} s host, final p95 {p95(dev['final']):.3f} s / "
+        f"{p95(host['final']):.3f} s; boot {dev['boot']:.1f} / {host['boot']:.1f} s ({card})")
+    return {"ticks": ticks, "silero_chunk_ms": float(np.median(chunk_ms)),
+            "first_p95": (p95(dev["first"]), p95(host["first"])),
+            "final_p95": (p95(dev["final"]), p95(host["final"]))}
+
+
 def bench_phase() -> None:
     """Phase 3d: one steady round of the port's bench at 64 x 10 s."""
     from stt_tpu_torch import bench as B
@@ -2086,12 +2905,12 @@ def load_tool_audio(seconds: float, seed: int) -> bytes:
 
 
 def grpc_session(grpc, stt_pb2, stt_pb2_grpc, port: int, sid: str, pcm: bytes,
-                 profile: int = 0) -> dict:
+                 profile: int = 0, attributes=None) -> dict:
     """One streaming session as the load tool runs it: CreateSession with
-    partials on, language en and the decode ``profile`` (0: the server's
-    default), 100 ms chunks at 2x real time, then ``is_final``. Returns the
-    client's latencies, the finals and the trailing metadata, or the
-    error."""
+    the session ``attributes`` (default: partials on), language en and the
+    decode ``profile`` (0: the server's default), 100 ms chunks at 2x real
+    time, then ``is_final``. Returns the client's latencies, the finals and
+    the trailing metadata, or the error."""
     out = {"finals": [], "first_partial_s": None, "final_s": None, "error": None}
     step = 1600 * 2
     last_sent = [0.0]
@@ -2099,7 +2918,8 @@ def grpc_session(grpc, stt_pb2, stt_pb2_grpc, port: int, sid: str, pcm: bytes,
         stub = stt_pb2_grpc.STTBackendStub(channel)
         try:
             stub.CreateSession(stt_pb2.SessionRequest(
-                session_id=sid, attributes={"partial": "true"}, language_code="en",
+                session_id=sid, attributes=attributes or {"partial": "true"},
+                language_code="en",
                 decode_profile=profile), timeout=60)
 
             def chunks():
@@ -2747,6 +3567,19 @@ def main() -> None:
     long_words = long_words_phase(torch, E, W)
     log(f"phase 3h: {time.monotonic() - t_3h:.1f} s")
 
+    # -- 3i. decoder policies, use_pallas false, a bound off the chunk; 3j. VAD --
+    t_3i = time.monotonic()
+    with SeededParams(W):
+        policies = policy_phase(torch, E, W, M, card)
+        bound = bound_phase(torch, E, W)
+    log(f"phase 3i: {time.monotonic() - t_3i:.1f} s")
+    t_3j = time.monotonic()
+    with SeededParams(W):
+        vad = vad_phase(torch, card)
+    log(f"phase 3j: {time.monotonic() - t_3j:.1f} s")
+    log("phases 3i-3j: " + json.dumps({"policies": policies["summary"], "bound": bound,
+                                        "vad": vad}))
+
     # -- 5. the gRPC streaming path (before 4: the server's engine is shut down first)
     grpc_phase(torch, card)
 
@@ -2763,7 +3596,8 @@ def main() -> None:
         "source": "stt_tpu_torch/ops/cuda/mel.cu",
         "replaces": "stt_tpu/ops/pallas/mel.py:84",
         "launches": (launches + beam_int8["mel_logspec"] + beam_30s["mel_logspec"]
-                     + drafted_launches + routes["mel_logspec"] + long_words["mel_logspec"]),
+                     + drafted_launches + routes["mel_logspec"] + long_words["mel_logspec"]
+                     + policies["mel_logspec"] + bound["mel_logspec"]),
         "max_abs_err": max(mel_err.values()),
         **headline,
     }, {

@@ -158,19 +158,22 @@ def decode_step_bytes(engine: E.WhisperEngine, bucket_sec: float, rows: int,
     """Bytes one decode step at this shape must move, each read or written
     once: the decoder's weights but its embedding tables, the token table
     as stored for the logits product (its rows read by the embedding gather
-    are a few of them), the cross K/V (with int8 scales) and the whole self
+    are a few of them; int8 codes and scales under the int8 policies), the
+    cross K/V (with int8 scales) and the whole self
     cache (the step attends over every slot), and the float32 logits
     written. At ``beam`` above 1 the self cache and the logits are those of
     rows x beam rows, but the cross K/V counts once a row: the beams of a
     row share it, though the entry stores a copy a beam."""
     cfg, dec = engine.config, engine.model.decoder
-    skip = {id(dec.tok), id(dec.pos)}
-    weights = sum(p.numel() * p.element_size() for p in dec.parameters() if id(p) not in skip)
+    tok = dec.tok if dec.tok is not None else dec.tok_q   # the int8 table under int8 weights
+    skip = {id(tok), id(dec.pos)}
+    weights = sum(t.numel() * t.element_size() for t in (*dec.parameters(), *dec.buffers())
+                  if id(t) not in skip)
     entry = engine.graphs.lookup(bucket_sec, rows, PROMPT_LEN, engine._max_new_for(bucket_sec),
                                  beam)
     cross = sum(t.numel() * t.element_size() for t in entry.cross_kv if t is not None)
     self_kv = sum(t.numel() * t.element_size() for t in entry.state.cache)
-    return int(weights + dec.tok.numel() * dec.tok.element_size() + cross // beam + self_kv
+    return int(weights + tok.numel() * tok.element_size() + cross // beam + self_kv
                + rows * beam * cfg.n_vocab * 4)
 
 
@@ -193,7 +196,7 @@ def decode_step_ms(engine: E.WhisperEngine, bucket_sec: float, rows: int, *,
     pairs = []
     with engine._device_lock, torch.inference_mode():
         for i in range(TIMED_CHUNKS + 2):
-            if i % entry.chunks == 0:
+            if i % max(1, entry.chunks) == 0:
                 st.pos.fill_(entry.key.p_len)
                 st.finished.zero_()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))

@@ -8,7 +8,10 @@ The port keeps one ``nn.Module`` per layer, so the same leaf is
 keeps its name and its layout (linear weights (d_in, d_out), conv
 kernels (K, C_in, C_out)), so the two packages compute with the same
 arrays. Tests use :func:`from_jax_params` to hand both packages
-identical weights.
+identical weights. The decoder policies' weight transforms (fused q/k/v,
+int8 storage) are not part of this tree: the port applies them to the
+converted weights at load, as the JAX engine applies them to its tree
+(``stt_tpu_torch.models.whisper.build_model``).
 """
 
 from __future__ import annotations

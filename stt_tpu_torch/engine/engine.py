@@ -97,7 +97,10 @@ of a replica; ``metrics`` receives ``record_engine_batch`` once per group
 and ``record_engine_compile`` once per decode-graph capture (the port's
 compile); ``pad_to_30s`` pads every window to the 30 s bucket;
 ``use_pallas`` (default True) is the hand-written log-mel kernel, and
-False on the card raises, since nothing swaps in the plain version there;
+False the plain torch log-mel (``ops/mel.py``'s ``expand_wire`` and
+``log_mel_raw``) on any device, the JAX engine's ``_log_mel(rows, n_mels,
+use_pallas)``: the choice is the engine's, made once at build, and the
+kernel's wrapper never takes the plain version by itself on the card;
 ``weights_path`` names an HF Whisper checkpoint directory
 (``model.safetensors`` + ``config.json``, :func:`~stt_tpu_torch.models.
 whisper.load_hf_safetensors`), whose config replaces ``model_size``'s and
@@ -105,12 +108,19 @@ whose vocabulary files the tokenizer then requires
 (``STT_ALLOW_FALLBACK_TOKENIZER=1`` opts out); without it the weights are
 drawn from ``seed``.
 
-Four switches of the JAX package select behaviour the port does not have
-yet; they are read at engine build, parsed as the JAX package parses them,
-and a value that asks for that behaviour raises ``NotImplementedError``
-naming the variable and its value: ``STT_DECODER_WEIGHTS_DTYPE``
-int8/int8_native (under bfloat16), ``STT_FUSED_QKV`` on,
-``STT_SELF_KV_DTYPE`` fp8 (under bfloat16) and ``STT_PREFILL=seq``.
+``max_decode_tokens`` is any positive bound (``max_new_for`` caps each
+bucket's at it); the decode graphs cover one that is not a multiple of
+their 8-step chunk with a captured tail.
+
+The decoder policies (:class:`~stt_tpu_torch.models.whisper.DecoderPolicy`)
+are read at engine build from the JAX package's four switches, parsed as
+it parses them (``_decoder_policy``): ``STT_DECODER_WEIGHTS_DTYPE``
+int8/int8_native (int8 decoder weights, under bfloat16; under float32 a
+warning and the compute type, as the JAX engine does),
+``STT_FUSED_QKV`` on, ``STT_SELF_KV_DTYPE`` fp8 (under bfloat16) and
+``STT_PREFILL=seq``. The policy is frozen and held by the engine and its
+model, so two engines of one process may differ; every decode mode, route,
+captured graph and prewarm runs under it.
 
 Beam options are read as the JAX package reads them: ``beam_size``
 clamped to 1..8, ``patience`` (1..4, steps of 0.25; above 1 the pooled
@@ -139,7 +149,7 @@ from ..models import timing as T
 from ..models import whisper as W
 from ..models.tokenizer import load_tokenizer
 from ..ops.kernels.mel import mel_logspec
-from ..ops.mel import HOP_LENGTH, SAMPLE_RATE, normalize_log_mel
+from ..ops.mel import HOP_LENGTH, SAMPLE_RATE, expand_wire, log_mel_raw, normalize_log_mel
 from .graphs import DecodeGraphs
 
 LOGGER = logging.getLogger("stt_tpu_torch")
@@ -216,42 +226,25 @@ def _env_draft_mode() -> str:
     return "adaptive"
 
 
-def _refuse_ignored_switches(dtype: torch.dtype) -> None:
-    """Read the four switches of the JAX package that the port does not
-    serve, each parsed as the JAX package parses it, and raise
-    ``NotImplementedError`` naming the variable and its value for any value
-    whose behaviour the port lacks. Values that mean the port's behaviour
-    pass."""
-    def refuse(name: str, value: str, what: str) -> None:
-        raise NotImplementedError(
-            f"{name}={value!r} ({what}) is not served by stt_tpu_torch yet")
-
-    bf16 = dtype == torch.bfloat16
-    # stt_tpu/models/whisper.py:571-580, applied at engine.py:1064-1079
+def _decoder_policy(dtype: torch.dtype) -> W.DecoderPolicy:
+    """The decoder policy from the JAX package's four switches, each parsed
+    as it parses them (``stt_tpu/models/whisper.py:353-366, 504-513,
+    571-580``). int8 decoder weights under float32 compute warn and are
+    ignored, as the JAX engine does (``stt_tpu/engine/engine.py:
+    1068-1079``)."""
     weights = _env("STT_DECODER_WEIGHTS_DTYPE", "bf16")
-    if weights in ("int8", "i8", "int8_native", "i8n"):
-        if bf16:
-            refuse("STT_DECODER_WEIGHTS_DTYPE", weights, "int8 decoder weights")
+    if (weights in W._W8_NAMES + W._W8_NATIVE_NAMES) and dtype != torch.bfloat16:
         LOGGER.warning("STT_DECODER_WEIGHTS_DTYPE=%s requires bfloat16 compute; "
                        "ignored (compute_type=float32)", weights)
-    # stt_tpu/models/whisper.py:362-366
-    fused = _env("STT_FUSED_QKV", "off")
-    if fused in ("1", "on", "true", "yes"):
-        refuse("STT_FUSED_QKV", fused, "fused decoder q/k/v projection")
-    # stt_tpu/models/whisper.py:504-512: fp8 only under bfloat16 compute
-    self_kv = _env("STT_SELF_KV_DTYPE", "bf16")
-    if bf16 and self_kv in ("fp8", "f8", "float8", "fp8_e4m3"):
-        refuse("STT_SELF_KV_DTYPE", self_kv, "fp8 self-attention cache")
-    # stt_tpu/models/whisper.py:353, 967: anything but "seq" is parallel
-    prefill = _env("STT_PREFILL", "parallel")
-    if prefill == "seq":
-        refuse("STT_PREFILL", prefill, "sequential prompt prefill")
+    return W.DecoderPolicy.from_env(dtype)
 
 
 def max_new_for(bucket_sec: float, max_decode_tokens: int) -> int:
     """Decode-loop bound for one audio bucket: ~7.5 tokens/sec of audio
-    at 30 s = 224, rounded up to a multiple of 8 (a multiple of 8 whenever
-    ``max_decode_tokens`` is one, as the engine requires)."""
+    at 30 s = 224, rounded up to a multiple of 8 and capped at
+    ``max_decode_tokens``, which may be any positive bound (100 caps the 30 s
+    bucket at 100, as in the JAX engine); the decode graphs cover a bound
+    off the multiple with a tail."""
     est = int(np.ceil(bucket_sec * max_decode_tokens / 30.0 / 8.0)) * 8
     return int(min(max_decode_tokens, max(24, est)))
 
@@ -488,10 +481,16 @@ def _pack_result(res: Union[W.DecodeResult, W.DraftedResult], lang_idx: torch.Te
     return torch.cat(columns, dim=1)
 
 
-def _mel_encode(model: W.Whisper, rows: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Wire rows (B, T) -> encoder states. On the card the log-mel runs in
-    the hand-written kernel (mu-law expansion fused into its load)."""
-    raw = mel_logspec(rows, model.config.n_mels)
+def _mel_encode(model: W.Whisper, rows: torch.Tensor, dtype: torch.dtype,
+                use_pallas: bool = True) -> torch.Tensor:
+    """Wire rows (B, T) -> encoder states. With ``use_pallas`` the log-mel
+    runs in the hand-written kernel on the card (mu-law expansion fused
+    into its load); without it, in the plain torch version on any device
+    (``stt_tpu/engine/engine.py:_log_mel``)."""
+    if use_pallas:
+        raw = mel_logspec(rows, model.config.n_mels)
+    else:
+        raw = log_mel_raw(expand_wire(rows), model.config.n_mels)
     mel = normalize_log_mel(raw).to(dtype)
     return model.encoder(mel)
 
@@ -606,10 +605,11 @@ def _serve_step(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
                 length_penalty: float = 1.0, draft: Optional[torch.Tensor] = None,
                 draft_len: Optional[torch.Tensor] = None, lang_pos: int = 1,
                 route: W.Route = W.GREEDY,
-                rep_penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+                rep_penalty: Optional[torch.Tensor] = None,
+                use_pallas: bool = True) -> torch.Tensor:
     """The whole serving step: mel + encoder, then detect + decode + pack
     (the drafted decode when ``draft`` is given)."""
-    enc = _mel_encode(model, rows, dtype)
+    enc = _mel_encode(model, rows, dtype, use_pallas)
     if draft is not None:
         return _decode_serve_drafted(model, graphs, bucket_sec, enc, prompt, prompt_len,
                                      draft, draft_len, auto_mask, max_new_tokens,
@@ -655,23 +655,16 @@ class WhisperEngine:
         if compute_type not in _DTYPES:
             raise ValueError(f"compute_type must be one of {sorted(_DTYPES)}, "
                              f"got {compute_type!r}")
-        if int(max_decode_tokens) <= 0 or int(max_decode_tokens) % W.FINISH_CHECK_EVERY:
-            # the decode graphs replay chunks of FINISH_CHECK_EVERY steps, and
-            # max_new_for keeps every bucket's bound a multiple of it only then
-            raise ValueError(f"max_decode_tokens={max_decode_tokens} must be a positive "
-                             f"multiple of {W.FINISH_CHECK_EVERY}")
+        if int(max_decode_tokens) <= 0:
+            raise ValueError(f"max_decode_tokens={max_decode_tokens} must be positive")
         self.model_size = model_size
         self.device = resolve_device(device)
         if device_index is not None and self.device.type == "cuda":
             self.device = torch.device("cuda", int(device_index))
-        if not use_pallas and self.device.type == "cuda":
-            raise NotImplementedError(
-                "use_pallas=False is not served by stt_tpu_torch on the card: its "
-                "log-mel is the hand-written kernel (the plain version runs only on "
-                "CPU tensors)")
+        self.use_pallas = bool(use_pallas)
         self._metrics = metrics
         self._dtype = _DTYPES[compute_type]
-        _refuse_ignored_switches(self._dtype)
+        self.decoder_policy = _decoder_policy(self._dtype)
         # drafted partials (stt_tpu/engine/engine.py:1008-1042): the store of
         # each session's newest partial tokens (an LRU; a final evicts), the
         # acceptance counters (live, and the adaptive mode's hypothetical
@@ -703,7 +696,8 @@ class WhisperEngine:
             config = W.get_config(model_size)
             params = W.init_params(config, seed=seed)
         self.config = config
-        self.model = W.build_model(config, params, self.device, self._dtype, self.policy)
+        self.model = W.build_model(config, params, self.device, self._dtype, self.policy,
+                                   self.decoder_policy)
         del params
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -1368,6 +1362,7 @@ class WhisperEngine:
                 draft_len=torch.from_numpy(dlen_arr).to(dev) if drafted else None,
                 lang_pos=lang_pos, route=route,
                 rep_penalty=torch.from_numpy(rep_arr).to(dev) if route.penalised else None,
+                use_pallas=self.use_pallas,
             )
         return {
             "group": group, "packed": packed, "rows_dev": rows_dev,
@@ -1501,7 +1496,7 @@ class WhisperEngine:
         ngram = max(_ngram_of(t.request) for t in group)
         reset_t, best_of = _reset_temp_of(group[0].request), _best_of_of(group[0].request)
         with self._device_lock, torch.inference_mode():
-            enc = _mel_encode(self.model, ctx["rows_dev"], self._dtype)
+            enc = _mel_encode(self.model, ctx["rows_dev"], self._dtype, self.use_pallas)
         for rung_idx, temp in enumerate(rungs):
             use_bare = bare is not None and reset_t is not None and temp > reset_t
             prompt = bare if use_bare else prompt_arr
@@ -1552,7 +1547,7 @@ class WhisperEngine:
             row = out._tokens[: out._p_len + out._n_gen][:t_seq]
             tokens2d[i, : len(row)] = row
         with self._device_lock, torch.inference_mode():
-            enc = _mel_encode(self.model, ctx["rows_dev"], self._dtype)
+            enc = _mel_encode(self.model, ctx["rows_dev"], self._dtype, self.use_pallas)
             maps = W.cross_attention_weights(
                 self.model, torch.from_numpy(tokens2d).to(self.device), enc, n_align_layers=2)
             picked = torch.tensor(wt_rows, device=self.device)

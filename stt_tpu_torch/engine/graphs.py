@@ -5,7 +5,8 @@ is a jitted ``lax.while_loop`` that decides on the device when to stop, its
 programs sit in an exec cache (``stt_tpu/engine/engine.py:794``,
 ``:1390-1530``) and ``prewarm`` builds them before serving. The port keeps
 one :class:`DecodeEntry` per (audio bucket, rows, prompt length, max_new,
-compute type, attention policy, beam width, candidates, drafted, route):
+compute type, attention policy, decoder policy, beam width, candidates,
+drafted, route):
 
 - the decode state, allocated once: at beam 1
   (:class:`~stt_tpu_torch.models.whisper.DecodeState`: self-KV cache,
@@ -13,7 +14,9 @@ compute type, attention policy, beam width, candidates, drafted, route):
   once from numpy), above it
   (:class:`~stt_tpu_torch.models.whisper.BeamState`) the same for rows x
   beams, with the pool of finished candidates when the candidate count
-  exceeds the beam (patience above 1); and the cross K/V in the policy's
+  exceeds the beam (patience above 1), the self cache in the decoder
+  policy's storage (fp8 under ``STT_SELF_KV_DTYPE=fp8``); and the cross
+  K/V in the policy's
   storage (with int8 scales), for rows x beams rows, as the JAX package
   repeats the encoder output over the beams before computing it; a
   drafted entry (beam 1: the drafted greedy decode of streaming partials)
@@ -34,25 +37,30 @@ compute type, attention policy, beam width, candidates, drafted, route):
 - on the card, one ``torch.cuda.CUDAGraph`` of one chunk of
   ``FINISH_CHECK_EVERY`` steps (:func:`~stt_tpu_torch.models.whisper._decode_chunk`,
   :func:`~stt_tpu_torch.models.whisper._beam_chunk` or the drafted resume
-  :func:`~stt_tpu_torch.models.whisper._drafted_chunk`), captured after one
-  uncaptured warm-up on a side stream (which builds the kernels, sets their
-  function attributes and lets cuBLAS pick its algorithms). Every entry's
-  graph draws on one memory pool.
+  :func:`~stt_tpu_torch.models.whisper._drafted_chunk`) and, when ``max_new``
+  is not a multiple of it, a second graph of the last ``max_new %
+  FINISH_CHECK_EVERY`` steps on the same state (the tail), each captured
+  after one uncaptured warm-up on a side stream (which builds the kernels,
+  sets their function attributes and lets cuBLAS pick its algorithms).
+  Every entry's graphs draw on one memory pool.
 
 :meth:`DecodeGraphs.decode` runs the prefill eagerly (for a drafted entry
 the verify pass over prompt + draft, with the acceptance and the commit),
-then replays the chunk until the loop's condition fails (every row
-finished; for beams, every beam finished or every pool full) or
-``max_new`` steps ran, reading the condition on the host once per chunk,
-as the uncaptured loops do (a drafted entry reads it before each chunk:
-the verify pass may leave every row finished).
+then replays the chunk, and last the tail, until the loop's condition
+fails (every row finished; for beams, every beam finished or every pool
+full) or ``max_new`` steps ran, reading the condition on the host once per
+chunk, as the uncaptured loops do (a drafted entry reads it before each
+chunk: the verify pass may leave every row finished). So any positive
+``max_new`` decodes exactly ``max_new`` steps at most, as the JAX loop's
+bound does.
 On the card serving goes through the graph and nothing else: a capture or a
 replay that fails raises. On the CPU the entries hold the same buffers and
 the same chunk runs uncaptured.
 
 Kernel wrappers count their launches in Python, so a replay adds nothing
-to them: each entry records the launches its capture made (one chunk's) and
-its replays, and :meth:`DecodeGraphs.replayed_launches` multiplies them out.
+to them: each entry records the launches each of its captures made (one
+chunk's, one tail's) and their replays, and
+:meth:`DecodeGraphs.replayed_launches` multiplies them out.
 ``graph_captures`` and ``graph_replays`` play the part of the JAX engine's
 ``exec_cache_compiles`` and ``exec_cache_loads``.
 """
@@ -83,6 +91,7 @@ class GraphKey(NamedTuple):
     max_new: int
     compute: torch.dtype
     policy: W.AttentionPolicy
+    decoder_policy: W.DecoderPolicy
     beam: int = 1        # beams per row; 1 is the greedy decode
     candidates: int = 1  # finished hypotheses kept per row (beam_candidates)
     drafted: bool = False  # the drafted greedy decode (beam 1)
@@ -99,10 +108,21 @@ class DecodeEntry:
     graph: Optional["torch.cuda.CUDAGraph"] = None
     launches: Dict[str, int] = field(default_factory=dict)  # per replay (one chunk)
     replays: int = 0
+    # the last max_new % FINISH_CHECK_EVERY steps, when max_new is not a
+    # multiple of it
+    tail_graph: Optional["torch.cuda.CUDAGraph"] = None
+    tail_launches: Dict[str, int] = field(default_factory=dict)
+    tail_replays: int = 0
 
     @property
     def chunks(self) -> int:
+        """Whole chunks of ``FINISH_CHECK_EVERY`` steps in ``max_new``."""
         return self.key.max_new // W.FINISH_CHECK_EVERY
+
+    @property
+    def tail(self) -> int:
+        """Steps after the whole chunks (0 when ``max_new`` is a multiple)."""
+        return self.key.max_new % W.FINISH_CHECK_EVERY
 
     @property
     def chunk_fn(self) -> Callable:
@@ -136,14 +156,13 @@ class DecodeGraphs:
     def key(self, bucket_sec: float, rows: int, p_len: int, max_new: int,
             beam: int = 1, candidates: Optional[int] = None,
             drafted: bool = False, route: W.Route = W.GREEDY) -> GraphKey:
-        """The entry key; ``max_new`` must be a positive multiple of
-        ``FINISH_CHECK_EVERY`` (the engine's ``max_new_for`` always is), so
-        the chunks cover it exactly. ``candidates`` defaults to the beam
+        """The entry key; ``max_new`` is any positive bound (chunks of
+        ``FINISH_CHECK_EVERY`` steps and a shorter tail cover it exactly).
+        ``candidates`` defaults to the beam
         (the frozen-slot search) and is at least the beam; ``drafted``
         needs beam 1 and the greedy route, a sampled route beam 1."""
-        if max_new <= 0 or max_new % W.FINISH_CHECK_EVERY:
-            raise ValueError(f"max_new={max_new} is not a positive multiple of "
-                             f"{W.FINISH_CHECK_EVERY}, the steps of one captured chunk")
+        if max_new <= 0:
+            raise ValueError(f"max_new={max_new} is not positive")
         if not 1 <= int(beam) <= W.MAX_BEAM:
             raise ValueError(f"beam={beam} is not within 1..{W.MAX_BEAM}")
         beam = int(beam)
@@ -152,8 +171,9 @@ class DecodeGraphs:
         if route.sampled and beam != 1:
             raise ValueError(f"a sampled entry decodes at beam 1, not {beam}")
         candidates = beam if candidates is None or beam == 1 else max(beam, int(candidates))
+        dec = self.model.decoder
         return GraphKey(float(bucket_sec), int(rows), int(p_len), int(max_new), self.dtype,
-                        self.model.decoder.policy, beam, candidates, bool(drafted),
+                        dec.policy, dec.decoder_policy, beam, candidates, bool(drafted),
                         W.Route(*route))
 
     def entry(self, bucket_sec: float, rows: int, p_len: int, max_new: int,
@@ -193,19 +213,20 @@ class DecodeGraphs:
         caller is in inference mode), so they can be updated in place
         anywhere (a drafted entry, or one of another route, takes the self
         cache and the cross K/V of ``plain``, the plain entry of its shape);
-        on the card warms up and captures the chunk."""
+        on the card warms up and captures the chunk and the tail."""
         dec = self.model.decoder
         config = self.model.config
         cache = None if plain is None else plain.state.cache
+        kv_dtype = key.decoder_policy.cache_dtype(self.dtype)
         if key.drafted:
             state = W.init_draft_state(config, key.rows, key.p_len, key.max_new, key.max_new,
-                                       self.dtype, self.device, cache=cache)
+                                       kv_dtype, self.device, cache=cache)
         elif key.beam == 1:
             state = W.init_decode_state(config, key.rows, key.p_len, key.max_new,
-                                        self.dtype, self.device, route=key.route, cache=cache)
+                                        kv_dtype, self.device, route=key.route, cache=cache)
         else:
             state = W.init_beam_state(config, key.rows, key.beam, key.candidates, key.p_len,
-                                      key.max_new, self.dtype, self.device, route=key.route,
+                                      key.max_new, kv_dtype, self.device, route=key.route,
                                       cache=cache)
         entry = DecodeEntry(
             key=key, state=state,
@@ -214,19 +235,31 @@ class DecodeGraphs:
         )
         if self.device.type != "cuda":
             return entry
-        # a state the warm-up and the capture can step from: position p_len
-        # (every row's, in a drafted entry) with an eot prompt (any start a
-        # chunk of steps stays inside T_max; a gated step launches the same
-        # kernels whether or not it writes)
         t0 = time.monotonic()
-        st = entry.state
-        st.tokens.fill_(W.token_layout(config.n_vocab).eot)
+        if entry.chunks:
+            entry.graph, entry.launches = self._capture(entry, W.FINISH_CHECK_EVERY)
+        if entry.tail:
+            entry.tail_graph, entry.tail_launches = self._capture(entry, entry.tail)
+        self.graph_captures += 1
+        if self.on_capture is not None:
+            self.on_capture(time.monotonic() - t0)
+        return entry
+
+    def _capture(self, entry: DecodeEntry, n_steps: int):
+        """One uncaptured warm-up of ``n_steps`` steps on a side stream,
+        then the capture of the same steps: (graph, the kernel launches it
+        recorded). The state the warm-up and the capture step from is
+        position p_len (every row's, in a drafted entry) with an eot prompt
+        (any start a chunk of steps stays inside T_max; a gated step
+        launches the same kernels whether or not it writes)."""
+        key, st, dec = entry.key, entry.state, self.model.decoder
+        st.tokens.fill_(W.token_layout(self.model.config.n_vocab).eot)
         st.prompt_len.fill_(key.p_len)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             st.pos.fill_(key.p_len)
-            entry.chunk_fn(dec, st, entry.cross_kv)
+            entry.chunk_fn(dec, st, entry.cross_kv, n_steps)
         torch.cuda.current_stream(self.device).wait_stream(side)
         st.pos.fill_(key.p_len)
         before = {name: fn.launches for name, fn in KERNELS.items()}
@@ -234,13 +267,8 @@ class DecodeGraphs:
         if key.route.sampled:
             graph.register_generator_state(st.rules.generator)
         with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
-            entry.chunk_fn(dec, st, entry.cross_kv)
-        entry.launches = {name: fn.launches - before[name] for name, fn in KERNELS.items()}
-        entry.graph = graph
-        self.graph_captures += 1
-        if self.on_capture is not None:
-            self.on_capture(time.monotonic() - t0)
-        return entry
+            entry.chunk_fn(dec, st, entry.cross_kv, n_steps)
+        return graph, {name: fn.launches - before[name] for name, fn in KERNELS.items()}
 
     @torch.no_grad()
     def decode(self, entry: DecodeEntry, prompt: torch.Tensor, prompt_len: torch.Tensor, *,
@@ -267,8 +295,9 @@ class DecodeGraphs:
         if tuple(prompt.shape) != (key.rows, key.p_len):
             raise ValueError(f"{key}: prompt of shape {tuple(prompt.shape)}")
         if captured is None:
-            captured = entry.graph is not None
-        if captured and entry.graph is None:
+            captured = entry.graph is not None or entry.tail_graph is not None
+        if captured and ((entry.chunks and entry.graph is None)
+                         or (entry.tail and entry.tail_graph is None)):
             raise RuntimeError(f"{key}: no captured graph on {self.device}")
         dec = self.model.decoder
         st = entry.state
@@ -288,15 +317,21 @@ class DecodeGraphs:
                                        suppress_blank=suppress_blank, sot_pos=sot_pos,
                                        rep_penalty=rep_penalty, temperature=temperature,
                                        seed=seed)
-        for _ in range(entry.chunks):
+        for chunk in range(entry.chunks + (1 if entry.tail else 0)):
             if key.drafted and bool(st.finished.all()):
                 break
+            tail = chunk == entry.chunks
             if captured:
-                entry.graph.replay()
-                entry.replays += 1
+                if tail:
+                    entry.tail_graph.replay()
+                    entry.tail_replays += 1
+                else:
+                    entry.graph.replay()
+                    entry.replays += 1
                 self.graph_replays += 1
             else:
-                entry.chunk_fn(dec, st, entry.cross_kv)
+                entry.chunk_fn(dec, st, entry.cross_kv,
+                               entry.tail if tail else W.FINISH_CHECK_EVERY)
             if key.drafted:
                 continue
             if not bool(W.beam_running(st)) if beam else bool(st.finished.all()):
@@ -314,8 +349,11 @@ class DecodeGraphs:
 
     def replayed_launches(self) -> Dict[str, int]:
         """Kernel launches made by graph replays so far: each entry's
-        captured launches per chunk times its replays."""
-        return {name: sum(e.launches.get(name, 0) * e.replays for e in self.entries())
+        captured launches per chunk times its replays, and per tail times
+        the tail's."""
+        return {name: sum(e.launches.get(name, 0) * e.replays
+                          + e.tail_launches.get(name, 0) * e.tail_replays
+                          for e in self.entries())
                 for name in KERNELS}
 
 

@@ -39,9 +39,22 @@ other on identical weights:
   wrappers launch their CUDA kernel on the card and take their plain
   version on the CPU.
 
+:class:`DecoderPolicy` holds the decoder's four opt-in policies of the JAX
+package (``STT_DECODER_WEIGHTS_DTYPE``, ``STT_FUSED_QKV``,
+``STT_SELF_KV_DTYPE``, ``STT_PREFILL``), resolved for one compute type:
+:func:`build_model` fuses the self-attention q/k/v (:func:`fuse_decoder_qkv`)
+and then quantises the decoder's linears and token table to int8
+(:func:`quantize_decoder_weights`, bfloat16 only) on the converted weights;
+:func:`_linear` and :func:`_tok_logits` widen the int8 codes in the product
+or, on the native route, multiply int8 codes with int32 accumulation
+(:func:`_int8_mm`); the self cache is stored fp8 under ``self_kv`` fp8
+(written through its bytes, :func:`_raw`); :func:`_prefill` takes one
+decode step a position under ``prefill`` seq.
+
 :func:`cross_attention_weights` is the word-timestamp pass: the last two
 decoder layers' float32 cross-attention maps over a teacher-forced
-sequence.
+sequence (it runs under every policy, fused included, where the JAX
+package's own pass reads the separate projections).
 
 The decode step has one shape for every position, as the JAX package's
 scalar-``pos`` ``_decoder_step``: ``pos`` is a 0-d device tensor, the
@@ -175,6 +188,80 @@ class AttentionPolicy:
 
     def flash_on(self, seq_len: int) -> bool:
         return self.flash_attention != "off" and seq_len >= FLASH_MIN_SEQ
+
+
+_W8_NAMES = ("int8", "i8")
+_W8_NATIVE_NAMES = ("int8_native", "i8n")
+_ON_NAMES = ("1", "on", "true", "yes")
+# switch -> default: the JAX package's names, read at its import
+# (stt_tpu/models/whisper.py:353, 362, 504, 571)
+DECODER_POLICY_ENV = {
+    "weights": ("STT_DECODER_WEIGHTS_DTYPE", "bf16"),
+    "fused_qkv": ("STT_FUSED_QKV", "off"),
+    "self_kv": ("STT_SELF_KV_DTYPE", "bf16"),
+    "prefill": ("STT_PREFILL", "parallel"),
+}
+
+
+@dataclass(frozen=True)
+class DecoderPolicy:
+    """The decoder's opt-in policies, resolved for one compute type, each
+    meaning what its switch means in the JAX package:
+
+    - ``weights``: ``bf16`` (the compute type), ``int8`` (symmetric int8
+      storage with per-out-channel float32 scales, widened to the compute
+      type in the product, the token table scaled per column) or
+      ``int8_native`` (the same storage, and int8 x int8 products with int32
+      accumulation against a per-row activation scale); int8 only under
+      bfloat16 compute (``stt_tpu/models/whisper.py:571-626``);
+    - ``fused_qkv``: the self-attention q/k/v projections as one (d, 3d)
+      linear, k's absent bias a zero block (``:629-664``);
+    - ``self_kv``: ``fp8`` stores the self-attention cache in fp8 e4m3
+      (only under bfloat16 compute, ``:504-513``), else the compute type;
+    - ``prefill``: ``seq`` fills the prompt's cache one decode step per
+      position (``:952-993``), else in one teacher-forced pass.
+
+    Frozen, so it keys the decode graphs; two engines of one process may
+    hold different policies."""
+
+    weights: str = "bf16"
+    fused_qkv: bool = False
+    self_kv: str = "bf16"
+    prefill: str = "parallel"
+
+    @classmethod
+    def from_env(cls, compute_dtype: torch.dtype) -> "DecoderPolicy":
+        """The policy for ``compute_dtype`` from the switches
+        (``DECODER_POLICY_ENV``), each stripped and lower-cased and parsed
+        as the JAX package parses it. int8 weights and the fp8 cache under
+        float32 compute resolve to the compute type, as the JAX package
+        ignores them there."""
+        raw = {name: os.environ.get(var, default).strip().lower()
+               for name, (var, default) in DECODER_POLICY_ENV.items()}
+        bf16 = compute_dtype == torch.bfloat16
+        weights = ("int8_native" if raw["weights"] in _W8_NATIVE_NAMES else
+                   "int8" if raw["weights"] in _W8_NAMES else "bf16")
+        return cls(
+            weights=weights if bf16 else "bf16",
+            fused_qkv=raw["fused_qkv"] in _ON_NAMES,
+            self_kv="fp8" if bf16 and raw["self_kv"] in _FP8_NAMES else "bf16",
+            prefill="seq" if raw["prefill"] == "seq" else "parallel",
+        )
+
+    @property
+    def int8(self) -> bool:
+        return self.weights != "bf16"
+
+    @property
+    def native(self) -> bool:
+        return self.weights == "int8_native"
+
+    def cache_dtype(self, compute_dtype: torch.dtype) -> torch.dtype:
+        """Storage type of the self-attention cache
+        (``stt_tpu/models/whisper.py:kv_cache_dtype``)."""
+        if self.self_kv == "fp8" and compute_dtype == torch.bfloat16:
+            return torch.float8_e4m3fn
+        return compute_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -348,10 +435,18 @@ def _param(*shape) -> nn.Parameter:
 
 
 class Linear(nn.Module):
+    """A linear layer, weight (d_in, d_out) in the compute type; or, once
+    :func:`quantize_decoder_weights` has run, int8 codes ``wq`` (d_out, d_in)
+    with float32 per-out-channel scales ``ws`` (d_out,) and ``native`` set
+    for int8 x int8 products."""
+
     def __init__(self, d_in: int, d_out: int, bias: bool = True) -> None:
         super().__init__()
         self.w = _param(d_in, d_out)
         self.b = _param(d_out) if bias else None
+        self.register_buffer("wq", None)
+        self.register_buffer("ws", None)
+        self.native = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _linear(x, self)
@@ -381,6 +476,9 @@ class Attention(nn.Module):
         self.k = Linear(d, d, bias=False)
         self.v = Linear(d, d)
         self.o = Linear(d, d)
+        # the (d, 3d) projection that replaces q, k and v under the fused
+        # policy (fuse_decoder_qkv)
+        self.qkv: Optional[Linear] = None
 
 
 class MLP(nn.Module):
@@ -435,12 +533,21 @@ class AudioEncoder(nn.Module):
 
 class TextDecoder(nn.Module):
     def __init__(self, config: WhisperConfig,
-                 policy: AttentionPolicy = AttentionPolicy()) -> None:
+                 policy: AttentionPolicy = AttentionPolicy(),
+                 decoder_policy: DecoderPolicy = DecoderPolicy()) -> None:
         super().__init__()
         d = config.n_text_state
         self.n_head = config.n_text_head
+        self.n_vocab = config.n_vocab
+        self.d_model = d
         self.policy = policy
+        self.decoder_policy = decoder_policy
         self.tok = _param(config.n_vocab, d)
+        # int8 token table (V_pad, d) and its per-column float32 scales (d,)
+        # under the int8 policies; V_pad is V rounded up to 8 for the native
+        # product, the padding rows zero
+        self.register_buffer("tok_q", None)
+        self.register_buffer("tok_s", None)
         self.pos = _param(config.n_text_ctx, d)
         self.blocks = nn.ModuleList(
             Block(d, cross=True) for _ in range(config.n_text_layer)
@@ -450,11 +557,12 @@ class TextDecoder(nn.Module):
 
 class Whisper(nn.Module):
     def __init__(self, config: WhisperConfig,
-                 policy: AttentionPolicy = AttentionPolicy()) -> None:
+                 policy: AttentionPolicy = AttentionPolicy(),
+                 decoder_policy: DecoderPolicy = DecoderPolicy()) -> None:
         super().__init__()
         self.config = config
         self.encoder = AudioEncoder(config, policy)
-        self.decoder = TextDecoder(config, policy)
+        self.decoder = TextDecoder(config, policy, decoder_policy)
 
 
 def build_model(
@@ -463,16 +571,79 @@ def build_model(
     device: torch.device,
     dtype: torch.dtype = torch.float32,
     policy: AttentionPolicy = AttentionPolicy(),
+    decoder_policy: DecoderPolicy = DecoderPolicy(),
 ) -> Whisper:
     """Whisper module on ``device`` in ``dtype`` from a JAX-layout tree
-    (e.g. :func:`init_params`) under the attention ``policy``; no float32
-    copy is made on the host."""
+    (e.g. :func:`init_params`) under the attention ``policy`` and the
+    ``decoder_policy``, whose weight transforms run on the converted weights
+    on ``device``, fused before quantised, as the JAX engine orders them
+    (``stt_tpu/engine/engine.py:1064-1079``); no float32 copy is made on the
+    host. The quantised weights apply under bfloat16 compute only."""
     with torch.device("meta"):
-        model = Whisper(config, policy)
+        model = Whisper(config, policy, decoder_policy)
     model.load_state_dict(from_jax_params(params), strict=True, assign=True)
     model = model.to(device=device, dtype=dtype)
     model.requires_grad_(False)
+    if decoder_policy.fused_qkv:
+        fuse_decoder_qkv(model.decoder)
+    if decoder_policy.int8 and dtype == torch.bfloat16:
+        quantize_decoder_weights(model.decoder, native=decoder_policy.native)
     return model.eval()
+
+
+def _quant_linear_leaf(w: torch.Tensor, dim: int):
+    """Symmetric int8 codes and float32 scales over ``dim`` of ``w``
+    (``stt_tpu/models/whisper.py:_quant_linear_leaf``): s = max |w| / 127
+    (at least 1e-12), q = round(w / s), both in float32 from the stored
+    weight; |w - q s| <= s / 2."""
+    wf = w.float()
+    s = torch.clamp_min(torch.amax(torch.abs(wf), dim=dim, keepdim=True) / 127.0, 1e-12)
+    return torch.round(wf / s).to(torch.int8), s.squeeze(dim)
+
+
+@torch.no_grad()
+def quantize_decoder_weights(dec: "TextDecoder", native: bool = False) -> None:
+    """The decoder's linear weights and token table as int8, in place
+    (``stt_tpu/models/whisper.py:quantize_decoder_weights``): every linear
+    of self-attention (fused or not), cross-attention and the MLP per
+    out-channel, the token table (V, d) per column, so one scale vector
+    serves the embedding gather and the logits; biases, layer norms and the
+    position table keep the compute type. ``native`` marks the int8 x int8
+    products."""
+    for block in dec.blocks:
+        for lin in [*(m for m in (block.attn, block.xattn) for m in
+                      (m.qkv, m.q, m.k, m.v, m.o) if m is not None),
+                    block.mlp.fc1, block.mlp.fc2]:
+            q, s = _quant_linear_leaf(lin.w, 0)          # (d_in, d_out) per column
+            lin.wq = q.t().contiguous()                  # (d_out, d_in)
+            lin.ws = s
+            lin.native = native
+            lin.w = None
+    q, s = _quant_linear_leaf(dec.tok, 0)                # (V, d), scales (d,)
+    pad = (-q.shape[0]) % 8 if native else 0
+    dec.tok_q = F.pad(q, (0, 0, 0, pad)) if pad else q.contiguous()
+    dec.tok_s = s
+    dec.tok = None
+
+
+@torch.no_grad()
+def fuse_decoder_qkv(dec: "TextDecoder") -> None:
+    """Each decoder layer's self-attention q/k/v projections as one
+    (d, 3d) linear, in place (``stt_tpu/models/whisper.py:
+    fuse_decoder_qkv``): the weights concatenated on the output axis, the
+    bias [q_b, 0, v_b]. Exact: every output column is the same product."""
+    for block in dec.blocks:
+        attn = block.attn
+        if attn.qkv is not None:
+            continue
+        w = torch.cat([attn.q.w, attn.k.w, attn.v.w], dim=-1)
+        b = torch.cat([attn.q.b, torch.zeros_like(attn.q.b), attn.v.b])
+        with torch.device("meta"):
+            fused = Linear(*w.shape)
+        fused.w = nn.Parameter(w, requires_grad=False)
+        fused.b = nn.Parameter(b, requires_grad=False)
+        attn.qkv = fused
+        attn.q = attn.k = attn.v = None
 
 
 # ---------------------------------------------------------------------------
@@ -487,10 +658,89 @@ def _layer_norm(x: torch.Tensor, p: LayerNorm) -> torch.Tensor:
 
 
 def _linear(x: torch.Tensor, p: Linear) -> torch.Tensor:
-    if p.b is None:
-        return torch.matmul(x, p.w)
-    y = torch.addmm(p.b, x.reshape(-1, x.shape[-1]), p.w)
-    return y.reshape(*x.shape[:-1], y.shape[-1])
+    """x @ w + b with float32 accumulation, rounded once to x's type. Under
+    int8 storage (``stt_tpu/models/whisper.py:266-293``) the codes widen to
+    x's type in the product and the per-out-channel scale applies to the
+    float32 accumulator; the native route multiplies int8 codes of x (one
+    scale a row) by the weight's codes with int32 accumulation, then both
+    scales."""
+    if p.wq is None:
+        if p.b is None:
+            return torch.matmul(x, p.w)
+        y = torch.addmm(p.b, x.reshape(-1, x.shape[-1]), p.w)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    x2 = x.reshape(-1, x.shape[-1])
+    if p.native:
+        xq, sx = _quant_activation_rows(x2)
+        y = _int8_mm(xq, p.wq).to(torch.float32) * sx
+    else:
+        y = _mm_f32(x2, p.wq.t().to(x.dtype))
+    y = y * p.ws
+    if p.b is not None:
+        y = y + p.b.float()
+    return y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
+
+
+def _quant_activation_rows(x: torch.Tensor):
+    """Dynamic symmetric int8 codes of x (M, K), one float32 scale a row
+    (``stt_tpu/models/whisper.py:_quant_activation_rows``): (xq (M, K) int8,
+    sx (M, 1) float32)."""
+    xf = x.float()
+    sx = torch.clamp_min(torch.amax(torch.abs(xf), dim=-1, keepdim=True) / 127.0, 1e-12)
+    return torch.round(xf / sx).to(torch.int8), sx
+
+
+# torch._int_mm on the card takes more than 16 rows and K, N multiples of
+# 8; rows are padded to a multiple of 8, at least this many
+_INT_MM_MIN_ROWS = 24
+
+
+def _int8_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """xq (M, K) int8 @ wq (N, K) int8 transposed -> (M, N) int32, exact.
+    On the card cuBLASLt's int8 product (``torch._int_mm``, the weight
+    column-major as it wants it), the rows zero-padded to a multiple of 8
+    above its minimum; on
+    the CPU the same integers multiplied as int32."""
+    if xq.device.type == "cpu":
+        return torch.mm(xq.to(torch.int32), wq.t().to(torch.int32))
+    m = xq.shape[0]
+    rows = max(_INT_MM_MIN_ROWS, -(-m // 8) * 8)
+    if rows != m:
+        xq = F.pad(xq, (0, 0, 0, rows - m))
+    return torch._int_mm(xq, wq.t())[:m]
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N), operands of one type, float32 out (the route
+    :func:`_narrow_f32` picks)."""
+    if not _narrow_f32(a):
+        return torch.matmul(a.float(), b.float())
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def _attn_qkv_lin(hn: torch.Tensor, p: "Attention"):
+    """Self-attention's input projections, fused or separate as the
+    decoder policy built them (``stt_tpu/models/whisper.py:_attn_qkv_lin``):
+    (q, k, v), unscaled, in the head-merged layout."""
+    if p.qkv is not None:
+        return tuple(torch.chunk(_linear(hn, p.qkv), 3, dim=-1))
+    return p.q(hn), p.k(hn), p.v(hn)
+
+
+def _tok_embed(dec: "TextDecoder", tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings in the compute type; an int8 table widens and
+    takes its per-column scale in the compute type
+    (``stt_tpu/models/whisper.py:_tok_embed``)."""
+    if dec.tok_q is None:
+        return dec.tok[tokens]
+    dtype = dec.pos.dtype
+    return dec.tok_q[tokens].to(dtype) * dec.tok_s.to(dtype)
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """A float8 tensor's bytes (uint8, same shape), for the copies and
+    gathers that have no float8 kernel; any other tensor as it is."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -555,7 +805,7 @@ def _attention(q, k, v, n_head: int, mask=None, flash: bool = False) -> torch.Te
 
 
 def _self_attn(x, p: Attention, n_head: int, mask=None, flash: bool = False) -> torch.Tensor:
-    return p.o(_attention(p.q(x), p.k(x), p.v(x), n_head, mask, flash))
+    return p.o(_attention(*_attn_qkv_lin(x, p), n_head, mask, flash))
 
 
 def _conv1d(x: torch.Tensor, p: Conv, stride: int) -> torch.Tensor:
@@ -613,7 +863,7 @@ def empty_cross_kv(dec: TextDecoder, batch: int, n_audio: int,
     policy picks (with int8 scales): an ``out=`` for
     :func:`precompute_cross_kv`."""
     n_head = dec.n_head
-    d = dec.tok.shape[1]
+    d = dec.d_model
     shape = (len(dec.blocks), batch, n_head, n_audio, d // n_head)
     store = dec.policy.cross_store_dtype(dtype) or dtype
     scales = None
@@ -700,21 +950,34 @@ def _cross_layer_attn(qx: torch.Tensor, ckv: CrossKV, li: int,
 def _tok_logits(dec: TextDecoder, x: torch.Tensor) -> torch.Tensor:
     """float32 vocab logits against the tied token table as stored: x in
     the compute type, float32 out (the route as :func:`_narrow_f32` says),
-    so no float32 copy of the table is made on the card."""
-    if not _narrow_f32(x):
-        return F.linear(x.float(), dec.tok.float())
-    y = torch.mm(x.reshape(-1, x.shape[-1]), dec.tok.t(), out_dtype=torch.float32)
+    so no float32 copy of the table is made on the card. An int8 table's
+    per-column scale folds into x (``stt_tpu/models/whisper.py:677-697``);
+    then its codes widen in the product, or on the native route meet x's
+    own int8 codes."""
+    if dec.tok_q is None:
+        if not _narrow_f32(x):
+            return F.linear(x.float(), dec.tok.float())
+        y = torch.mm(x.reshape(-1, x.shape[-1]), dec.tok.t(), out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    x2 = (x * dec.tok_s.to(x.dtype)).reshape(-1, x.shape[-1])
+    if dec.decoder_policy.native:
+        xq, sx = _quant_activation_rows(x2)
+        y = _int8_mm(xq, dec.tok_q)[:, :dec.n_vocab].to(torch.float32) * sx
+    else:
+        y = _mm_f32(x2, dec.tok_q.t().to(x.dtype))
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def _write_slot(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
                 gate: Optional[torch.Tensor]) -> None:
     """Writes ``new`` (B, H, 1, Dh) into one layer's cache ``buf`` (B, H,
-    T_max, Dh) in place at ``pos``: one slot for a 0-d ``pos``
+    T_max, Dh) in place at ``pos`` (a float8 cache through its bytes): one
+    slot for a 0-d ``pos``
     (``index_copy_`` on the time axis), row b's slot ``pos[b]`` for a (B,)
     one (``index_copy_`` on ``buf`` viewed as (B*H*T_max, Dh), one index per
     row and head, no host read). Where ``gate`` is false the slot keeps
     what it held."""
+    buf, new = _raw(buf), _raw(new)
     if pos.dim() == 0:
         slot = pos.reshape(1)
         if gate is not None:
@@ -761,13 +1024,15 @@ def _decoder_step(dec: TextDecoder, tokens: torch.Tensor, pos: Union[int, torch.
     else:
         emb = dec.pos.index_select(0, emb_pos)
         mask = torch.where(slots[None, :] <= pos[:, None], 0.0, -torch.inf)[:, None, None, :]
-    h = (dec.tok[tokens] + emb.to(dec.tok.dtype))[:, None, :]
+    x = _tok_embed(dec, tokens)
+    h = (x + emb.to(x.dtype))[:, None, :]
     scale = (h.shape[-1] // n_head) ** -0.25
     for li, block in enumerate(dec.blocks):
         hn = block.ln1(h)
-        qh = _split_heads(block.attn.q(hn), n_head) * scale
-        k_new = _split_heads(block.attn.k(hn), n_head) * scale
-        v_new = _split_heads(block.attn.v(hn), n_head)
+        q_lin, k_lin, v_lin = _attn_qkv_lin(hn, block.attn)
+        qh = _split_heads(q_lin, n_head) * scale
+        k_new = _split_heads(k_lin, n_head) * scale
+        v_new = _split_heads(v_lin, n_head)
         _write_slot(cache.k[li], k_new.to(cache.k.dtype), pos, gate)
         _write_slot(cache.v[li], v_new.to(cache.v.dtype), pos, gate)
         attn_out = _attn_cached(qh, cache.k[li], cache.v[li], mask).to(h.dtype)
@@ -791,16 +1056,18 @@ def _prefill_parallel(dec: TextDecoder, tokens: torch.Tensor, width: int,
     contents of ``width`` sequential :func:`_decoder_step` calls in one
     batched pass. Returns pre-final-LN hidden states (B, width, d)."""
     n_head = dec.n_head
-    h = dec.tok[tokens[:, :width]] + dec.pos[:width][None].to(dec.tok.dtype)
+    x = _tok_embed(dec, tokens[:, :width])
+    h = x + dec.pos[:width][None].to(x.dtype)
     scale = (h.shape[-1] // n_head) ** -0.25
     causal = _causal_mask(width, h.device)
     for li, block in enumerate(dec.blocks):
         hn = block.ln1(h)
-        qh = _split_heads(block.attn.q(hn), n_head) * scale
-        k_new = (_split_heads(block.attn.k(hn), n_head) * scale).to(cache.k.dtype)
-        v_new = _split_heads(block.attn.v(hn), n_head).to(cache.v.dtype)
-        cache.k[li, :, :, :width] = k_new
-        cache.v[li, :, :, :width] = v_new
+        q_lin, k_lin, v_lin = _attn_qkv_lin(hn, block.attn)
+        qh = _split_heads(q_lin, n_head) * scale
+        k_new = (_split_heads(k_lin, n_head) * scale).to(cache.k.dtype)
+        v_new = _split_heads(v_lin, n_head).to(cache.v.dtype)
+        _raw(cache.k)[li, :, :, :width] = _raw(k_new)
+        _raw(cache.v)[li, :, :, :width] = _raw(v_new)
         attn_out = _attn_cached(qh, k_new, v_new, causal).to(h.dtype)
         h = h + block.attn.o(_merge_heads(attn_out))
         qx = _split_heads(block.xattn.q(block.ln_x(h)), n_head) * scale
@@ -815,9 +1082,21 @@ def _prefill(dec: TextDecoder, tokens: torch.Tensor, p_len: int,
              layout: TokenLayout) -> torch.Tensor:
     """Fill cache positions [0, p_len - 1) (the loop processes the last
     prompt position) and return p(no_speech) read from the logits AT the
-    sot position (openai ``DecodingTask._main_loop``)."""
+    sot position (openai ``DecodingTask._main_loop``). Under the ``seq``
+    prefill policy one :func:`_decoder_step` a position
+    (``stt_tpu/models/whisper.py:979-993``), else one teacher-forced
+    pass."""
     if p_len <= 1:
         return torch.zeros(tokens.shape[0], device=tokens.device)
+    if dec.decoder_policy.prefill == "seq":
+        no_speech = None
+        for i in range(p_len - 1):
+            logits = _decoder_step(dec, tokens[:, i], i, cache, cross_kv)
+            if i == sot_pos:
+                no_speech = torch.softmax(logits, dim=-1)[:, layout.no_speech]
+        if no_speech is None:
+            no_speech = torch.zeros(tokens.shape[0], device=tokens.device)
+        return no_speech
     h = _prefill_parallel(dec, tokens, p_len - 1, cache, cross_kv)
     h_sot = h[:, sot_pos : sot_pos + 1]
     logits = _tok_logits(dec, dec.ln(h_sot)[:, 0, :])
@@ -830,7 +1109,8 @@ def decoder_forward(model: Whisper, tokens: torch.Tensor,
     dec = model.decoder
     n_head = dec.n_head
     t = tokens.shape[1]
-    h = dec.tok[tokens] + dec.pos[:t][None].to(dec.tok.dtype)
+    x = _tok_embed(dec, tokens)
+    h = x + dec.pos[:t][None].to(x.dtype)
     causal = _causal_mask(t, h.device)
     xk, xv = _cross_dequant(precompute_cross_kv(dec, enc_out))
     scale = (h.shape[-1] // n_head) ** -0.25
@@ -857,7 +1137,8 @@ def cross_attention_weights(model: Whisper, tokens: torch.Tensor, enc_out: torch
     dec = model.decoder
     n_head = dec.n_head
     b, t = tokens.shape
-    h = dec.tok[tokens] + dec.pos[:t][None].to(dec.tok.dtype)
+    x = _tok_embed(dec, tokens)
+    h = x + dec.pos[:t][None].to(x.dtype)
     causal = _causal_mask(t, h.device)
     xk, xv = _cross_dequant(precompute_cross_kv(dec, enc_out))
     n_layers = len(dec.blocks)
@@ -1221,7 +1502,7 @@ def start_decode(dec: TextDecoder, state: DecodeState, prompt: torch.Tensor,
     eot, eot past it, position P, no row finished, the route's rules
     (:func:`reset_rules`); then the prefill fills cache positions [0, P -
     1). Returns p(no_speech) at ``sot_pos``."""
-    layout = token_layout(dec.tok.shape[0])
+    layout = token_layout(dec.n_vocab)
     p_len = prompt.shape[1]
     state.tokens.fill_(layout.eot)
     state.tokens[:, :p_len].copy_(prompt)
@@ -1247,7 +1528,7 @@ def _decode_chunk(dec: TextDecoder, state: DecodeState, cross_kv: CrossKV,
     sampled one and of ``greedy_decode_timestamps`` on a timestamp one,
     ``n_steps`` times. The caller keeps ``pos + n_steps`` within the
     state's T_max."""
-    eot = token_layout(dec.tok.shape[0]).eot
+    eot = token_layout(dec.n_vocab).eot
     pos, rules = state.pos, state.rules
     for _ in range(n_steps):
         last = state.tokens.index_select(1, pos.reshape(1) - 1)[:, 0]
@@ -1294,8 +1575,8 @@ def _route_decode(model: Whisper, enc_out: torch.Tensor, prompt: torch.Tensor,
     dec = model.decoder
     device = enc_out.device
     b, p_len = prompt.shape
-    state = init_decode_state(model.config, b, p_len, max_new_tokens, enc_out.dtype, device,
-                              route=route)
+    state = init_decode_state(model.config, b, p_len, max_new_tokens,
+                              dec.decoder_policy.cache_dtype(enc_out.dtype), device, route=route)
     if cross_kv is None:
         cross_kv = precompute_cross_kv(dec, enc_out)
     no_speech_prob = start_decode(
@@ -1529,7 +1810,7 @@ def start_drafted(dec: TextDecoder, state: DraftState, prompt: torch.Tensor,
     greedy token at the first mismatch is committed for free, and every
     row's position, finished flag and logprob sum are set for the resume.
     Returns p(no_speech) at ``sot_pos``. No host read."""
-    layout = token_layout(dec.tok.shape[0])
+    layout = token_layout(dec.n_vocab)
     eot = layout.eot
     p_len = prompt.shape[1]
     d_max = state.draft.shape[1]
@@ -1596,7 +1877,7 @@ def _drafted_chunk(dec: TextDecoder, state: DraftState, cross_kv: CrossKV,
     step's start, so a step after a row finished changes nothing there and
     the host may read all-rows-finished once a chunk. The sample-begin mask
     was applied in the verify pass: positions here are past every prompt."""
-    eot = token_layout(dec.tok.shape[0]).eot
+    eot = token_layout(dec.n_vocab).eot
     t_max = state.tokens.shape[1]
     pos = state.pos
     for _ in range(n_steps):
@@ -1657,7 +1938,7 @@ def greedy_decode_drafted(
     device = enc_out.device
     b, p_len = prompt.shape
     state = init_draft_state(model.config, b, p_len, max_new_tokens, draft.shape[1],
-                             enc_out.dtype, device)
+                             dec.decoder_policy.cache_dtype(enc_out.dtype), device)
     if cross_kv is None:
         cross_kv = precompute_cross_kv(dec, enc_out)
     no_speech_prob = start_drafted(
@@ -1665,10 +1946,10 @@ def greedy_decode_drafted(
         draft.to(device=device, dtype=torch.long), draft_len.to(device), cross_kv,
         suppress_blank=suppress_blank, sot_pos=sot_pos,
     )
-    for _ in range(0, max_new_tokens, FINISH_CHECK_EVERY):
+    for done in range(0, max_new_tokens, FINISH_CHECK_EVERY):
         if bool(state.finished.all()):
             break
-        _drafted_chunk(dec, state, cross_kv)
+        _drafted_chunk(dec, state, cross_kv, min(FINISH_CHECK_EVERY, max_new_tokens - done))
     return finish_drafted(state, p_len, no_speech_prob)
 
 
@@ -1798,7 +2079,7 @@ def start_beam(dec: TextDecoder, state: BeamState, prompt: torch.Tensor,
     diversifies; the pool empty; the route's rules reset, every beam with
     its row's seen-set. The prefill runs on all B*K rows (``cross_kv`` of
     B*K rows); returns p(no_speech) of beam 0 at ``sot_pos``."""
-    layout = token_layout(dec.tok.shape[0])
+    layout = token_layout(dec.n_vocab)
     b, k, t_max = state.tokens.shape
     p_len = prompt.shape[1]
     state.tokens.fill_(layout.eot)
@@ -1871,7 +2152,7 @@ def _commit_beams(st: BeamState, run: torch.Tensor, parent: torch.Tensor,
     tokens.index_copy_(2, at, new_tok[:, :, None])
     st.tokens.copy_(torch.where(run, tokens, st.tokens))
     rows = (torch.arange(b, device=parent.device)[:, None] * k + parent).reshape(-1)
-    for buf in st.cache:
+    for buf in map(_raw, st.cache):
         buf.copy_(buf.index_select(1, rows))
     st.pos.add_(run.to(st.pos.dtype))
 
@@ -2015,7 +2296,8 @@ def beam_decode(
     route = Route(timestamps=with_timestamps, penalised=rep_penalty is not None,
                   ngram_n=int(ngram_n))
     state = init_beam_state(model.config, b, k, beam_candidates(k, patience), p_len,
-                            max_new_tokens, enc_out.dtype, device, route=route)
+                            max_new_tokens, dec.decoder_policy.cache_dtype(enc_out.dtype),
+                            device, route=route)
     if cross_kv is None:
         cross_kv = repeat_cross_kv(precompute_cross_kv(dec, enc_out), k)
     no_speech_prob = start_beam(
@@ -2038,7 +2320,8 @@ def detect_language(model: Whisper, enc_out: torch.Tensor,
     b = enc_out.shape[0]
     if cross_kv is None:
         cross_kv = precompute_cross_kv(model.decoder, enc_out)
-    cache = init_kv_cache(config, b, 4, enc_out.dtype, enc_out.device)
+    cache = init_kv_cache(config, b, 4, model.decoder.decoder_policy.cache_dtype(enc_out.dtype),
+                          enc_out.device)
     sot = torch.full((b,), layout.sot, dtype=torch.long, device=enc_out.device)
     logits = _decoder_step(model.decoder, sot, 0, cache, cross_kv)
     lang_logits = logits[:, layout.lang_begin : layout.lang_begin + layout.n_langs]
@@ -2065,6 +2348,7 @@ def build_prompt(
 __all__ = [
     "AttentionPolicy",
     "BeamState",
+    "DecoderPolicy",
     "CrossKV",
     "DecodeResult",
     "DecodeState",
@@ -2090,6 +2374,7 @@ __all__ = [
     "empty_cross_kv",
     "finish_decode",
     "finish_drafted",
+    "fuse_decoder_qkv",
     "get_config",
     "finish_beam",
     "greedy_decode",
@@ -2104,6 +2389,7 @@ __all__ = [
     "init_rules",
     "load_hf_safetensors",
     "precompute_cross_kv",
+    "quantize_decoder_weights",
     "repeat_cross_kv",
     "reset_rules",
     "sample_decode",

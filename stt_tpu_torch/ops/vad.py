@@ -1,6 +1,8 @@
 """Voice-activity scoring: adaptive-noise-floor DSP VAD.
 
-Own copy of ``stt_tpu/ops/vad.py`` for the port, which imports nothing of ``stt_tpu``.
+Own copy of ``stt_tpu/ops/vad.py`` for the port, which imports nothing of ``stt_tpu``,
+plus :func:`vad_step_torch`, the same scoring batched in torch on an explicit
+device (the batched scorer's, ``server/component/vad_scorer.py``).
 
 The reference gates endpointing on Silero-VAD probabilities over 512-sample
 (32 ms @ 16 kHz) frames (reference: ``stt_server/backend/component/vad_gate.py:
@@ -149,11 +151,71 @@ def vad_step(xp, frames, state: VadState, params: VadParams = VadParams()):
     return stacked, VadState(noise_floor, prob, frames_seen)
 
 
+class VadConstants(NamedTuple):
+    """The scoring's constant tables on one device: the windowed DFT basis
+    (512, 514) and the speech-band mask (257,), float32."""
+
+    basis: "torch.Tensor"
+    band: "torch.Tensor"
+
+
+def vad_constants(device, params: VadParams = VadParams()) -> VadConstants:
+    """:func:`_vad_dft_basis` and :func:`_band_mask` as float32 tensors on
+    ``device``, made once per scorer."""
+    import torch
+
+    return VadConstants(
+        torch.from_numpy(_vad_dft_basis()).to(device),
+        torch.from_numpy(_band_mask(params.band_low_hz, params.band_high_hz)).to(device),
+    )
+
+
+def vad_step_torch(frames, noise_floor, prob, consts: VadConstants,
+                   params: VadParams = VadParams()):
+    """:func:`vad_step` in torch on the tensors' device, batched: frames
+    (B, F, 512) float32 and each row's state (``noise_floor``, ``prob``:
+    (B,) float32) -> (probs (B, F), noise_floor (B,), prob (B,)). The same
+    float32 arithmetic as the numpy path, one frame after another along F
+    (the state is sequential), every row at once. The frame counter is the
+    caller's (it only counts)."""
+    import torch
+
+    spec = frames @ consts.basis
+    power = spec[..., :_N_BINS] ** 2 + spec[..., _N_BINS:] ** 2
+    band = consts.band
+    energy = torch.mean(frames ** 2, dim=-1)
+    total_p = torch.sum(power, dim=-1) + _EPS
+    band_ratio = torch.sum(power * band, dim=-1) / total_p
+    band_bins = torch.sum(band) + _EPS
+    log_gm = torch.sum(torch.log(power + _EPS) * band, dim=-1) / band_bins
+    am = torch.sum(power * band, dim=-1) / band_bins
+    flatness = torch.exp(log_gm) / (am + _EPS)
+
+    floor = torch.full_like(noise_floor, params.noise_floor_init)
+    probs = []
+    for i in range(frames.shape[-2]):
+        e = energy[..., i]
+        noise_floor = torch.where(e < noise_floor, e, noise_floor * params.noise_floor_rise)
+        noise_floor = torch.maximum(noise_floor, floor)
+        snr_db = 10.0 * (torch.log10(e + _EPS) - torch.log10(noise_floor + _EPS))
+        p_snr = torch.sigmoid(params.snr_slope * (snr_db - params.snr_midpoint_db))
+        p_band = torch.sigmoid(params.band_slope * (band_ratio[..., i] - params.band_midpoint))
+        p_tone = 1.0 - params.flatness_weight * torch.clip(flatness[..., i] * 4.0, 0.0, 1.0)
+        raw = p_snr * (0.25 + 0.75 * p_band) * p_tone
+        alpha = torch.where(raw > prob, params.attack, params.release)
+        prob = alpha * raw + (1.0 - alpha) * prob
+        probs.append(prob)
+    return torch.stack(probs, dim=-1), noise_floor, prob
+
+
 __all__ = [
     "VAD_FRAME_SAMPLES",
+    "VadConstants",
     "VAD_SAMPLE_RATE",
     "VadParams",
     "VadState",
     "init_state",
+    "vad_constants",
     "vad_step",
+    "vad_step_torch",
 ]

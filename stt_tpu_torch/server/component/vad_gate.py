@@ -12,7 +12,8 @@ probability per chunk, and accumulates trailing-silence duration until
 
 What differs: the scorer is the deterministic DSP VAD from
 :mod:`stt_tpu_torch.ops.vad` (Silero weights are unreachable in a zero-egress
-build) — "a model instance" is just a tiny :class:`VadSession` state struct,
+build; a deployment that has the Silero ONNX file sets ``vad_model_path``
+and scores with :mod:`stt_tpu_torch.ops.silero` on the configured device) — "a model instance" is just a tiny :class:`VadSession` state struct,
 so pooling costs nothing but the *limits* still behave identically, and the
 same scoring math can run batched on device for all sessions (ops.vad is
 namespace-generic). The gate additionally tracks the utterance-start estimate
@@ -37,12 +38,14 @@ from ...utils.logging import LOGGER
 class VadSession:
     """Per-stream streaming scorer state (the pool's 'model instance').
 
-    With a shared ``BatchedVadScorer`` attached (the JAX package's TPU
-    servers; the port has none yet), scoring routes through ONE
-    jitted cross-session batch per tick; otherwise (CPU servers, tests,
-    scorer failure) the identical math runs as per-session numpy — the
-    two paths are bit-compatible (``tests/test_vad.py`` parity tests), so
-    tuned ``vad_threshold`` values transfer unchanged.
+    With a shared :class:`~stt_tpu_torch.server.component.vad_scorer.
+    BatchedVadScorer` attached (``vad_device: device``), scoring routes
+    through ONE cross-session device batch per tick, and after a scorer
+    failure through the scorer's own host fallback, which logs and counts
+    every request it scores; otherwise (host scoring, tests) the identical
+    math runs as per-session numpy — the two paths agree within 1e-5
+    (``tests/test_torch_vad_scorer.py``), so tuned ``vad_threshold`` values
+    transfer unchanged.
     """
 
     def __init__(
@@ -62,7 +65,7 @@ class VadSession:
 
     def score(self, frames: np.ndarray) -> np.ndarray:
         """frames (F, 512) -> probabilities (F,)."""
-        if self._scorer is not None and self._scorer.healthy:
+        if self._scorer is not None:
             probs, self.state = self._scorer.score(frames, self.state)
             return np.asarray(probs)
         probs, self.state = vad_ops.vad_step(np, frames, self.state, self.params)
@@ -85,9 +88,10 @@ class VADModelPool:
         self._reserved = 0
         self._free: list = []
         self._total_created = 0
-        self._scorer = None          # shared BatchedVadScorer (TPU servers)
+        self._scorer = None          # shared BatchedVadScorer (vad_device: device)
         self._silero_path: Optional[str] = None
-        self._silero_model = None    # lazily-loaded shared Silero pytree
+        self._silero_device = None
+        self._silero_model = None    # lazily-loaded shared Silero graph
 
     def set_scorer(self, scorer) -> None:
         """Attach a shared cross-session batched scorer; sessions created
@@ -98,24 +102,29 @@ class VADModelPool:
                 if isinstance(session, VadSession):
                     session._scorer = scorer
 
-    def set_silero_model(self, path: Optional[str]) -> None:
+    def set_silero_model(self, path: Optional[str], device=None) -> None:
         """Use a learned Silero VAD loaded from a local ONNX file instead
         of the DSP scorer (reference loads Silero ONNX/TorchScript,
         ``stt_server/backend/component/vad_gate.py:235-247``). NOTE:
         Silero probability scales differ from the DSP VAD's — re-tune
         ``vad_threshold`` when switching (Silero's own default is 0.5,
-        same as ours, but the distributions are not identical)."""
+        same as ours, but the distributions are not identical). The
+        graph runs on ``device`` (the card unless it names the CPU)."""
         with self._lock:
             self._silero_path = path or None
+            self._silero_device = device
             self._silero_model = None
             if self._silero_path:
                 self._free.clear()
 
     def _new_session(self):
         if self._silero_path:
-            # the runtime refuses vad_model_path at boot; Silero is not ported
-            raise NotImplementedError(
-                "vad_model_path (Silero VAD) is not served by stt_tpu_torch yet")
+            from ...ops.silero import SileroVad, SileroVadSession
+
+            if self._silero_model is None:
+                self._silero_model = SileroVad.from_onnx(self._silero_path,
+                                                         device=self._silero_device)
+            return SileroVadSession(self._silero_model)
         return VadSession(scorer=self._scorer)
 
     def configure(

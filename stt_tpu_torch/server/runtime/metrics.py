@@ -241,6 +241,19 @@ class Metrics:
 
     # -- VAD -------------------------------------------------------------------
 
+    def record_vad_scorer_batch(self, seconds: float) -> None:
+        """One device call of the batched VAD scorer and its wall seconds
+        (copies included)."""
+        with self._lock:
+            self._counters["vad_scorer_batches"] += 1
+            self._stats["vad_scorer_tick"].record(seconds)
+
+    def record_vad_scorer_fallback(self) -> None:
+        """One request the batched VAD scorer left to the host after a
+        failure."""
+        with self._lock:
+            self._counters["vad_scorer_fallbacks"] += 1
+
     def record_vad_trigger(self) -> None:
         with self._lock:
             self._counters["vad_triggers_total"] += 1
@@ -322,6 +335,12 @@ class Metrics:
             payload["draft_tokens_accepted"] = self._counters[
                 "draft_tokens_accepted"
             ]
+            if self._counters["vad_scorer_batches"] or self._counters["vad_scorer_fallbacks"]:
+                # only once the batched VAD scorer has run: the key set
+                # otherwise stays the JAX plane's
+                for name in ("vad_scorer_batches", "vad_scorer_fallbacks"):
+                    payload[name] = self._counters[name]
+                self._stat_triplet(payload, "vad_scorer_tick", "vad_scorer_tick")
             if self._expose_api_key_metrics and self._api_key_sessions:
                 payload["active_sessions_by_api"] = dict(self._api_key_sessions)
             if self._stream_buffer_bytes:

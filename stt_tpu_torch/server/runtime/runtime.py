@@ -2,10 +2,13 @@
 
 Counterpart of ``stt_tpu/server/runtime/runtime.py``, copied line for line
 but for two places: it builds the port's model registry (engines on the
-card), and the two VAD options the port does not serve yet raise
-``NotImplementedError`` at boot, naming the option: ``vad_model_path``
-(Silero ONNX) and ``vad_device: device`` (the batched scorer). The shipped
-``auto`` resolves to host scoring, as in the JAX package.
+card), and the two opt-in VAD options run on the server's ``device`` (the
+card unless it says ``cpu``): ``vad_model_path`` loads Silero through the
+port's ONNX executor (``ops/silero.py``), and ``vad_device: device``
+builds the batched scorer (``server/component/vad_scorer.py``) with the
+runtime's metrics, whose prewarm failing at boot raises instead of being
+logged and passed over as the JAX runtime does. The shipped ``auto``
+resolves to host scoring, as in the JAX package.
 
 Parity with the reference runtime (``stt_server/backend/runtime/
 runtime.py:42-374``): wires Metrics into the orchestrator/scheduler through
@@ -60,6 +63,7 @@ from ..application.session_manager import (
 )
 from ..component.decode_scheduler import DecodeScheduler, DecodeSchedulerHooks
 from ..component.vad_gate import VADModelPool
+from ..component.vad_scorer import BatchedVadScorer, scorer_device
 from .metrics import Metrics
 
 
@@ -91,19 +95,21 @@ class ApplicationRuntime:
         self.default_decode_profile = default_profile
 
         self.vad_model_pool = VADModelPool()
+        self._vad_scorer = None
         if config.vad_model_path:
-            # the learned Silero VAD (an ONNX executor) is not ported yet
-            raise NotImplementedError(
-                f"vad_model_path={config.vad_model_path!r} (Silero VAD) is not "
-                f"served by stt_tpu_torch yet; leave it unset for the DSP VAD"
-            )
-        if config.vad_device == "device":
-            # the batched cross-session device scorer is not ported yet;
-            # "auto" resolves to host scoring, as in the JAX package
-            raise NotImplementedError(
-                "vad_device='device' (the batched VAD scorer) is not served by "
-                "stt_tpu_torch yet; use 'auto' or 'host'"
-            )
+            # learned Silero VAD from a local ONNX file, executed by the
+            # port's own ONNX executor on the server's device
+            self.vad_model_pool.set_silero_model(config.vad_model_path,
+                                                 device=scorer_device(config.device))
+        elif config.vad_device == "device":
+            # one cross-session device batch per tick, opt-in as in the JAX
+            # package ("auto" resolves to host scoring there and here); on
+            # the card on a stream of its own. A prewarm that fails raises:
+            # the server does not boot on a scorer it could not run
+            self._vad_scorer = BatchedVadScorer(scorer_device(config.device),
+                                                metrics=self.metrics)
+            self._vad_scorer.prewarm()
+            self.vad_model_pool.set_scorer(self._vad_scorer)
 
         self.model_registry = ModelRegistry(
             metrics=self.metrics,
@@ -354,6 +360,8 @@ class ApplicationRuntime:
     def shutdown(self, drain_timeout_sec: Optional[float] = None) -> None:
         if self._adaptive_throttle is not None:
             self._adaptive_throttle.stop()
+        if self._vad_scorer is not None:
+            self._vad_scorer.close()
         self.model_registry.close(drain_timeout_sec)
 
 

@@ -224,17 +224,28 @@ def test_max_new_for_is_a_multiple_of_the_chunk(bucket, max_decode):
 
 
 @pytest.mark.parametrize("max_decode", [0, 12, 100])
-def test_engine_refuses_bounds_off_the_chunk(max_decode):
-    with pytest.raises(ValueError, match="multiple of 8"):
-        _engine(max_decode_tokens=max_decode)
+def test_engine_takes_any_positive_bound(max_decode):
+    """0 stays refused; a bound off the 8-step chunk serves, each bucket's
+    decode stopping at it (``tests/test_torch_decode_bound.py`` holds the
+    tokens to the JAX engine's)."""
+    if max_decode <= 0:
+        with pytest.raises(ValueError, match="positive"):
+            _engine(max_decode_tokens=max_decode)
+        return
+    engine = _engine(max_decode_tokens=max_decode)
+    out = engine.transcribe_sync(TE.DecodeRequest(np.zeros(16000, np.float32), language="en"))
+    assert out._n_gen <= engine._max_new_for(1.0) <= max_decode
 
 
-def test_graph_key_refuses_max_new_off_the_chunk():
+def test_graph_key_takes_max_new_off_the_chunk():
     graphs = _engine().graphs
-    for max_new in (0, 12, 20):
-        with pytest.raises(ValueError, match="multiple of 8"):
-            graphs.key(1.0, 1, 4, max_new)
-    assert graphs.key(1.0, 1, 4, 24).max_new == 24
+    with pytest.raises(ValueError, match="positive"):
+        graphs.key(1.0, 1, 4, 0)
+    for max_new, chunks, tail in ((12, 1, 4), (20, 2, 4), (24, 3, 0)):
+        assert graphs.key(1.0, 1, 4, max_new).max_new == max_new
+        entry = graphs.entry(1.0, 1, 4, max_new, 50)
+        assert (entry.chunks, entry.tail) == (chunks, tail)
+        assert entry.state.tokens.shape == (1, 4 + max_new)
 
 
 def test_graph_cache_separates_shapes_and_policies_and_reuses_entries():

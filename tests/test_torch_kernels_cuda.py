@@ -857,3 +857,22 @@ def test_server_process_exits_0_on_sigterm(cuda_device, tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=10)
+
+
+@pytest.mark.cuda
+def test_use_pallas_false_on_the_card_serves_without_the_kernel(cuda_device):
+    """``use_pallas=False`` on the card serves with the plain torch log-mel
+    (the engine's choice, made at build): no log-mel kernel launch, and that
+    log-mel within the kernel's tolerance (atol 2e-4, rtol 1e-4) of the
+    kernel on the same rows."""
+    from stt_tpu_torch.engine import engine as TE
+    from stt_tpu_torch.ops import mel as M
+
+    engine = TE.WhisperEngine("test", compute_type="float32", use_pallas=False)
+    before = mel_logspec.launches
+    out = engine.transcribe_sync(TE.DecodeRequest(np.zeros(8000, np.float32), language="en"))
+    assert out.info.language == "en" and mel_logspec.launches == before
+    rows = _rows("mulaw", 2, 1.0).to(cuda_device)
+    plain = normalize_log_mel(M.log_mel_raw(M.expand_wire(rows), 80))
+    kernel = normalize_log_mel(mel_logspec(rows, 80))
+    torch.testing.assert_close(plain, kernel, atol=2e-4, rtol=1e-4)

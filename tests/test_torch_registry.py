@@ -4,8 +4,10 @@ The registry is a copy of the JAX package's but where the card differs, so
 its fair queue is held to the original on one scripted sequence, and the
 rest checks the port's own contract: device names, no serving on the CPU in
 place of a missing card, ``draft_mode`` and the boot prewarm of the drafted
-entries, the refusals (``mesh_shape``, ``use_pallas=False`` on the card, the
-unported VAD options), the engine's metrics hook and ``pad_to_30s``, and
+entries, the refusal of ``mesh_shape``, ``use_pallas=False`` served (on the
+card ``tests/test_torch_kernels_cuda.py`` holds it), the opt-in VAD options (Silero from an
+ONNX file, the batched device scorer) booting, the engine's metrics hook
+and ``pad_to_30s``, and
 that a task the engine fails (an option it cannot read) fails alone,
 without stopping the dispatcher. The
 resampler is held to the JAX package's ``resample_np`` at atol 1e-5.
@@ -154,14 +156,6 @@ def test_draft_mode_loads_and_sets_the_boot_prewarm(monkeypatch, mode, drafted):
         registry.unload_model("m")
 
 
-def test_use_pallas_false_on_the_card_raises(monkeypatch):
-    # a card as resolve_device would return it; the refusal comes before
-    # anything is allocated there
-    monkeypatch.setattr(TE, "resolve_device", lambda device: torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match="use_pallas"):
-        TE.WhisperEngine("test", compute_type="float32", use_pallas=False)
-
-
 def test_use_pallas_false_on_the_cpu_serves():
     engine = TE.WhisperEngine("test", device="cpu", compute_type="float32", use_pallas=False)
     out = engine.transcribe_sync(TE.DecodeRequest(np.zeros(8000, np.float32), language="en"))
@@ -253,14 +247,34 @@ def test_fake_backend_pool_serves():
         registry.close()
 
 
-@pytest.mark.parametrize("field,value,match", [("vad_model_path", "/x/silero.onnx",
-                                                "vad_model_path"),
-                                               ("vad_device", "device", "vad_device")])
-def test_runtime_refuses_unported_vad_options(field, value, match):
+@pytest.mark.parametrize("field", ["vad_model_path", "vad_device"])
+def test_runtime_boots_with_each_opt_in_vad_option(tmp_path, field):
+    """``vad_model_path`` (a Silero-shaped ONNX file) gives Silero sessions;
+    ``vad_device: device`` attaches the batched scorer, prewarmed; both on
+    the server's device, here the CPU."""
+    from stt_tpu_torch.ops.silero import SileroVadSession
+    from stt_tpu_torch.server.component.vad_gate import VadSession
+    from tests.test_onnx_jax import TinySilero, _export_tiny_silero
+
     config = load_config()
-    setattr(config, field, value)
-    with pytest.raises(NotImplementedError, match=match):
-        ApplicationRuntime(config, load_default_model=False)
+    config.device = "cpu"
+    if field == "vad_model_path":
+        torch.manual_seed(7)
+        config.vad_model_path = _export_tiny_silero(TinySilero().eval(), tmp_path / "s.onnx")
+    else:
+        config.vad_device = "device"
+    runtime = ApplicationRuntime(config, load_default_model=False)
+    try:
+        session = runtime.vad_model_pool.acquire_model()
+        probs = session.score(np.zeros((3, 512), np.float32))
+        assert probs.shape == (3,)
+        if field == "vad_model_path":
+            assert isinstance(session, SileroVadSession) and runtime._vad_scorer is None
+        else:
+            assert isinstance(session, VadSession) and session._scorer is runtime._vad_scorer
+            assert runtime.metrics.render()["vad_scorer_batches"] > 0
+    finally:
+        runtime.shutdown()
 
 
 def test_runtime_boots_the_shipped_config_with_host_vad():

@@ -1,16 +1,18 @@
 """The switches of the JAX package read at engine build.
 
 ``STT_DECODER_WEIGHTS_DTYPE``, ``STT_FUSED_QKV``, ``STT_SELF_KV_DTYPE`` and
-``STT_PREFILL`` select behaviour the port does not serve; they are parsed
-as the JAX package parses them (``stt_tpu/models/whisper.py:353-366,
-504-512,571-580``). A value whose JAX behaviour the port lacks raises
-``NotImplementedError`` naming the variable and its value; a value that
-means the port's behaviour builds the engine silently.
-``STT_DRAFT_PARTIALS`` (``stt_tpu/engine/engine.py:116-137``) is served:
-on/always/1/yes -> ``on``, off/no -> ``off``, adaptive/auto and the
-default -> ``adaptive``, each building silently and serving; any other
-value warns once and means ``adaptive``. A ``test``-model engine on the
-CPU.
+``STT_PREFILL`` select the decoder policies; they are parsed as the JAX
+package parses them (``stt_tpu/models/whisper.py:353-366, 504-512,
+571-580``) into the engine's frozen
+:class:`~stt_tpu_torch.models.whisper.DecoderPolicy`, and every value
+builds an engine that serves (``tests/test_torch_policies.py`` holds each
+policy's numbers to the JAX package's). int8 weights under float32 compute
+warn and are ignored, as in the JAX engine; a value that means the default
+builds silently. ``STT_DRAFT_PARTIALS`` (``stt_tpu/engine/engine.py:
+116-137``) is served: on/always/1/yes -> ``on``, off/no -> ``off``,
+adaptive/auto and the default -> ``adaptive``, each building silently and
+serving; any other value warns once and means ``adaptive``. A
+``test``-model engine on the CPU.
 """
 
 import logging
@@ -26,7 +28,8 @@ SWITCHES = ("STT_DRAFT_PARTIALS", "STT_DECODER_WEIGHTS_DTYPE", "STT_FUSED_QKV",
 DRAFT_ON = [("on", "bfloat16"), ("always", "bfloat16"), ("1", "float32"),
             (" Yes ", "float32")]
 
-REFUSED = [
+# each value that the port once refused, and the policy it now builds
+SERVED = [
     ("STT_DECODER_WEIGHTS_DTYPE", "int8", "bfloat16"),
     ("STT_DECODER_WEIGHTS_DTYPE", "int8_native", "bfloat16"),
     ("STT_DECODER_WEIGHTS_DTYPE", "i8", "bfloat16"),
@@ -73,13 +76,32 @@ def _warnings(caplog):
             if r.levelno == logging.WARNING and r.name == "stt_tpu_torch"]
 
 
-@pytest.mark.parametrize("name,value,compute_type", REFUSED)
-def test_refused_values_raise_naming_the_switch(env, name, value, compute_type):
+POLICY_FIELD = {
+    "STT_DECODER_WEIGHTS_DTYPE": ("weights", {"int8": "int8", "i8": "int8",
+                                              "int8_native": "int8_native", "i8n": "int8_native"}),
+    "STT_FUSED_QKV": ("fused_qkv", {"on": True, "true": True}),
+    "STT_SELF_KV_DTYPE": ("self_kv", {"fp8": "fp8", "fp8_e4m3": "fp8"}),
+    "STT_PREFILL": ("prefill", {"seq": "seq"}),
+}
+
+
+@pytest.mark.parametrize("name,value,compute_type", SERVED)
+def test_policy_values_build_and_serve(env, name, value, compute_type):
+    """Each value the port once refused builds its policy and serves a
+    greedy and a beam request."""
     env.setenv(name, value)
-    with pytest.raises(NotImplementedError) as exc:
-        _engine(compute_type)
-    message = str(exc.value)
-    assert name in message and repr(value.strip().lower()) in message
+    engine = TE.WhisperEngine("test", device="cpu", compute_type=compute_type,
+                              max_decode_tokens=16)
+    field_name, expect = POLICY_FIELD[name]
+    assert getattr(engine.decoder_policy, field_name) == expect[value.strip().lower()]
+    assert engine.model.decoder.decoder_policy == engine.decoder_policy
+    try:
+        for options in ({}, {"beam_size": 2}):
+            out = engine.transcribe_sync(TE.DecodeRequest(audio=_tone(), language="en",
+                                                          options=options))
+            assert out.info.language == "en" and 0 < out._n_gen <= 16
+    finally:
+        engine.close()
 
 
 @pytest.mark.parametrize("name,value,compute_type", PASSING)
