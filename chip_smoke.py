@@ -179,6 +179,29 @@ PyTorch built for CUDA. In order:
       above 0 and its fallbacks 0, every session's finals (endpoints and
       texts) equal with both, first-partial and final p95 of each; a JSON
       line summarises phases i and j;
+   k. training and the (data, model) mesh (after j): (a) the flash
+      backward kernels (dK/dV, dQ) and the forward's log-sum-exp at 4 x 12
+      x 1500 x 64 in float32 and bf16 against their plain versions (lse
+      within 1e-3; gradients within 1e-4 of the largest |gradient| in
+      float32, 2e-2 in bf16; the library's backward's distance printed as
+      an independent check), each timed cold beside its plain version, the
+      library's backward (autograd through SDPA) and its bound, and the
+      served forward timed with and without the log-sum-exp; (b)
+      whisper-small float32 trained at a (1, 1) mesh with flash on, 4 rows
+      of a 30 s mel and 128 random tokens a row: 5 steps, losses finite
+      and falling, ms a step, peak memory, the forward, dK/dV and dQ
+      kernels launched 12 times each a step (counts set to 0 before each
+      step), the first step's gradients within 1e-4 of each leaf's largest
+      |gradient| (and its loss within 1e-5) of the same step with flash off;
+      (c) two gloo ranks on cuda:0 at (2, 1) and (1, 2), their first loss
+      and full gradients and their second loss against (b)'s at the same
+      bars; (d) the engine at a (1, 2) mesh with both slots on cuda:0:
+      float32 at 4 x 10 s with the single engine's tokens, bf16 at 64 x 10 s
+      with its captured greedy step beside the single engine's and the
+      token agreement, then the ``test`` model's serving, drafted and
+      registry proofs of ``stt_tpu_torch/parallel/dryrun.py``; (e) a
+      checkpoint after (b)'s step 2 restored into a fresh trainer, whose
+      step 3 loss must be bitwise (b)'s, and restored at (1, 2) within 1e-5;
    f. drafted partials (run before e): the ``test`` model in float32 on the
    card, 4 rows of 5 s with an empty, a perfect, an adversarial and a
    mid-mutation draft, must give the plain decode's tokens and lengths,
@@ -244,7 +267,9 @@ PyTorch built for CUDA. In order:
    each timed, with no decode graph captured. Then it stops the planes;
 6. closes the engines, then prints one JSON line describing each kernel
    body (log-mel, cross-attention decode, flash attention's bf16 and
-   float32 bodies) and, last, ``{"ok": true, "device": {...}}``.
+   float32 bodies, and the flash backward's dK/dV and dQ kernels, whose
+   launches are those of 3k (b)'s 5 steps and whose numbers are float32's
+   at 4 x 12 x 1500) and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the final line; so does a host
 without CUDA, and a directory that holds this script but not the package.
@@ -264,7 +289,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-WATCHDOG_SEC = 900
+WATCHDOG_SEC = 1100
 MEL_ATOL, MEL_RTOL = 2e-4, 1e-4          # tests/test_pallas_mel.py:28
 REF_ATOL = 1e-3                          # float32 card vs float32 CPU, test model
 # kernel vs plain, set from the values at the served shapes: outputs there
@@ -295,7 +320,7 @@ H100_BF16_FLOPS = 989e12                 # dense bf16 tensor-core peak, SXM, 700
 H100_HBM_BYTES = 3.35e12                 # HBM3 bytes/s
 L2_FLUSH_BYTES = 256 * 1024 * 1024       # > the 50 MB L2: a cold cache per timed call
 SPIN_CYCLES = 1_000_000                  # device spin after each flush, ~0.5 ms
-KERNELS = ("mel", "xattn_decode", "flash_attention")
+KERNELS = ("mel", "xattn_decode", "flash_attention", "flash_attention_bwd")
 BEAM = 5
 # config/model.yaml's accurate profile, as the server passes it to a decode
 ACCURATE = {"beam_size": BEAM, "best_of": 5, "patience": 1.0, "temperature": 0.0,
@@ -591,7 +616,7 @@ def split_sweep(torch, q, k, v, planned: int) -> None:
     for splits in range(1, F32_MAX_SPLIT + 1):
         if -(-n_tiles // -(-n_tiles // splits)) != splits:
             continue
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, dh,
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b * h, t, dh,
                 splits, stream)
         if launch(*args) != 0:
             fail(f"flash_attention float32 B{b}: the launcher refused {splits} key splits")
@@ -3393,6 +3418,330 @@ def reference_30s_phase(torch, E, W, dev) -> None:
         f"{'identical' if same_tokens else 'differ'} on the card and the CPU")
 
 
+# -- phase 3k: training through the flash backward kernels; the mesh -------------
+
+TRAIN_ROWS, TRAIN_TOKENS, TRAIN_STEPS = 4, 128, 5
+BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}   # of the largest |gradient|
+TRAIN_GRAD_REL = 1e-4        # flash on vs off, and a mesh vs one process, float32
+TRAIN_LOSS_REL = 1e-5        # a mesh's loss vs one process's, float32
+
+
+def bwd_kernels_phase(torch) -> dict:
+    """3k (a): the forward's log-sum-exp and the dK/dV and dQ kernels at 4 x
+    12 x 1500 x 64, float32 and bf16, against the plain versions (and the
+    library's backward, an independent check); cold times of each kernel,
+    its plain version and the library's backward (autograd through SDPA,
+    backward only), the bounds, and the served forward with and without the
+    log-sum-exp. Returns the float32 numbers, keyed by kernel."""
+    import torch.nn.functional as F
+    from stt_tpu_torch.ops.kernels import flash_attention as FA
+
+    dev = torch.device("cuda", 0)
+    b, h, t, dh = 4, 12, 1500, 64
+    n = b * h * t
+    out = {}
+    for dtype, peak in ((torch.float32, H100_F32_FLOPS), (torch.bfloat16, H100_BF16_FLOPS)):
+        name = str(dtype).split(".")[-1]
+        gen = torch.Generator(device=dev).manual_seed(1717)
+        scale = dh ** -0.25
+        q, k, v = ((torch.randn((b, h, t, dh), generator=gen, device=dev) * sc).to(dtype)
+                   for sc in (scale, scale, 1.0))
+        do = torch.randn((b, h, t, dh), generator=gen, device=dev).to(dtype)
+        o, lse = FA.flash_attention_with_lse(q, k, v)
+        ref_o, ref_lse = FA.flash_attention_plain(q, k, v, with_lse=True)
+        lse_err = (lse - ref_lse).abs().max().item()
+        di = FA.attention_di(o, do)
+        dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, di)
+        dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, di)
+        pk, pv = FA.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di)
+        pq = FA.flash_attention_bwd_dq_plain(q, k, v, do, lse, di)
+        qq, kk, vv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        lib_o = F.scaled_dot_product_attention(qq, kk, vv, scale=1.0)
+        lq, lk, lv = torch.autograd.grad(lib_o, (qq, kk, vv), do, retain_graph=True)
+        torch.cuda.synchronize()
+        errs, lib_errs, abs_errs = {}, {}, {}
+        for g, p, lg, tag in ((dq, pq, lq, "dq"), (dk, pk, lk, "dk"), (dv, pv, lv, "dv")):
+            if g.shape != q.shape or g.dtype != dtype or not torch.isfinite(g).all():
+                fail(f"flash backward {name} {tag}: shape {tuple(g.shape)}, {g.dtype} or "
+                     f"non-finite values")
+            scale_g = p.float().abs().max().item()
+            abs_errs[tag] = (g.float() - p.float()).abs().max().item()
+            errs[tag] = abs_errs[tag] / scale_g
+            lib_errs[tag] = (g.float() - lg.float()).abs().max().item() / scale_g
+        if lse_err > 1e-3 or max(errs.values()) > BWD_REL[name]:
+            fail(f"flash backward {name}: lse err {lse_err:.3g}, gradients "
+                 f"{errs} of the largest |gradient| (bar {BWD_REL[name]})")
+        times = {
+            "dkv": cuda_ms_cold(torch, lambda: FA.flash_attention_bwd_dkv(q, k, v, do, lse, di)),
+            "dq": cuda_ms_cold(torch, lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, di)),
+            "dkv_plain": cuda_ms_cold(
+                torch, lambda: FA.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di), iters=5),
+            "dq_plain": cuda_ms_cold(
+                torch, lambda: FA.flash_attention_bwd_dq_plain(q, k, v, do, lse, di), iters=5),
+            "library": cuda_ms_cold(torch, lambda: torch.autograd.grad(
+                lib_o, (qq, kk, vv), do, retain_graph=True)),
+            "fwd": cuda_ms_cold(torch, lambda: FA.flash_attention(q, k, v)),
+            "fwd_lse": cuda_ms_cold(torch, lambda: FA.flash_attention_with_lse(q, k, v)),
+        }
+        es = q.element_size()
+        bounds = {"dkv": bound(6 * n * dh * es + 8 * n, 8.0 * b * h * t * t * dh, peak),
+                  "dq": bound(5 * n * dh * es + 8 * n, 6.0 * b * h * t * t * dh, peak)}
+        log(f"3k (a) flash backward B{b} H{h} T{t} Dh{dh} {name}: lse max abs err "
+            f"{lse_err:.3g}; against the plain backward, of the largest |gradient|: "
+            + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
+            + " (library's backward: " + ", ".join(f"{k_} {e:.3g}" for k_, e in lib_errs.items())
+            + f"); dK/dV {times['dkv']:.4f} ms (plain {times['dkv_plain']:.4f}, bound "
+            f"{bounds['dkv'][0]:.4g} ms {bounds['dkv'][1]}, {bounds['dkv'][0] / times['dkv']:.1%}"
+            f" of it), dQ {times['dq']:.4f} ms (plain {times['dq_plain']:.4f}, bound "
+            f"{bounds['dq'][0]:.4g} ms {bounds['dq'][1]}, {bounds['dq'][0] / times['dq']:.1%} "
+            f"of it), library backward (SDPA, dQ dK dV) {times['library']:.4f} ms; served "
+            f"forward {times['fwd']:.4f} ms, with the log-sum-exp {times['fwd_lse']:.4f} ms")
+        if dtype == torch.float32:
+            for kern in ("dkv", "dq"):
+                out[kern] = dict(
+                    max_abs_err=max(abs_errs[x] for x in (("dk", "dv") if kern == "dkv"
+                                                          else ("dq",))),
+                    ms=times[kern], plain_ms=times[f"{kern}_plain"],
+                    bound_ms=bounds[kern][0], bound_by=bounds[kern][1],
+                    library_ms=times["library"])
+        del q, k, v, do, o, lse, ref_o, ref_lse, dq, dk, dv, pq, pk, pv, lib_o, lq, lk, lv
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_batch(W, T):
+    """3k's batch: 4 rows of a 30 s mel (80 x 3000), 128 random token ids
+    under 1000 a row, a mask of ones (``__graft_entry__.py:84-91``)."""
+    rng = np.random.default_rng(17)
+    return T.TrainBatch(rng.normal(0, 1, (TRAIN_ROWS, 80, 3000)).astype(np.float32),
+                        rng.integers(0, 1000, (TRAIN_ROWS, TRAIN_TOKENS)).astype(np.int64),
+                        np.ones((TRAIN_ROWS, TRAIN_TOKENS), np.float32))
+
+
+def grad_errors(got: dict, ref: dict) -> float:
+    """The largest, over the leaves, of max |got - ref| / max |ref|."""
+    worst = 0.0
+    for name, r in ref.items():
+        g = got[name]
+        if g.shape != r.shape:
+            fail(f"gradient {name}: shape {tuple(g.shape)} against {tuple(r.shape)}")
+        worst = max(worst, ((g.float() - r.float()).abs().max()
+                            / r.float().abs().max().clamp_min(1e-30)).item())
+    return worst
+
+
+def train_phase(torch, W, workdir: str, size: str = "small", device: str = "cuda:0") -> dict:
+    """3k (b) and (e): whisper-small float32 at (1, 1), flash on: 5 steps of
+    the 30 s batch (losses finite, the 5th below the 1st), ms a step, peak
+    memory, each kernel's launches a step; then the first step's loss and
+    gradients with flash off (twice, the second timed; peak memory), which
+    the flash step's must match; a checkpoint after step 2, then a fresh trainer
+    restored from it whose step 3 is bitwise the run's. Returns the losses,
+    the first step's gradients (on the host), the checkpoint's path, the
+    launches, the ms a step and the peaks. ``size`` and ``device`` let the
+    host rehearse it (the "test" model on the CPU)."""
+    from stt_tpu_torch.ops.kernels import flash_attention as FA
+    from stt_tpu_torch.parallel import trainer as T
+    from stt_tpu_torch.parallel.checkpoint import restore_checkpoint, save_checkpoint
+    from stt_tpu_torch.parallel.sharding import build_mesh
+
+    config = W.get_config(size)
+    dev = torch.device(device)
+    params = W.init_params(config, seed=0)
+    batch = train_batch(W, T)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = build_mesh((1, 1), [dev])
+    kernels = (FA.flash_attention, FA.flash_attention_bwd_dkv, FA.flash_attention_bwd_dq)
+
+    trainer = T.ShardedTrainer(config, mesh, flash_attention="auto")
+    state = trainer.init_state(params)
+    ckpt = str(Path(workdir) / "train-step2.pt")
+    losses, ms, launches = [], [], [0, 0, 0]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_STEPS):
+        for kern in kernels:
+            kern.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        if step == 0:
+            losses.append(trainer.value_and_grad(state, batch))
+            grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
+            state.optimizer.step()
+            state.step += 1
+        else:
+            losses.append(trainer.train_step(state, batch))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts = [kern.launches for kern in kernels]
+        if dev.type == "cuda" and counts != [config.n_audio_layer] * 3:
+            fail(f"3k (b) step {step + 1}: launches forward, dK/dV, dQ {counts}, want "
+                 f"{config.n_audio_layer} each")
+        launches = [a + c for a, c in zip(launches, counts)]
+        if step == 1:
+            save_checkpoint(ckpt, trainer, state)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"3k (b): losses {losses} not finite and falling")
+    del state
+    torch.cuda.empty_cache()
+
+    plain = T.ShardedTrainer(config, mesh, flash_attention="off")
+    state = plain.init_state(params)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    plain.value_and_grad(state, batch)  # warm-up; the second call is timed
+    sync()
+    t0 = time.perf_counter()
+    plain_loss = plain.value_and_grad(state, batch)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    plain_grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
+    del state
+    torch.cuda.empty_cache()
+    flash_err = grad_errors(grads, plain_grads)
+    loss_err = abs(losses[0] - plain_loss) / abs(plain_loss)
+    if flash_err > TRAIN_GRAD_REL or loss_err > TRAIN_LOSS_REL:
+        fail(f"3k (b): flash on against off: loss {loss_err:.3g} (relative), gradients "
+             f"{flash_err:.3g} of each leaf's largest |gradient| (bars {TRAIN_LOSS_REL}, "
+             f"{TRAIN_GRAD_REL})")
+    log(f"3k (b) trainer (1, 1), whisper-{size} float32, flash on, {TRAIN_ROWS} x 30 s, "
+        f"{TRAIN_TOKENS} tokens: losses {[round(x, 6) for x in losses]}; ms a step "
+        f"{[round(x, 1) for x in ms]}; peak memory {peak:.2f} GiB; launches a step forward, "
+        f"dK/dV, dQ {[config.n_audio_layer] * 3}; step 1 against flash off (plain attention "
+        f"on the card; its loss and gradients, a second call: {plain_ms:.1f} ms, peak "
+        f"{plain_peak:.2f} GiB): loss {loss_err:.3g} relative, gradients {flash_err:.3g} of each leaf's "
+        f"largest |gradient|")
+    del plain_grads
+    third = losses[2]
+
+    # (e) a fresh trainer from the step-2 checkpoint: step 3 bitwise
+    t0 = time.monotonic()
+    again = T.ShardedTrainer(config, mesh, flash_attention="auto")
+    restored = restore_checkpoint(ckpt, again)
+    resumed = again.train_step(restored, batch)
+    if restored.step != 3 or resumed != third:
+        fail(f"3k (e): resumed step {restored.step}, loss {resumed!r} against the run's "
+             f"{third!r}")
+    log(f"3k (e) checkpoint after step 2 ({Path(ckpt).stat().st_size / 1e9:.2f} GB), restored "
+        f"into a fresh trainer: step 3 loss {resumed!r}, bitwise the uninterrupted run's "
+        f"({time.monotonic() - t0:.1f} s)")
+    del restored, again
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grads": grads, "ckpt": ckpt, "launches": launches, "ms": ms,
+            "peak_gib": peak, "plain_ms": plain_ms, "plain_peak_gib": plain_peak}
+
+
+def mesh_train_phase(torch, W, run: dict, workdir: str, size: str = "small",
+                     device: str = "cuda:0") -> None:
+    """3k (c) and the rest of (e): two gloo ranks on cuda:0 at (2, 1) and (1,
+    2), the 30 s batch with flash on: each mesh's first loss and full
+    gradients against (b)'s first step, its second loss against (b)'s
+    second; then the step-2 checkpoint restored at (1, 2), its step 3
+    against (b)'s."""
+    from stt_tpu_torch.parallel import dryrun
+    from stt_tpu_torch.parallel import trainer as T
+
+    batch = tuple(train_batch(W, T))
+    devices = [device, device]
+    for shape in ((2, 1), (1, 2)):
+        path = str(Path(workdir) / f"grads-{shape[0]}x{shape[1]}.pt")
+        t0 = time.monotonic()
+        results = dryrun.spawn(dryrun.grads_rank, 2,
+                               (shape, devices, size, 0, batch, "auto", 2, path),
+                               workdir=workdir, timeout=300.0)
+        seconds = time.monotonic() - t0
+        losses, _, step_s = results[0]
+        grads = torch.load(path, weights_only=True)
+        err = grad_errors(grads, run["grads"])
+        loss_errs = [abs(a - b) / abs(b) for a, b in zip(losses, run["losses"])]
+        if max(loss_errs) > TRAIN_LOSS_REL or err > TRAIN_GRAD_REL:
+            fail(f"3k (c) mesh {shape}: losses {losses} against {run['losses'][:2]}, gradients "
+                 f"{err:.3g} of each leaf's largest |gradient|")
+        log(f"3k (c) mesh {shape}, 2 gloo ranks on {device}: losses {losses} (relative to "
+            f"(1, 1): {[f'{e:.3g}' for e in loss_errs]}), gradients {err:.3g} of each leaf's "
+            f"largest |gradient|; seconds a step (loss and gradients, rank 0) "
+            f"{[round(x, 3) for x in step_s]}, {seconds:.1f} s with start-up")
+        Path(path).unlink()
+    t0 = time.monotonic()
+    results = dryrun.spawn(dryrun.restore_rank, 2,
+                           ((1, 2), devices, size, run["ckpt"], batch, "auto"),
+                           workdir=workdir, timeout=300.0)
+    step, loss = results[0]
+    rel = abs(loss - run["losses"][2]) / abs(run["losses"][2])
+    if step != 2 or rel > TRAIN_LOSS_REL:
+        fail(f"3k (e): restored at (1, 2) from step {step}, step 3 loss {loss} against "
+             f"{run['losses'][2]}")
+    log(f"3k (e) the step-2 checkpoint restored at (1, 2): step 3 loss {loss} ({rel:.3g} from "
+        f"(1, 1)'s; {time.monotonic() - t0:.1f} s)")
+
+
+def mesh_serve_phase(torch, E, W) -> dict:
+    """3k (d): the engine at (1, 2), both slots on cuda:0: float32 at 4 x
+    10 s with the single engine's tokens; bf16 at 64 x 10 s, the captured
+    greedy step beside the single engine's and the token agreement; the
+    "test" model's serving proofs and the registry with ``mesh_shape``
+    serving two sessions' partials and finals (the dry run's)."""
+    from stt_tpu_torch import bench as B
+    from stt_tpu_torch.parallel import dryrun
+
+    mesh = dict(mesh_shape=(1, 2), mesh_devices=["cuda:0", "cuda:0"])
+    out = {}
+    tokens = {}
+    for tag, kw in (("single", {}), ("mesh", mesh)):
+        eng = small_engine(E, compute_type="float32", batch_buckets=(4,), **kw)
+        try:
+            outs = eng._harvest(eng._device_phase(group_tasks(E, 10.0, 4, 60)))
+            tokens[tag] = [o._tokens.tolist() for o in outs]
+        finally:
+            release(eng)
+    if tokens["mesh"] != tokens["single"]:
+        fail("3k (d): the float32 (1, 2) mesh's tokens differ from the single engine's")
+    log("3k (d) float32, 4 x 10 s: the (1, 2) mesh's tokens equal the single engine's")
+    for tag, kw in (("single", {}), ("mesh", mesh)):
+        eng = small_engine(E, **kw)
+        try:
+            eng.prewarm([10.0], [64])
+            captures = eng.graph_captures
+            outs = eng._harvest(eng._device_phase(group_tasks(E, 10.0, 64, 90)))
+            if eng.graph_captures != captures:
+                fail(f"3k (d) {tag}: a graph was captured while serving")
+            tokens[tag] = np.stack([o._tokens for o in outs])
+            out[f"{tag}_step_ms"] = B.decode_step_ms(eng, 10.0, 64, captured=True)
+        finally:
+            release(eng)
+    agree = float((tokens["mesh"] == tokens["single"]).mean())
+    log(f"3k (d) bf16, 64 x 10 s: captured greedy step {out['mesh_step_ms']:.4f} ms on the "
+        f"(1, 2) mesh against {out['single_step_ms']:.4f} ms on one device "
+        f"({out['mesh_step_ms'] / out['single_step_ms']:.2f}x); token agreement {agree:.3f}")
+    out["agreement"] = agree
+    dryrun.serving_proofs((1, 2), ["cuda:0", "cuda:0"])
+    dryrun.registry_proof((1, 2), ["cuda:0", "cuda:0"])
+    return out
+
+
+def phase_3k(torch, E, W) -> dict:
+    """Phase 3k: (a) the kernels, (b) + (e) the (1, 1) trainer and its
+    checkpoint, (c) + (e) two ranks, (d) mesh serving. Returns the kernels'
+    numbers with the launches of (b)'s 5 steps."""
+    import tempfile
+
+    t0 = time.monotonic()
+    kernels = bwd_kernels_phase(torch)
+    with tempfile.TemporaryDirectory(dir=ROOT) as workdir:
+        run = train_phase(torch, W, workdir)
+        mesh_train_phase(torch, W, run, workdir)
+    serve = mesh_serve_phase(torch, E, W)
+    kernels["dkv"]["launches"] = run["launches"][1]
+    kernels["dq"]["launches"] = run["launches"][2]
+    log(f"phase 3k: {time.monotonic() - t0:.1f} s")
+    log("phase 3k: " + json.dumps({"train_ms": run["ms"], "losses": run["losses"],
+                                   "peak_gib": run["peak_gib"], "plain_ms": run["plain_ms"],
+                                   "plain_peak_gib": run["plain_peak_gib"], "serve": serve}))
+    return kernels
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(WATCHDOG_SEC, exit=True)
     import torch
@@ -3580,6 +3929,9 @@ def main() -> None:
     log("phases 3i-3j: " + json.dumps({"policies": policies["summary"], "bound": bound,
                                         "vad": vad}))
 
+    # -- 3k. training through the flash backward kernels; the (data, model) mesh -
+    train = phase_3k(torch, E, W)
+
     # -- 5. the gRPC streaming path (before 4: the server's engine is shut down first)
     grpc_phase(torch, card)
 
@@ -3625,6 +3977,18 @@ def main() -> None:
         "replaces": "stt_tpu/models/whisper.py:378",
         "launches": f32_launches,
         **flash32_headline,
+    }, {
+        "name": "flash_attention_bwd_dkv",
+        "route": "cuda",
+        "source": "stt_tpu_torch/ops/cuda/flash_attention_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+        **train["dkv"],
+    }, {
+        "name": "flash_attention_bwd_dq",
+        "route": "cuda",
+        "source": "stt_tpu_torch/ops/cuda/flash_attention_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+        **train["dq"],
     }]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -125,10 +125,26 @@ captured graph and prewarm runs under it.
 Beam options are read as the JAX package reads them: ``beam_size``
 clamped to 1..8, ``patience`` (1..4, steps of 0.25; above 1 the pooled
 search), ``length_penalty`` (0..2, steps of 0.25) and ``suppress_blank``.
+
+``mesh_shape`` (data, model), other than 1 x 1, serves the model split over
+a mesh (``stt_tpu/engine/engine.py:972-979, 1053-1063``), whose slots are
+``mesh_devices`` (default: every visible card, or as many CPU slots on the
+CPU, which stand in for the JAX tests' virtual devices). The JAX engine
+shards only its parameters, so its data axis only replicates; the port
+serves a group's rows unsplit on one tensor-parallel group, the model
+slots of the mesh's first data row: q/k/v/o and fc1/fc2 of every layer
+split by ``parallel/collectives.py``'s rules, each slot's products on its
+own device. The engine's home device is slot (0, 0). As under JAX's mesh,
+int8 decoder weights warn and are ignored, q/k/v are not fused, and a CPU
+mesh turns ``use_pallas`` off. Every route runs as on one device; the
+decode graphs are captured where every model slot is one device, and run
+uncaptured where the slots span cards (the JAX mesh engine gives up its
+executable cache likewise, ``:1429``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import queue
@@ -651,6 +667,8 @@ class WhisperEngine:
         use_pallas: bool = True,
         weights_path: Optional[str] = None,
         draft_mode: Optional[str] = None,
+        mesh_shape: Optional[Sequence[int]] = None,
+        mesh_devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ) -> None:
         if compute_type not in _DTYPES:
             raise ValueError(f"compute_type must be one of {sorted(_DTYPES)}, "
@@ -661,10 +679,27 @@ class WhisperEngine:
         self.device = resolve_device(device)
         if device_index is not None and self.device.type == "cuda":
             self.device = torch.device("cuda", int(device_index))
-        self.use_pallas = bool(use_pallas)
+        self.mesh = None
+        if mesh_shape is not None and tuple(mesh_shape) not in ((1,), (1, 1)):
+            from ..parallel.sharding import build_mesh
+
+            shape = tuple(int(x) for x in mesh_shape)
+            if mesh_devices is None and self.device.type == "cpu":
+                mesh_devices = ["cpu"] * int(np.prod(shape))
+            self.mesh = build_mesh(shape, mesh_devices)
+            self.device = self.mesh.devices[0]
+        self.use_pallas = bool(use_pallas) and not (self.mesh is not None
+                                                    and self.device.type == "cpu")
         self._metrics = metrics
         self._dtype = _DTYPES[compute_type]
         self.decoder_policy = _decoder_policy(self._dtype)
+        if self.mesh is not None:
+            # the split rules cover the plain weights only
+            if self.decoder_policy.int8:
+                LOGGER.warning("STT_DECODER_WEIGHTS_DTYPE=%s ignored under a mesh",
+                               self.decoder_policy.weights)
+            self.decoder_policy = dataclasses.replace(self.decoder_policy, weights="bf16",
+                                                      fused_qkv=False)
         # drafted partials (stt_tpu/engine/engine.py:1008-1042): the store of
         # each session's newest partial tokens (an LRU; a final evicts), the
         # acceptance counters (live, and the adaptive mode's hypothetical
@@ -699,12 +734,19 @@ class WhisperEngine:
         self.model = W.build_model(config, params, self.device, self._dtype, self.policy,
                                    self.decoder_policy)
         del params
+        slots = None
+        if self.mesh is not None:
+            from ..parallel.collectives import shard_model_for_slots
+
+            slots = self.mesh.model_row(0)
+            shard_model_for_slots(self.model, slots)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.load_seconds = time.monotonic() - t0
         self.graphs = DecodeGraphs(
             self.model, self.device, self._dtype,
             on_capture=None if metrics is None else metrics.record_engine_compile,
+            capture=slots is None or len(set(slots)) == 1,
         )
         self.audio_wire = _audio_wire(audio_wire)
         self.pipeline_depth = _pipeline_depth(pipeline_depth)

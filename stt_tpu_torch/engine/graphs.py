@@ -138,10 +138,14 @@ class DecodeGraphs:
     the engine's ``prewarm``) and kept for the life of the cache."""
 
     def __init__(self, model: W.Whisper, device: torch.device, dtype: torch.dtype, *,
-                 on_capture: Optional[Callable[[float], None]] = None) -> None:
+                 on_capture: Optional[Callable[[float], None]] = None,
+                 capture: bool = True) -> None:
         self.model = model
         self.device = device
         self.dtype = dtype
+        # on the card the chunks are captured unless the caller says not to
+        # (a model sharded over slots on several cards runs them uncaptured)
+        self.capture = capture and device.type == "cuda"
         # called with the seconds of each warm-up and capture (a metrics hook)
         self.on_capture = on_capture
         self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
@@ -233,7 +237,7 @@ class DecodeGraphs:
             cross_kv=plain.cross_kv if plain is not None else W.empty_cross_kv(
                 dec, key.rows * key.beam, n_audio, self.dtype, self.device),
         )
-        if self.device.type != "cuda":
+        if not self.capture:
             return entry
         t0 = time.monotonic()
         if entry.chunks:

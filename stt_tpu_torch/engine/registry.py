@@ -6,7 +6,9 @@ where the card differs: ``load_model`` builds the port's
 ``torch.cuda.device_count()``) or one CPU engine for ``device="cpu"``;
 ``cpu`` names the host and ``cuda``, ``cuda:N``, ``gpu`` and ``tpu`` (the
 accelerator name the shipped YAML uses) the card, which must be there; a
-``mesh_shape`` other than 1x1 raises ``NotImplementedError``; prewarm runs
+``mesh_shape`` other than 1x1 (an engine default, as the runtime passes
+``--tpu-mesh-shape``) builds one engine split over that mesh, which needs
+as many cards (or, on the host, takes as many CPU slots); prewarm runs
 the engine's one mode (``execute``) at every beam width of the configured
 decode profiles, and the drafted entries unless ``draft_mode`` is ``off``; and :meth:`EnginePool._dispatch` turns a refusal
 from ``engine.submit`` into the task's exception instead of losing the
@@ -472,25 +474,36 @@ class ModelRegistry:
             )
             mesh_shape = engine_kwargs.pop("mesh_shape", None)
             if mesh_shape and tuple(mesh_shape) not in ((1,), (1, 1)):
-                raise NotImplementedError(
-                    f"mesh_shape={tuple(mesh_shape)!r} is not served by stt_tpu_torch "
-                    f"yet (one engine per card; sharding is a later slice)"
-                )
-            # pool_size = number of device replicas (capped at the number of
-            # cards; one engine per card), or one engine on the host
-            indices = _replica_devices(device, pool_size)
-            engine_device = "cpu" if indices is None else "cuda"
-            engines = [
-                WhisperEngine(
-                    model_size,
-                    engine_device,
-                    compute_type,
-                    device_index=index,
-                    metrics=self._metrics,
-                    **engine_kwargs,
-                )
-                for index in (indices or [None])
-            ]
+                # ONE engine split over the mesh (stt_tpu/engine/registry.py:
+                # 432-443) instead of per-card replicas: a card mesh needs
+                # that many cards, a host mesh as many CPU slots
+                indices = _replica_devices(device, 1)
+                engines = [
+                    WhisperEngine(
+                        model_size,
+                        "cpu" if indices is None else "cuda",
+                        compute_type,
+                        mesh_shape=tuple(mesh_shape),
+                        metrics=self._metrics,
+                        **engine_kwargs,
+                    )
+                ]
+            else:
+                # pool_size = number of device replicas (capped at the number
+                # of cards; one engine per card), or one engine on the host
+                indices = _replica_devices(device, pool_size)
+                engine_device = "cpu" if indices is None else "cuda"
+                engines = [
+                    WhisperEngine(
+                        model_size,
+                        engine_device,
+                        compute_type,
+                        device_index=index,
+                        metrics=self._metrics,
+                        **engine_kwargs,
+                    )
+                    for index in (indices or [None])
+                ]
             pool: _BasePool = EnginePool(model_id, options, engines)
             if do_prewarm and indices is not None:
                 # build every reachable shape up front: a shape first met

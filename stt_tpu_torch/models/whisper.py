@@ -51,6 +51,14 @@ or, on the native route, multiply int8 codes with int32 accumulation
 (written through its bytes, :func:`_raw`); :func:`_prefill` takes one
 decode step a position under ``prefill`` seq.
 
+:func:`build_model`'s modules serve frozen; the trainer
+(``stt_tpu_torch/parallel/trainer.py``) turns grads on in a module of its
+own. The encoder and :func:`decoder_forward` write nothing in place, so
+autograd runs through them, and flash attention under grad goes through
+its autograd Function (the backward kernels on the card). A linear layer
+or MLP split over a mesh's model axis computes from its shards through its
+``shard`` hook (``stt_tpu_torch/parallel/collectives.py``).
+
 :func:`cross_attention_weights` is the word-timestamp pass: the last two
 decoder layers' float32 cross-attention maps over a teacher-forced
 sequence (it runs under every policy, fused included, where the JAX
@@ -438,7 +446,9 @@ class Linear(nn.Module):
     """A linear layer, weight (d_in, d_out) in the compute type; or, once
     :func:`quantize_decoder_weights` has run, int8 codes ``wq`` (d_out, d_in)
     with float32 per-out-channel scales ``ws`` (d_out,) and ``native`` set
-    for int8 x int8 products."""
+    for int8 x int8 products. ``shard``, once the layer is split over a
+    mesh's model axis (``stt_tpu_torch/parallel/collectives.py``), computes
+    the layer from its shards: ``shard(x, layer)``."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True) -> None:
         super().__init__()
@@ -447,6 +457,7 @@ class Linear(nn.Module):
         self.register_buffer("wq", None)
         self.register_buffer("ws", None)
         self.native = False
+        self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _linear(x, self)
@@ -486,8 +497,13 @@ class MLP(nn.Module):
         super().__init__()
         self.fc1 = Linear(d, 4 * d)
         self.fc2 = Linear(4 * d, d)
+        # set when fc1 and fc2 are split over a mesh's model axis: fc1 by
+        # columns, GELU, fc2 by rows, one reduce (``shard(x, mlp)``)
+        self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shard is not None:
+            return self.shard(x, self)
         return self.fc2(F.gelu(self.fc1(x)))
 
 
@@ -663,7 +679,10 @@ def _linear(x: torch.Tensor, p: Linear) -> torch.Tensor:
     x's type in the product and the per-out-channel scale applies to the
     float32 accumulator; the native route multiplies int8 codes of x (one
     scale a row) by the weight's codes with int32 accumulation, then both
-    scales."""
+    scales. A layer split over a mesh's model axis computes from its shards
+    (``p.shard``)."""
+    if p.shard is not None:
+        return p.shard(x, p)
     if p.wq is None:
         if p.b is None:
             return torch.matmul(x, p.w)
@@ -793,7 +812,8 @@ def _attention(q, k, v, n_head: int, mask=None, flash: bool = False) -> torch.Te
     """q: (B, Tq, d); k/v: (B, Tk, d). q and k each scaled by
     d_head**-0.25, as whisper. With ``flash`` (the policy's choice at this
     length), unmasked self-attention goes through the flash wrapper: its
-    kernel on the card, its plain version on the CPU."""
+    kernel on the card, its plain version on the CPU; under grad its
+    autograd Function, whose backward is the two backward kernels."""
     scale = (q.shape[-1] // n_head) ** -0.25
     qh = _split_heads(q, n_head) * scale
     kh = _split_heads(k, n_head) * scale

@@ -84,6 +84,13 @@
 //     arrive as zeros (a 2-D (B*H*T, Dh) view would fetch the next head's
 //     first keys); keys >= T get a score of -inf, query rows >= T are not
 //     stored.
+// Both bodies also write each query row's log-sum-exp of its scores,
+// lse[r] = log sum_c exp(s[r,c]) in float32, when the launcher is given a
+// buffer for it: the residual that the training step's backward kernels
+// (flash_attention_bwd.cu) recompute the weights from, as the TPU kernel's
+// forward saves l and m under grad. The served call passes none, and the
+// store is one predicated branch after the last tile.
+//
 // Tensor maps are encoded on the host by cuTensorMapEncodeTiled, fetched
 // through cudaGetDriverEntryPoint so the library needs no -lcuda, and passed
 // as __grid_constant__ parameters.
@@ -106,6 +113,7 @@ constexpr int kStages = 3;                         // K/V ring depth
 constexpr int kThreads = 128 * kConsumers + 32;    // consumers, then the producer warp
 constexpr int kConsumerWarps = 4 * kConsumers;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int kDh>
 struct Layout {
@@ -303,6 +311,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
                              uint32_t* __restrict__ o,   // (B*H, T, Dh) bf16 pairs
+                             float* __restrict__ lse,    // (B*H, T) or null
                              int t) {
   using L = Layout<kDh>;
   extern __shared__ uint8_t smem_raw[];
@@ -462,6 +471,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
   const int row0 = q0 + wg * 64 + warp * 16 + g;
   const int row1 = row0 + 8;
+  if (lse != nullptr && tq == 0) {
+    // log sum_c exp(s[r,c]) = (m + log2 l) ln 2, m in log2 units
+    if (row0 < t) lse[static_cast<size_t>(bh) * t + row0] = (m0 + log2f(l0)) * kLn2;
+    if (row1 < t) lse[static_cast<size_t>(bh) * t + row1] = (m1 + log2f(l1)) * kLn2;
+  }
   const size_t base = static_cast<size_t>(bh) * t * (kDh / 2);
 #pragma unroll
   for (int j = 0; j < kDh / 8; ++j) {
@@ -568,7 +582,9 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
 flash_attention_f32_kernel(const float* __restrict__ q,  // (B*H, T, Dh)
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ o, int t, int splits) {
+                           float* __restrict__ o,
+                           float* __restrict__ lse,  // (B*H, T) or null
+                           int t, int splits) {
   using L = F32Layout<kDh>;
   constexpr int kStride = L::kStride;
   constexpr int kDv = L::kDv;
@@ -725,6 +741,9 @@ flash_attention_f32_kernel(const float* __restrict__ q,  // (B*H, T, Dh)
 #pragma unroll
         for (int e = 0; e < kDv; ++e) out[e] = acc[r][e] / l[r];
         store_dims<kDh>(o + base + static_cast<size_t>(row) * kDh, out, tx);
+        if (lse != nullptr && tx == 0) {
+          lse[static_cast<size_t>(blockIdx.y) * t + row] = m[r] + logf(l[r]);
+        }
       }
     }
     return;
@@ -772,13 +791,16 @@ flash_attention_f32_kernel(const float* __restrict__ q,  // (B*H, T, Dh)
     }
     *reinterpret_cast<float4*>(o + base + static_cast<size_t>(q0 + row) * kDh + 4 * c) =
         make_float4(acc4.x / sum, acc4.y / sum, acc4.z / sum, acc4.w / sum);
+    if (lse != nullptr && c == 0) {
+      lse[static_cast<size_t>(blockIdx.y) * t + q0 + row] = mx + logf(sum);
+    }
   }
   cluster.sync();  // no block leaves while another still reads its shared memory
 }
 
 template <int kDh>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int t,
-               int splits, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+               int t, int splits, cudaStream_t stream) {
   const int n_tiles = (t + kF32Keys - 1) / kF32Keys;
   if (splits < 1 || splits > kF32MaxSplit || splits > n_tiles ||
       (splits - 1) * ((n_tiles + splits - 1) / splits) >= n_tiles) {
@@ -804,7 +826,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
   if (splits == 1) {
-    kernel<<<grid, kF32Threads, smem, stream>>>(qf, kf, vf, of, t, 1);
+    kernel<<<grid, kF32Threads, smem, stream>>>(qf, kf, vf, of, lse, t, 1);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
@@ -819,7 +841,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, qf, kf, vf, of, t, splits);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, qf, kf, vf, of, lse, t, splits);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -866,7 +888,7 @@ CUresult make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int b
 constexpr int kEncodeError = 1000;  // + the CUresult of a failed encode
 
 template <int kDh>
-int launch(const void* q, const void* k, const void* v, void* o, int bh, int t,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int t,
            cudaStream_t stream) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -885,7 +907,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int t,
     smem_set = true;
   }
   dim3 grid((t + kBlockM - 1) / kBlockM, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(mq, mk, mv, static_cast<uint32_t*>(o), t);
+  kernel<<<grid, kThreads, smem, stream>>>(mq, mk, mv, static_cast<uint32_t*>(o), lse, t);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -893,32 +915,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int t,
 
 // Plain C entry point, loaded with ctypes. q, k, v, o are contiguous
 // (bh, t, dh) bf16, 16-byte aligned; dh 16, 32 or 64; 1 <= bh <= 65535.
+// `lse`, when not null, is a (bh, t) float32 buffer that receives each
+// row's log-sum-exp of its scores (the residual of the backward kernels in
+// flash_attention_bwd.cu); the served call passes null and writes nothing.
 // Launches on `stream` without synchronising and returns 0 on success, a
 // cudaError_t, or 1000 + the CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, int bh, int t, int dh, void* stream) {
+                                      void* o, void* lse, int bh, int t, int dh,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(lse);
   switch (dh) {
-    case 16: return launch<16>(q, k, v, o, bh, t, s);
-    case 32: return launch<32>(q, k, v, o, bh, t, s);
-    case 64: return launch<64>(q, k, v, o, bh, t, s);
+    case 16: return launch<16>(q, k, v, o, lf, bh, t, s);
+    case 32: return launch<32>(q, k, v, o, lf, bh, t, s);
+    case 64: return launch<64>(q, k, v, o, lf, bh, t, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The float32 body, same contract: q, k, v, o contiguous (bh, t, dh)
-// float32, 16-byte aligned; dh 16, 32 or 64; 1 <= bh <= 65535; and
+// float32, 16-byte aligned; dh 16, 32 or 64; 1 <= bh <= 65535; `lse` null
+// or a (bh, t) float32 buffer, as above; and
 // `splits`, the blocks of one cluster that share each query block's keys
 // (1-8, each given at least one 64-key tile; the wrapper's planner picks
 // it). Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v,
-                                          void* o, int bh, int t, int dh, int splits,
-                                          void* stream) {
+                                          void* o, void* lse, int bh, int t, int dh,
+                                          int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(lse);
   switch (dh) {
-    case 16: return launch_f32<16>(q, k, v, o, bh, t, splits, s);
-    case 32: return launch_f32<32>(q, k, v, o, bh, t, splits, s);
-    case 64: return launch_f32<64>(q, k, v, o, bh, t, splits, s);
+    case 16: return launch_f32<16>(q, k, v, o, lf, bh, t, splits, s);
+    case 32: return launch_f32<32>(q, k, v, o, lf, bh, t, splits, s);
+    case 64: return launch_f32<64>(q, k, v, o, lf, bh, t, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,23 +1,77 @@
-"""HF-compatible checkpoint export, the writer half of
-``stt_tpu/parallel/checkpoint.py`` (``export_hf_safetensors``): a
-parameter tree written as a ``WhisperForConditionalGeneration``-layout
-directory (``model.safetensors`` + ``config.json``) that ``weights_path``
-serves and :func:`stt_tpu_torch.models.whisper.load_hf_safetensors` reads.
-It writes through the port's own safetensors writer
-(:mod:`stt_tpu_torch.utils.safetensors_io`), so no ``safetensors`` package
-is needed.
+"""Checkpoints: the training state of the sharded trainer, and an
+HF-compatible export. Counterpart of ``stt_tpu/parallel/checkpoint.py``.
+
+- :func:`save_checkpoint` / :func:`restore_checkpoint` take the place of
+  orbax's (``save_checkpoint``, ``restore_checkpoint``): one ``torch.save``
+  file of the full, unsharded parameters, the AdamW moments and step
+  counts gathered from every model slot's shard, and the step. A restore
+  cuts them again for the trainer's own mesh, as orbax restores into the
+  template's shardings, so a checkpoint taken on one mesh restores on
+  another. Every rank calls both; rank 0 writes the file.
+- :func:`export_hf_safetensors`: a parameter tree written as a
+  ``WhisperForConditionalGeneration``-layout directory
+  (``model.safetensors`` + ``config.json``) that ``weights_path`` serves
+  and :func:`stt_tpu_torch.models.whisper.load_hf_safetensors` reads,
+  through the port's own safetensors writer
+  (:mod:`stt_tpu_torch.utils.safetensors_io`), so no ``safetensors``
+  package is needed.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..utils.safetensors_io import write_safetensors
+from .sharding import shard_of, split_dim
+
+
+def save_checkpoint(path: str, trainer, state, step: Optional[int] = None) -> None:
+    """Write ``state`` (a :class:`~.trainer.TrainState` of ``trainer``) to the
+    file ``path``: full parameters and AdamW state on the host, and the step
+    (``state.step`` unless given). Collective: every rank of the trainer's
+    mesh calls it."""
+    import torch.distributed as dist
+
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    params = {n: trainer.gather_full(n, p).cpu() for n, p in state.model.named_parameters()}
+    opt = {}
+    for p, st in state.optimizer.state.items():
+        name = names[id(p)]
+        opt[name] = {k: trainer.gather_full(name, v).cpu() if v.ndim else v.detach().cpu().clone()
+                     for k, v in st.items()}
+    if trainer.rank == 0:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = f"{path}.tmp"
+        torch.save({"params": params, "opt_state": opt,
+                    "step": state.step if step is None else int(step)}, tmp)
+        os.replace(tmp, path)
+    if trainer.mesh.size > 1:
+        dist.barrier()
+
+
+def restore_checkpoint(path: str, trainer):
+    """A :class:`~.trainer.TrainState` for ``trainer``'s slot from the file
+    ``path``: the parameters and AdamW state cut to this slot's shards of
+    the trainer's mesh, whatever mesh wrote them, and the step."""
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    dtype = next(iter(saved["params"].values())).dtype
+    state = trainer.init_state(saved["params"], dtype=dtype)
+    parts, index = trainer.mesh.model, trainer.model_index
+    for name, p in state.model.named_parameters():
+        moments = saved["opt_state"].get(name)
+        if moments is None:
+            continue
+        state.optimizer.state[p] = {
+            k: (shard_of(v, split_dim(name), index, parts).to(p.device) if v.ndim
+                else v.clone())
+            for k, v in moments.items()}
+    state.step = int(saved["step"])
+    return state
 
 
 def _unstack(stacked: Dict[str, Any], n_layers: int):
@@ -103,4 +157,4 @@ def export_hf_safetensors(path: str, params: Dict[str, Any], config,
     return n_bytes
 
 
-__all__ = ["export_hf_safetensors"]
+__all__ = ["export_hf_safetensors", "restore_checkpoint", "save_checkpoint"]

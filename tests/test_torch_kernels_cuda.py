@@ -367,8 +367,8 @@ def test_flash_kernel_float32_every_split(cuda_device, t, dh):
     n_tiles = -(-t // F32_KEYS)
     for splits in range(1, F32_MAX_SPLIT + 2):
         out = torch.full_like(q, float("nan"))
-        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, dh,
-                    splits, stream)
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b * h, t,
+                    dh, splits, stream)
         per = -(-n_tiles // splits)
         if splits > F32_MAX_SPLIT or -(-n_tiles // per) != splits:
             assert rc != 0, f"{splits} splits of {n_tiles} tiles launched"
@@ -876,3 +876,64 @@ def test_use_pallas_false_on_the_card_serves_without_the_kernel(cuda_device):
     plain = normalize_log_mel(M.log_mel_raw(M.expand_wire(rows), 80))
     kernel = normalize_log_mel(mel_logspec(rows, 80))
     torch.testing.assert_close(plain, kernel, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,dh", [(4, 12, 1500, 64), (2, 2, 600, 64), (1, 3, 129, 32),
+                                      (2, 2, 77, 16), (1, 1, 1, 64)])
+def test_flash_backward_kernels_match_plain(cuda_device, dtype, b, h, t, dh):
+    """The forward's log-sum-exp (both bodies) and the dK/dV and dQ kernels
+    against the plain backward on the same residuals: float32 within 1e-4
+    of the largest |gradient|, bf16 within 2e-2 (float32 sums in another
+    order, one rounding to the type); ragged last tiles included."""
+    from stt_tpu_torch.ops.kernels import flash_attention as FA
+
+    q, k, v = (x.to(cuda_device, dtype) for x in _flash_inputs_f32(b, t, h, dh, seed=11))
+    g = torch.from_numpy(np.random.default_rng(12).normal(0, 1, (b, h, t, dh))
+                         .astype(np.float32)).to(cuda_device, dtype)
+    out, lse = FA.flash_attention_with_lse(q, k, v)
+    ref_out, ref_lse = FA.flash_attention_plain(q, k, v, with_lse=True)
+    launches = (FA.flash_attention_bwd_dkv.launches, FA.flash_attention_bwd_dq.launches)
+    got = FA.flash_attention_backward(q, k, v, out, lse, g)
+    ref = FA.flash_attention_backward_plain(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert (FA.flash_attention_bwd_dkv.launches, FA.flash_attention_bwd_dq.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    bar = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, r in zip(got, ref):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert (a.float() - r.float()).abs().max() <= bar * r.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_runs_the_flash_kernels(cuda_device):
+    """The "test" config at 1100 mel frames (550 encoder positions): with
+    flash on every encoder layer's forward and backward launch the kernels
+    (one of each a layer), and the gradients equal flash off's within 1e-4
+    of each parameter's largest |gradient|."""
+    from stt_tpu_torch.models import whisper as W
+    from stt_tpu_torch.ops.kernels import flash_attention as FA
+    from stt_tpu_torch.parallel import trainer as T
+    from stt_tpu_torch.parallel.sharding import build_mesh
+
+    config = W.get_config("test")
+    rng = np.random.default_rng(0)
+    batch = T.TrainBatch(rng.normal(0, 1, (2, 80, 1100)).astype(np.float32),
+                         rng.integers(0, 1000, (2, 12)), np.ones((2, 12), np.float32))
+    grads = {}
+    for flash in ("off", "auto"):
+        trainer = T.ShardedTrainer(config, build_mesh((1, 1), [cuda_device]),
+                                   flash_attention=flash)
+        state = trainer.init_state(W.init_params(config, seed=0))
+        before = (FA.flash_attention.launches, FA.flash_attention_bwd_dkv.launches,
+                  FA.flash_attention_bwd_dq.launches)
+        trainer.value_and_grad(state, batch)
+        after = (FA.flash_attention.launches, FA.flash_attention_bwd_dkv.launches,
+                 FA.flash_attention_bwd_dq.launches)
+        n = config.n_audio_layer if flash == "auto" else 0
+        assert tuple(a - b for a, b in zip(after, before)) == (n, n, n)
+        grads[flash] = {name: p.grad.clone() for name, p in state.model.named_parameters()}
+    for name, ref in grads["off"].items():
+        assert (grads["auto"][name] - ref).abs().max() <= 1e-4 * ref.abs().max(), name

@@ -4,7 +4,7 @@ The registry is a copy of the JAX package's but where the card differs, so
 its fair queue is held to the original on one scripted sequence, and the
 rest checks the port's own contract: device names, no serving on the CPU in
 place of a missing card, ``draft_mode`` and the boot prewarm of the drafted
-entries, the refusal of ``mesh_shape``, ``use_pallas=False`` served (on the
+entries, ``mesh_shape`` served by one split engine, ``use_pallas=False`` served (on the
 card ``tests/test_torch_kernels_cuda.py`` holds it), the opt-in VAD options (Silero from an
 ONNX file, the batched device scorer) booting, the engine's metrics hook
 and ``pad_to_30s``, and
@@ -116,10 +116,26 @@ def test_unknown_device_name_raises():
 
 
 @pytest.mark.parametrize("mesh", [(2, 1), (1, 4)])
-def test_mesh_shape_raises(mesh):
-    registry = TR.ModelRegistry(engine_defaults={"mesh_shape": mesh})
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
+def test_mesh_shape_serves_one_split_engine(mesh):
+    """A ``mesh_shape`` (as the runtime passes ``--tpu-mesh-shape``) builds
+    ONE engine split over that many CPU slots (``stt_tpu/engine/registry.py:
+    432-443``), whose finals equal a single engine's."""
+    pcm = float32_to_pcm16(0.2 * np.sin(np.arange(16000) / 16000 * 2 * np.pi * 220)
+                           .astype(np.float32))
+    texts = {}
+    for shape in (None, mesh):
+        registry = TR.ModelRegistry(engine_defaults={"mesh_shape": shape} if shape else None)
         registry.load_model("m", CPU_TEST)
+        try:
+            engines = registry._pools["m"].engines
+            if shape:
+                assert len(engines) == 1 and engines[0].mesh.shape == mesh
+            result = registry.submit_decode("m", "s1", pcm, 16000, {"language": "en"},
+                                            True).result(timeout=120)
+            texts[shape] = [(s.start, s.end, s.text) for s in result.segments]
+        finally:
+            registry.close()
+    assert texts[mesh] == texts[None]
 
 
 @pytest.mark.parametrize("mode,drafted", [("on", True), ("adaptive", True), ("off", False),
