@@ -184,15 +184,21 @@ PyTorch built for CUDA. In order:
       x 1500 x 64 in float32 and bf16 against their plain versions (lse
       within 1e-3; gradients within 1e-4 of the largest |gradient| in
       float32, 2e-2 in bf16; the library's backward's distance printed as
-      an independent check), each timed cold beside its plain version, the
-      library's backward (autograd through SDPA) and its bound, and the
-      served forward timed with and without the log-sum-exp; (b)
-      whisper-small float32 trained at a (1, 1) mesh with flash on, 4 rows
-      of a 30 s mel and 128 random tokens a row: 5 steps, losses finite
-      and falling, ms a step, peak memory, the forward, dK/dV and dQ
-      kernels launched 12 times each a step (counts set to 0 before each
-      step), the first step's gradients within 1e-4 of each leaf's largest
-      |gradient| (and its loss within 1e-5) of the same step with flash off;
+      an independent check), a second call of each bit-identical to the
+      first, the count of HGMMA instructions in each bf16 body's SASS
+      (``cuobjdump -sass``; none fails), each timed cold beside its plain
+      version, its bound (and its share of it) and the library's backward
+      (autograd through SDPA; timed three times, min and max printed; each
+      kernel's ratio to it), and the served forward timed with and without
+      the log-sum-exp; (b) whisper-small float32 trained at a (1, 1) mesh
+      with flash on, 4 rows of a 30 s mel and 128 random tokens a row: 5
+      steps, losses finite and falling, ms a step, peak memory, the
+      forward, dK/dV and dQ kernels launched 12 times each a step (counts
+      set to 0 before each step), the first step's gradients within 1e-4 of
+      each leaf's largest |gradient| (and its loss within 1e-5) of the same
+      step with flash off; then the same with bf16 parameters, 3 steps (the
+      bf16 bodies, 12 launches each a step, losses finite, ms a step, peak
+      memory, step 1's loss within 1e-2 relative of flash off's);
       (c) two gloo ranks on cuda:0 at (2, 1) and (1, 2), their first loss
       and full gradients and their second loss against (b)'s at the same
       bars; (d) the engine at a (1, 2) mesh with both slots on cuda:0:
@@ -267,9 +273,11 @@ PyTorch built for CUDA. In order:
    each timed, with no decode graph captured. Then it stops the planes;
 6. closes the engines, then prints one JSON line describing each kernel
    body (log-mel, cross-attention decode, flash attention's bf16 and
-   float32 bodies, and the flash backward's dK/dV and dQ kernels, whose
-   launches are those of 3k (b)'s 5 steps and whose numbers are float32's
-   at 4 x 12 x 1500) and, last, ``{"ok": true, "device": {...}}``.
+   float32 bodies, whose launches include 3k (b)'s, and the flash
+   backward's dK/dV and dQ kernels in float32 and in bf16, whose launches
+   are those of 3k (b)'s float32 5 steps and bf16 3 steps and whose
+   numbers are 3k (a)'s at 4 x 12 x 1500) and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the final line; so does a host
 without CUDA, and a directory that holds this script but not the package.
@@ -3421,24 +3429,78 @@ def reference_30s_phase(torch, E, W, dev) -> None:
 # -- phase 3k: training through the flash backward kernels; the mesh -------------
 
 TRAIN_ROWS, TRAIN_TOKENS, TRAIN_STEPS = 4, 128, 5
+TRAIN_BF16_STEPS = 3
+TRAIN_BF16_LOSS_REL = 1e-2   # bf16 flash on vs off, step 1's loss
 BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}   # of the largest |gradient|
 TRAIN_GRAD_REL = 1e-4        # flash on vs off, and a mesh vs one process, float32
 TRAIN_LOSS_REL = 1e-5        # a mesh's loss vs one process's, float32
 
 
+def sass_hgmma(name: str = "flash_attention_bwd") -> dict:
+    """Counts of ``HGMMA`` (wgmma) instructions in each kernel of the built
+    object of ``<name>.cu``, from ``cuobjdump -sass`` beside ``nvcc``;
+    empty when the toolkit has no ``cuobjdump``."""
+    from stt_tpu_torch.ops.cuda import build
+
+    nvcc = build.find_nvcc()
+    tool = Path(nvcc).parent / "cuobjdump"
+    if not tool.is_file():
+        return {}
+    out = subprocess.run([str(tool), "-sass", str(build._object_path(name, nvcc))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed for {name}: {out.stderr.strip()[:400]}")
+    counts, current = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :", 1)[1].strip()
+            counts[current] = 0
+        elif current is not None and "HGMMA" in line:
+            counts[current] += 1
+    return counts
+
+
+def settled_ms(torch, fn, retakes: dict, tag: str, tries: int = 3) -> float:
+    """``cuda_ms_cold`` of a ctypes-launched kernel, taken again (up to
+    ``tries`` readings) while a host enqueue inside the timed loop outlasted
+    the device's spin: the wrapper drops the GIL for the launch and takes it
+    back before the end event is enqueued, so another Python thread or a
+    collection can hold the end event back, and the reading would count that
+    host time. ``retakes[tag]`` records the discarded readings."""
+    for attempt in range(tries):
+        report = {}
+        ms = cuda_ms_cold(torch, fn, report=report)
+        if report["in_loop_ms"] <= report["spin_ms"]:
+            break
+        if attempt + 1 < tries:
+            retakes.setdefault(tag, []).append(
+                f"{ms:.4f} ms (host {report['in_loop_ms']:.2f} ms > spin {report['spin_ms']:.2f})")
+    return ms
+
+
 def bwd_kernels_phase(torch) -> dict:
     """3k (a): the forward's log-sum-exp and the dK/dV and dQ kernels at 4 x
     12 x 1500 x 64, float32 and bf16, against the plain versions (and the
-    library's backward, an independent check); cold times of each kernel,
-    its plain version and the library's backward (autograd through SDPA,
-    backward only), the bounds, and the served forward with and without the
-    log-sum-exp. Returns the float32 numbers, keyed by kernel."""
+    library's backward, an independent check); a second call of each
+    kernel bit-identical to the first; the HGMMA count of each bf16 body's
+    SASS; cold times of each kernel (taken again after a host stall, as
+    :func:`settled_ms` says), its plain version and the library's backward
+    (autograd through SDPA, backward only; timed three times, its spread
+    printed), each kernel's share of its bound and its ratio to the library
+    call, and the served forward with and without the log-sum-exp.
+    Returns each type's numbers, keyed by type name, then kernel."""
     import torch.nn.functional as F
     from stt_tpu_torch.ops.kernels import flash_attention as FA
 
     dev = torch.device("cuda", 0)
     b, h, t, dh = 4, 12, 1500, 64
     n = b * h * t
+    hgmma = sass_hgmma()
+    wgmma = {name: c for name, c in hgmma.items() if "wgmma_kernel" in name}
+    if hgmma and (len(wgmma) != 6 or min(wgmma.values()) == 0):
+        fail(f"3k (a): the bf16 backward bodies' SASS holds HGMMA counts {wgmma}")
+    log("3k (a) HGMMA instructions in each bf16 backward body's SASS (cuobjdump -sass): "
+        + (json.dumps(wgmma) if hgmma else "not counted (no cuobjdump beside nvcc)"))
     out = {}
     for dtype, peak in ((torch.float32, H100_F32_FLOPS), (torch.bfloat16, H100_BF16_FLOPS)):
         name = str(dtype).split(".")[-1]
@@ -3453,12 +3515,17 @@ def bwd_kernels_phase(torch) -> dict:
         di = FA.attention_di(o, do)
         dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, di)
         dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, di)
+        dk2, dv2 = FA.flash_attention_bwd_dkv(q, k, v, do, lse, di)
+        dq2 = FA.flash_attention_bwd_dq(q, k, v, do, lse, di)
         pk, pv = FA.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di)
         pq = FA.flash_attention_bwd_dq_plain(q, k, v, do, lse, di)
         qq, kk, vv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
         lib_o = F.scaled_dot_product_attention(qq, kk, vv, scale=1.0)
         lq, lk, lv = torch.autograd.grad(lib_o, (qq, kk, vv), do, retain_graph=True)
         torch.cuda.synchronize()
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)):
+            fail(f"flash backward {name}: a second call of the kernels is not bit-identical")
+        del dk2, dv2, dq2
         errs, lib_errs, abs_errs = {}, {}, {}
         for g, p, lg, tag in ((dq, pq, lq, "dq"), (dk, pk, lk, "dk"), (dv, pv, lv, "dv")):
             if g.shape != q.shape or g.dtype != dtype or not torch.isfinite(g).all():
@@ -3471,39 +3538,49 @@ def bwd_kernels_phase(torch) -> dict:
         if lse_err > 1e-3 or max(errs.values()) > BWD_REL[name]:
             fail(f"flash backward {name}: lse err {lse_err:.3g}, gradients "
                  f"{errs} of the largest |gradient| (bar {BWD_REL[name]})")
+        library = [cuda_ms_cold(torch, lambda: torch.autograd.grad(
+            lib_o, (qq, kk, vv), do, retain_graph=True)) for _ in range(3)]
+        retakes = {}
         times = {
-            "dkv": cuda_ms_cold(torch, lambda: FA.flash_attention_bwd_dkv(q, k, v, do, lse, di)),
-            "dq": cuda_ms_cold(torch, lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, di)),
+            "dkv": settled_ms(torch, lambda: FA.flash_attention_bwd_dkv(q, k, v, do, lse, di),
+                              retakes, "dK/dV"),
+            "dq": settled_ms(torch, lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, di),
+                             retakes, "dQ"),
             "dkv_plain": cuda_ms_cold(
                 torch, lambda: FA.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di), iters=5),
             "dq_plain": cuda_ms_cold(
                 torch, lambda: FA.flash_attention_bwd_dq_plain(q, k, v, do, lse, di), iters=5),
-            "library": cuda_ms_cold(torch, lambda: torch.autograd.grad(
-                lib_o, (qq, kk, vv), do, retain_graph=True)),
             "fwd": cuda_ms_cold(torch, lambda: FA.flash_attention(q, k, v)),
             "fwd_lse": cuda_ms_cold(torch, lambda: FA.flash_attention_with_lse(q, k, v)),
         }
+        lib_ms = min(library)
         es = q.element_size()
         bounds = {"dkv": bound(6 * n * dh * es + 8 * n, 8.0 * b * h * t * t * dh, peak),
                   "dq": bound(5 * n * dh * es + 8 * n, 6.0 * b * h * t * t * dh, peak)}
+
+        def kernel_text(kern: str, label: str) -> str:
+            ms, (bms, by) = times[kern], bounds[kern]
+            return (f"{label} {ms:.4f} ms (plain {times[kern + '_plain']:.4f}, bound {bms:.4g} "
+                    f"ms {by}, {bms / ms:.1%} of it; {ms / lib_ms:.2f}x the library call)")
+
+        pair = times["dkv"] + times["dq"]
         log(f"3k (a) flash backward B{b} H{h} T{t} Dh{dh} {name}: lse max abs err "
             f"{lse_err:.3g}; against the plain backward, of the largest |gradient|: "
             + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
             + " (library's backward: " + ", ".join(f"{k_} {e:.3g}" for k_, e in lib_errs.items())
-            + f"); dK/dV {times['dkv']:.4f} ms (plain {times['dkv_plain']:.4f}, bound "
-            f"{bounds['dkv'][0]:.4g} ms {bounds['dkv'][1]}, {bounds['dkv'][0] / times['dkv']:.1%}"
-            f" of it), dQ {times['dq']:.4f} ms (plain {times['dq_plain']:.4f}, bound "
-            f"{bounds['dq'][0]:.4g} ms {bounds['dq'][1]}, {bounds['dq'][0] / times['dq']:.1%} "
-            f"of it), library backward (SDPA, dQ dK dV) {times['library']:.4f} ms; served "
-            f"forward {times['fwd']:.4f} ms, with the log-sum-exp {times['fwd_lse']:.4f} ms")
-        if dtype == torch.float32:
-            for kern in ("dkv", "dq"):
-                out[kern] = dict(
-                    max_abs_err=max(abs_errs[x] for x in (("dk", "dv") if kern == "dkv"
-                                                          else ("dq",))),
-                    ms=times[kern], plain_ms=times[f"{kern}_plain"],
-                    bound_ms=bounds[kern][0], bound_by=bounds[kern][1],
-                    library_ms=times["library"])
+            + f"); a second call bit-identical; {kernel_text('dkv', 'dK/dV')}, "
+            f"{kernel_text('dq', 'dQ')}; the pair {pair:.4f} ms, {pair / lib_ms:.2f}x the library "
+            f"backward (SDPA, dQ dK dV) {lib_ms:.4f} ms (three timings {min(library):.4f}-"
+            f"{max(library):.4f}); served forward {times['fwd']:.4f} ms, with the log-sum-exp "
+            f"{times['fwd_lse']:.4f} ms; kernel readings taken again after a host stall: "
+            f"{retakes or 'none'}")
+        out[name] = {}
+        for kern in ("dkv", "dq"):
+            out[name][kern] = dict(
+                max_abs_err=max(abs_errs[x] for x in (("dk", "dv") if kern == "dkv"
+                                                      else ("dq",))),
+                ms=times[kern], plain_ms=times[f"{kern}_plain"],
+                bound_ms=bounds[kern][0], bound_by=bounds[kern][1], library_ms=lib_ms)
         del q, k, v, do, o, lse, ref_o, ref_lse, dq, dk, dv, pq, pk, pv, lib_o, lq, lk, lv
         torch.cuda.empty_cache()
     return out
@@ -3633,6 +3710,65 @@ def train_phase(torch, W, workdir: str, size: str = "small", device: str = "cuda
             "peak_gib": peak, "plain_ms": plain_ms, "plain_peak_gib": plain_peak}
 
 
+def train_bf16_phase(torch, W, size: str = "small", device: str = "cuda:0") -> dict:
+    """3k (b), bf16: whisper-small with bf16 parameters at (1, 1), flash on
+    (the bf16 bodies of the forward and both backward kernels): 3 steps of
+    the 30 s batch, losses finite, each kernel launched 12 times a step
+    (counts set to 0 before each step), ms a step and peak memory; step 1's
+    loss within 1e-2 (relative) of the same step with flash off. Returns
+    the losses, the ms a step, the peak and the launches of the 3 steps."""
+    from stt_tpu_torch.ops.kernels import flash_attention as FA
+    from stt_tpu_torch.parallel import trainer as T
+    from stt_tpu_torch.parallel.sharding import build_mesh
+
+    config = W.get_config(size)
+    dev = torch.device(device)
+    params = W.init_params(config, seed=0)
+    batch = train_batch(W, T)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = build_mesh((1, 1), [dev])
+    kernels = (FA.flash_attention, FA.flash_attention_bwd_dkv, FA.flash_attention_bwd_dq)
+    trainer = T.ShardedTrainer(config, mesh, flash_attention="auto")
+    state = trainer.init_state(params, torch.bfloat16)
+    losses, ms, launches = [], [], [0, 0, 0]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_BF16_STEPS):
+        for kern in kernels:
+            kern.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(state, batch))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts = [kern.launches for kern in kernels]
+        if dev.type == "cuda" and counts != [config.n_audio_layer] * 3:
+            fail(f"3k (b) bf16 step {step + 1}: launches forward, dK/dV, dQ {counts}, want "
+                 f"{config.n_audio_layer} each")
+        launches = [a + c for a, c in zip(launches, counts)]
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    if not all(np.isfinite(losses)):
+        fail(f"3k (b) bf16: losses {losses} not finite")
+    del state
+    torch.cuda.empty_cache()
+    plain = T.ShardedTrainer(config, mesh, flash_attention="off")
+    state = plain.init_state(params, torch.bfloat16)
+    plain_loss = plain.value_and_grad(state, batch)
+    del state
+    torch.cuda.empty_cache()
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    if not rel <= TRAIN_BF16_LOSS_REL:
+        fail(f"3k (b) bf16: step 1's loss {losses[0]!r} against {plain_loss!r} with flash off "
+             f"({rel:.3g} relative, bar {TRAIN_BF16_LOSS_REL})")
+    log(f"3k (b) trainer (1, 1), whisper-{size} bf16, flash on, {TRAIN_ROWS} x 30 s, "
+        f"{TRAIN_TOKENS} tokens: losses {[round(x, 6) for x in losses]}; ms a step "
+        f"{[round(x, 1) for x in ms]}; peak memory {peak:.2f} GiB; launches a step forward, "
+        f"dK/dV, dQ {[config.n_audio_layer] * 3}; step 1 against flash off: loss "
+        f"{plain_loss:.6f}, {rel:.3g} relative")
+    return {"losses": losses, "ms": ms, "peak_gib": peak, "launches": launches,
+            "loss_rel": rel}
+
+
 def mesh_train_phase(torch, W, run: dict, workdir: str, size: str = "small",
                      device: str = "cuda:0") -> None:
     """3k (c) and the rest of (e): two gloo ranks on cuda:0 at (2, 1) and (1,
@@ -3723,22 +3859,27 @@ def mesh_serve_phase(torch, E, W) -> dict:
 
 def phase_3k(torch, E, W) -> dict:
     """Phase 3k: (a) the kernels, (b) + (e) the (1, 1) trainer and its
-    checkpoint, (c) + (e) two ranks, (d) mesh serving. Returns the kernels'
-    numbers with the launches of (b)'s 5 steps."""
+    checkpoint, then (b)'s bf16 run, (c) + (e) two ranks, (d) mesh serving.
+    Returns the kernels' numbers by type with the launches of (b)'s float32
+    5 steps and bf16 3 steps, and the forward's launches in each."""
     import tempfile
 
     t0 = time.monotonic()
     kernels = bwd_kernels_phase(torch)
     with tempfile.TemporaryDirectory(dir=ROOT) as workdir:
         run = train_phase(torch, W, workdir)
+        run_bf16 = train_bf16_phase(torch, W)
         mesh_train_phase(torch, W, run, workdir)
     serve = mesh_serve_phase(torch, E, W)
-    kernels["dkv"]["launches"] = run["launches"][1]
-    kernels["dq"]["launches"] = run["launches"][2]
+    for name, launches in (("float32", run["launches"]), ("bfloat16", run_bf16["launches"])):
+        kernels[name]["dkv"]["launches"] = launches[1]
+        kernels[name]["dq"]["launches"] = launches[2]
+        kernels[name]["forward_launches"] = launches[0]
     log(f"phase 3k: {time.monotonic() - t0:.1f} s")
     log("phase 3k: " + json.dumps({"train_ms": run["ms"], "losses": run["losses"],
                                    "peak_gib": run["peak_gib"], "plain_ms": run["plain_ms"],
-                                   "plain_peak_gib": run["plain_peak_gib"], "serve": serve}))
+                                   "plain_peak_gib": run["plain_peak_gib"],
+                                   "bf16": run_bf16, "serve": serve}))
     return kernels
 
 
@@ -3967,7 +4108,8 @@ def main() -> None:
         "source": "stt_tpu_torch/ops/cuda/flash_attention.cu",
         "replaces": "stt_tpu/models/whisper.py:378",
         "launches": (counts_30s["flash_attention"] + beam_30s["flash_attention"]
-                     + routes["flash_attention"] + long_words["flash_attention"]),
+                     + routes["flash_attention"] + long_words["flash_attention"]
+                     + train["bfloat16"]["forward_launches"]),
         "max_abs_err": flash_err,
         **flash_headline,
     }, {
@@ -3975,20 +4117,32 @@ def main() -> None:
         "route": "cuda",
         "source": "stt_tpu_torch/ops/cuda/flash_attention.cu",
         "replaces": "stt_tpu/models/whisper.py:378",
-        "launches": f32_launches,
+        "launches": f32_launches + train["float32"]["forward_launches"],
         **flash32_headline,
     }, {
         "name": "flash_attention_bwd_dkv",
         "route": "cuda",
         "source": "stt_tpu_torch/ops/cuda/flash_attention_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
-        **train["dkv"],
+        **train["float32"]["dkv"],
     }, {
         "name": "flash_attention_bwd_dq",
         "route": "cuda",
         "source": "stt_tpu_torch/ops/cuda/flash_attention_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
-        **train["dq"],
+        **train["float32"]["dq"],
+    }, {
+        "name": "flash_attention_bwd_dkv_bf16",
+        "route": "cuda",
+        "source": "stt_tpu_torch/ops/cuda/flash_attention_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+        **train["bfloat16"]["dkv"],
+    }, {
+        "name": "flash_attention_bwd_dq_bf16",
+        "route": "cuda",
+        "source": "stt_tpu_torch/ops/cuda/flash_attention_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+        **train["bfloat16"]["dq"],
     }]
     log(card)
     log(json.dumps({"kernels": kernels}))

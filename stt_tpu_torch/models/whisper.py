@@ -732,7 +732,7 @@ def _int8_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ b (K, N), operands of one type, float32 out (the route
     :func:`_narrow_f32` picks)."""
-    if not _narrow_f32(a):
+    if not _narrow_f32(a, b):
         return torch.matmul(a.float(), b.float())
     return torch.mm(a, b, out_dtype=torch.float32)
 
@@ -772,21 +772,27 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * dh)
 
 
-def _narrow_f32(a: torch.Tensor) -> bool:
-    """True when a product with operand ``a`` takes the card route: narrow
+def _narrow_f32(a: torch.Tensor, b: Optional[torch.Tensor] = None) -> bool:
+    """True when a product of ``a`` (and ``b``) takes the card route: narrow
     operands in, float32 out (the ``out_dtype`` overloads, the JAX
     package's ``preferred_element_type=float32``). Chosen by the tensor's
     device: the CPU has no kernel for those overloads, so there the
     operands are upcast and multiplied in float32. Products of bf16 values
     are exact in float32, so the two routes differ only in summation
-    order. Under float32 compute both routes are the float32 product."""
-    return a.device.type != "cpu" and a.dtype != torch.float32
+    order. Under float32 compute both routes are the float32 product. A
+    product that autograd records (an operand requires grad: training)
+    takes the upcast route on the card too, since the overloads have no
+    derivative."""
+    if a.device.type == "cpu" or a.dtype == torch.float32:
+        return False
+    return not (torch.is_grad_enabled()
+                and (a.requires_grad or (b is not None and b.requires_grad)))
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (..., M, K) @ b (..., K, N) with float32 accumulation and a
     float32 result; a and b share their leading dims and their type."""
-    if not _narrow_f32(a):
+    if not _narrow_f32(a, b):
         return torch.matmul(a.float(), b.float())
     out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
                     out_dtype=torch.float32)
@@ -975,7 +981,7 @@ def _tok_logits(dec: TextDecoder, x: torch.Tensor) -> torch.Tensor:
     then its codes widen in the product, or on the native route meet x's
     own int8 codes."""
     if dec.tok_q is None:
-        if not _narrow_f32(x):
+        if not _narrow_f32(x, dec.tok):
             return F.linear(x.float(), dec.tok.float())
         y = torch.mm(x.reshape(-1, x.shape[-1]), dec.tok.t(), out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], y.shape[-1])

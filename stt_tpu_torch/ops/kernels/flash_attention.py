@@ -39,7 +39,12 @@ library computes it outside its kernels, then the two backward kernels of
 :func:`flash_attention_bwd_dkv` (dK, dV) and :func:`flash_attention_bwd_dq`
 (dQ), which replace the library's ``_flash_attention_bwd_dkv`` and
 ``_flash_attention_bwd_dq``. Each counts its launches; CPU tensors take
-their plain versions (:func:`flash_attention_backward_plain`).
+their plain versions (:func:`flash_attention_backward_plain`). Each
+backward kernel has a bf16 body on the tensor cores (``wgmma`` fed by TMA,
+P and dS in registers, rounded to bf16 before their products as the TPU
+bodies round them) and a float32 body on the CUDA cores (8 x 8 register
+micro-tiles, tiles copied ahead by ``cp.async``); the plain versions round
+P and dS to q's type the same way.
 """
 
 from __future__ import annotations
@@ -81,19 +86,27 @@ def _grads_of_scores(qh, kh, vh, dout, lse, di):
     return q, k, g, p, ds
 
 
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to ``dtype`` and widened back to float32 (a no-op in float32)."""
+    return x.to(dtype).float()
+
+
 def flash_attention_bwd_dkv_plain(qh, kh, vh, dout, lse, di):
-    """Plain version of the dK/dV kernel: (dK, dV) in q's type from float32
-    P and dS, as the library's ``mha_reference_bwd``."""
+    """Plain version of the dK/dV kernel: (dK, dV) in q's type. P and dS are
+    float32, then rounded to q's type before the products, as the library's
+    Pallas body rounds them (``p.T.astype(do.dtype)``,
+    ``ds.T.astype(do.dtype)``); float32 sums of the rounded values."""
     q, _, g, p, ds = _grads_of_scores(qh, kh, vh, dout, lse, di)
-    dk = torch.matmul(ds.transpose(-1, -2), q)
-    dv = torch.matmul(p.transpose(-1, -2), g)
+    dk = torch.matmul(_rounded(ds, qh.dtype).transpose(-1, -2), q)
+    dv = torch.matmul(_rounded(p, qh.dtype).transpose(-1, -2), g)
     return dk.to(qh.dtype), dv.to(qh.dtype)
 
 
 def flash_attention_bwd_dq_plain(qh, kh, vh, dout, lse, di):
-    """Plain version of the dQ kernel: dS K in q's type."""
+    """Plain version of the dQ kernel: dS K in q's type, dS rounded to q's
+    type before the product (the library's ``ds.astype(k.dtype)``)."""
     _, k, _, _, ds = _grads_of_scores(qh, kh, vh, dout, lse, di)
-    return torch.matmul(ds, k).to(qh.dtype)
+    return torch.matmul(_rounded(ds, qh.dtype), k).to(qh.dtype)
 
 
 def attention_di(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -104,8 +117,9 @@ def attention_di(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_backward_plain(qh, kh, vh, out, lse, dout):
     """Plain backward of :func:`flash_attention_plain`: (dQ, dK, dV) from
-    the forward's output and log-sum-exp, as the library's
-    ``mha_reference_bwd`` computes them (float32, rounded to q's type)."""
+    the forward's output and log-sum-exp, as the library's Pallas backward
+    computes them (float32 sums; P and dS rounded to q's type before the
+    products; the gradients rounded to q's type)."""
     di = attention_di(out, dout)
     dk, dv = flash_attention_bwd_dkv_plain(qh, kh, vh, dout, lse, di)
     return flash_attention_bwd_dq_plain(qh, kh, vh, dout, lse, di), dk, dv
@@ -208,6 +222,15 @@ def _check_cuda(name: str, *xs: torch.Tensor) -> None:
         raise ValueError(f"{name} wants 16-byte aligned tensors (TMA, float4 loads)")
 
 
+def _raise_on(name: str, rc: int) -> None:
+    """Raises for a launcher's non-zero return: a cudaError_t, or 1000 + the
+    CUresult of a failed tensor-map encode."""
+    if rc != 0:
+        what = (f"cuTensorMapEncodeTiled CUresult {rc - 1000}" if rc > 1000
+                else f"cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: {what}")
+
+
 def _flash_forward(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                    with_lse: bool):
     """The forward on the tensors' device: (out, lse or None)."""
@@ -228,10 +251,7 @@ def _flash_forward(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
         stream = torch.cuda.current_stream(qh.device).cuda_stream
         rc = launch(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
                     None if lse is None else lse.data_ptr(), b * h, t, dh, *extra, stream)
-    if rc != 0:
-        what = (f"cuTensorMapEncodeTiled CUresult {rc - 1000}" if rc > 1000
-                else f"cudaError {rc}")
-        raise RuntimeError(f"flash_attention kernel launch failed: {what}")
+    _raise_on("flash_attention", rc)
     flash_attention.launches += 1
     return out, lse
 
@@ -302,8 +322,7 @@ def flash_attention_bwd_dkv(qh, kh, vh, dout, lse, di):
         rc = launch(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), dout.data_ptr(),
                     lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                     b * h, t, dh, int(qh.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd_dkv kernel launch failed: cudaError {rc}")
+    _raise_on("flash_attention_bwd_dkv", rc)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -327,8 +346,7 @@ def flash_attention_bwd_dq(qh, kh, vh, dout, lse, di):
         rc = launch(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), dout.data_ptr(),
                     lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
                     b * h, t, dh, int(qh.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd_dq kernel launch failed: cudaError {rc}")
+    _raise_on("flash_attention_bwd_dq", rc)
     flash_attention_bwd_dq.launches += 1
     return dq
 

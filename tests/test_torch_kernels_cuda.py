@@ -886,7 +886,9 @@ def test_flash_backward_kernels_match_plain(cuda_device, dtype, b, h, t, dh):
     """The forward's log-sum-exp (both bodies) and the dK/dV and dQ kernels
     against the plain backward on the same residuals: float32 within 1e-4
     of the largest |gradient|, bf16 within 2e-2 (float32 sums in another
-    order, one rounding to the type); ragged last tiles included."""
+    order, P and dS rounded to the type on both sides, one rounding of the
+    gradient); ragged last tiles included. A second call of each kernel
+    gives bit-identical outputs (sums in a fixed order, no atomics)."""
     from stt_tpu_torch.ops.kernels import flash_attention as FA
 
     q, k, v = (x.to(cuda_device, dtype) for x in _flash_inputs_f32(b, t, h, dh, seed=11))
@@ -900,6 +902,9 @@ def test_flash_backward_kernels_match_plain(cuda_device, dtype, b, h, t, dh):
     torch.cuda.synchronize()
     assert (FA.flash_attention_bwd_dkv.launches, FA.flash_attention_bwd_dq.launches) == (
         launches[0] + 1, launches[1] + 1)
+    again = FA.flash_attention_backward(q, k, v, out, lse, g)
+    for a, r in zip(again, got):
+        assert torch.equal(a, r)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
     bar = 1e-4 if dtype == torch.float32 else 2e-2
     for a, r in zip(got, ref):

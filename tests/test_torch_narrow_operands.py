@@ -228,3 +228,25 @@ def test_float32_compute_on_meta_takes_the_float32_products(test_model):
         TW._decoder_step(model.decoder, torch.zeros(b, dtype=torch.long, device=meta),
                          torch.zeros((), dtype=torch.long, device=meta), cache, ckv)
     assert not any(n.startswith(("aten.bmm.dtype", "aten.mm.dtype")) for n in log.names())
+
+
+def test_card_route_upcasts_products_that_autograd_records():
+    """Training in bf16 on the card: a product whose operand requires grad
+    takes the upcast route (the ``out_dtype`` overloads have no
+    derivative) and differentiates; without grad, or with no operand
+    requiring it, the narrow route stays (serving). Meta tensors stand in
+    for the card's."""
+    a = torch.empty((2, 4, 8), dtype=torch.bfloat16, device="meta")
+    b = torch.empty((2, 8, 3), dtype=torch.bfloat16, device="meta")
+    assert TW._narrow_f32(a, b)
+    with torch.no_grad():
+        assert TW._narrow_f32(a.requires_grad_(True), b)
+    assert not TW._narrow_f32(a, b)
+    assert not TW._narrow_f32(b.transpose(-1, -2).detach(), a.transpose(-1, -2))
+    with _OpLog() as log:
+        out = TW._bmm_f32(a, b)
+        flat = TW._mm_f32(a[0], b[0])
+    assert not any(n.startswith(("aten.bmm.dtype", "aten.mm.dtype")) for n in log.names())
+    assert out.dtype == flat.dtype == torch.float32 and out.shape == (2, 4, 3)
+    (grad_a,) = torch.autograd.grad(out.sum() + flat.sum(), (a,))
+    assert grad_a.shape == a.shape
