@@ -95,7 +95,11 @@ The model registry builds engines with the JAX engine's keywords
 (``stt_tpu/engine/engine.py:947-966``): ``device_index`` picks the card
 of a replica; ``metrics`` receives ``record_engine_batch`` once per group
 and ``record_engine_compile`` once per decode-graph capture (the port's
-compile); ``pad_to_30s`` pads every window to the 30 s bucket;
+compile), and, where the hook has it, ``record_engine_spans`` with each
+group's span record (:mod:`~stt_tpu_torch.engine.spans`: the group's
+stamps on ``time.perf_counter``, kept always, which every output of the
+group also carries as ``DecodeOutput.spans``); ``pad_to_30s`` pads every
+window to the 30 s bucket;
 ``use_pallas`` (default True) is the hand-written log-mel kernel, and
 False the plain torch log-mel (``ops/mel.py``'s ``expand_wire`` and
 ``log_mel_raw``) on any device, the JAX engine's ``_log_mel(rows, n_mels,
@@ -145,6 +149,7 @@ executable cache likewise, ``:1429``).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import os
 import queue
@@ -167,6 +172,7 @@ from ..models.tokenizer import load_tokenizer
 from ..ops.kernels.mel import mel_logspec
 from ..ops.mel import HOP_LENGTH, SAMPLE_RATE, expand_wire, log_mel_raw, normalize_log_mel
 from .graphs import DecodeGraphs
+from .spans import NO_SPANS, GroupSpans
 
 LOGGER = logging.getLogger("stt_tpu_torch")
 
@@ -288,17 +294,23 @@ class DecodeOutput:
     temperature_used: float = 0.0
     # [(start_sec, end_sec, word), ...] under the word_timestamps option
     words: List[Tuple[float, float, str]] = field(default_factory=list)
-    # the decoded token row + prompt length that produced this output
+    # the group's span record (shared by every output of the group; None
+    # on a long final, whose windows each had their own)
+    spans: Optional[GroupSpans] = None
+    # the decoded token row + prompt length that produced this output, and
+    # its row in the group
     _tokens: Any = None
     _p_len: int = 0
     _n_gen: int = 0
+    _row: int = 0
 
 
 class _Task:
-    __slots__ = ("request", "future", "cancel_event", "draft")
+    __slots__ = ("request", "future", "cancel_event", "draft", "submitted")
 
     def __init__(self, request: DecodeRequest,
                  cancel_event: Optional[threading.Event]) -> None:
+        self.submitted = time.perf_counter()
         self.request = request
         self.future: Future = Future()
         self.cancel_event = cancel_event
@@ -535,7 +547,8 @@ def _decode_serve(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
                   suppress_blank: bool = True, lang_pos: int = 1, beam: int = 1,
                   patience: float = 1.0, length_penalty: float = 1.0,
                   route: W.Route = W.GREEDY,
-                  rep_penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  rep_penalty: Optional[torch.Tensor] = None,
+                  spans: GroupSpans = NO_SPANS) -> torch.Tensor:
     """Language detection -> decode -> packed outputs, from an encoder
     output, on the shape's entry of ``graphs`` for ``route``: greedy at
     ``beam`` 1, beam search above it (the JAX package's ``_decode_best``;
@@ -547,7 +560,8 @@ def _decode_serve(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
     prompt (at ``lang_pos``, after any conditioning prompt) before the beams
     replicate it. The packed result is a new tensor, enqueued after the
     decode's last replay, so a next group of the same shape may reuse the
-    entry before this one is harvested."""
+    entry before this one is harvested. ``spans`` takes ``detect`` and the
+    decode's intervals."""
     dec = model.decoder
     if route.timestamps and beam == 1:
         suppress_blank = True
@@ -562,9 +576,10 @@ def _decode_serve(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
     )
     if beam > 1:
         W.repeat_cross_kv(cross_kv, beam, out=entry.cross_kv)
+    spans.mark("detect")
     res = graphs.decode(entry, prompt, prompt_len, suppress_blank=suppress_blank,
                         sot_pos=lang_pos - 1, length_penalty=length_penalty,
-                        rep_penalty=rep_penalty)
+                        rep_penalty=rep_penalty, spans=spans)
     return _pack_result(res, lang_idx, lang_p)
 
 
@@ -594,7 +609,8 @@ def _decode_serve_drafted(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: fl
                           enc: torch.Tensor, prompt: torch.Tensor, prompt_len: torch.Tensor,
                           draft: torch.Tensor, draft_len: torch.Tensor,
                           auto_mask: torch.Tensor, max_new_tokens: int,
-                          suppress_blank: bool = True, lang_pos: int = 1) -> torch.Tensor:
+                          suppress_blank: bool = True, lang_pos: int = 1,
+                          spans: GroupSpans = NO_SPANS) -> torch.Tensor:
     """Language detection -> drafted decode -> packed outputs, on the
     shape's drafted entry of ``graphs`` (``stt_tpu/engine/engine.py:
     558-582``): the cross K/V computed once into the entry's buffers (which
@@ -609,8 +625,9 @@ def _decode_serve_drafted(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: fl
     prompt, lang_idx, lang_p = _detect_and_patch_lang(
         model, enc, prompt, auto_mask, cross_kv, lang_pos
     )
+    spans.mark("detect")
     res = graphs.decode(entry, prompt, prompt_len, suppress_blank=suppress_blank,
-                        sot_pos=lang_pos - 1, draft=draft, draft_len=draft_len)
+                        sot_pos=lang_pos - 1, draft=draft, draft_len=draft_len, spans=spans)
     return _pack_result(res, lang_idx, lang_p)
 
 
@@ -622,18 +639,21 @@ def _serve_step(model: W.Whisper, graphs: DecodeGraphs, bucket_sec: float,
                 draft_len: Optional[torch.Tensor] = None, lang_pos: int = 1,
                 route: W.Route = W.GREEDY,
                 rep_penalty: Optional[torch.Tensor] = None,
-                use_pallas: bool = True) -> torch.Tensor:
+                use_pallas: bool = True,
+                spans: GroupSpans = NO_SPANS) -> torch.Tensor:
     """The whole serving step: mel + encoder, then detect + decode + pack
-    (the drafted decode when ``draft`` is given)."""
+    (the drafted decode when ``draft`` is given); ``spans`` takes
+    ``encode`` and the intervals after it."""
     enc = _mel_encode(model, rows, dtype, use_pallas)
+    spans.mark("encode")
     if draft is not None:
         return _decode_serve_drafted(model, graphs, bucket_sec, enc, prompt, prompt_len,
                                      draft, draft_len, auto_mask, max_new_tokens,
-                                     suppress_blank, lang_pos)
+                                     suppress_blank, lang_pos, spans)
     return _decode_serve(model, graphs, bucket_sec, enc, prompt, prompt_len, auto_mask,
                          max_new_tokens, suppress_blank, lang_pos, beam=beam,
                          patience=patience, length_penalty=length_penalty, route=route,
-                         rep_penalty=rep_penalty)
+                         rep_penalty=rep_penalty, spans=spans)
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -691,6 +711,8 @@ class WhisperEngine:
         self.use_pallas = bool(use_pallas) and not (self.mesh is not None
                                                     and self.device.type == "cpu")
         self._metrics = metrics
+        # a hook that also takes each group's span record, where it has one
+        self._record_spans = getattr(metrics, "record_engine_spans", None)
         self._dtype = _DTYPES[compute_type]
         self.decoder_policy = _decoder_policy(self._dtype)
         if self.mesh is not None:
@@ -772,6 +794,7 @@ class WhisperEngine:
             queue.Queue()
         )
         self._dispatch_sem = threading.Semaphore(self.pipeline_depth)
+        self._group_ids = itertools.count()
         self._thread: Optional[threading.Thread] = None
         self._harvest_thread: Optional[threading.Thread] = None
         self._running = False
@@ -1082,6 +1105,7 @@ class WhisperEngine:
         for group in groups.values():
             for start in range(0, len(group), max_rows):
                 sub = group[start:start + max_rows]
+                waited = time.perf_counter()
                 # bounds the groups in flight; the harvester releases
                 self._dispatch_sem.acquire()
                 try:
@@ -1093,6 +1117,7 @@ class WhisperEngine:
                         if not task.future.done():
                             task.future.set_exception(exc)
                     continue
+                ctx["spans"].queued(waited)
                 self._harvest_q.put((sub, ctx))
         for task in long_tasks:
             self._spawn_long(task)
@@ -1319,8 +1344,9 @@ class WhisperEngine:
 
     def _device_phase(self, group: List[_Task]) -> Dict[str, Any]:
         """Host prep and every device launch for one group; returns a
-        context whose ``packed`` tensor is still on the device."""
-        t_start = time.monotonic()
+        context whose ``packed`` tensor is still on the device, and whose
+        ``spans`` record begins with the prep."""
+        spans = GroupSpans(next(self._group_ids), tuple(t.submitted for t in group))
         n = len(group)
         bucket_sec = max(self._bucket_for(len(t.request.audio)) for t in group)
         bucket_samples = int(bucket_sec * SAMPLE_RATE)
@@ -1389,30 +1415,36 @@ class WhisperEngine:
                 dtoks = task.draft[:max_new]
                 draft_arr[i, : len(dtoks)] = dtoks
                 dlen_arr[i] = len(dtoks)
+        wire = _encode_wire_rows(rows, self.audio_wire)
 
         dev = self.device
-        with self._device_lock, torch.inference_mode():
-            rows_dev = torch.from_numpy(_encode_wire_rows(rows, self.audio_wire)).to(dev)
-            packed = _serve_step(
-                self.model, self.graphs, bucket_sec, rows_dev,
-                torch.from_numpy(prompt_arr).to(dev),
-                torch.full((batch_n,), p_len, dtype=torch.long, device=dev),
-                torch.from_numpy(auto_mask).to(dev),
-                self._dtype, max_new, suppress_blank, beam=beam, patience=patience,
-                length_penalty=len_pen,
-                draft=torch.from_numpy(draft_arr).to(dev) if drafted else None,
-                draft_len=torch.from_numpy(dlen_arr).to(dev) if drafted else None,
-                lang_pos=lang_pos, route=route,
-                rep_penalty=torch.from_numpy(rep_arr).to(dev) if route.penalised else None,
-                use_pallas=self.use_pallas,
-            )
+        spans.mark("prep")
+        with self._device_lock:
+            spans.mark("lock_wait")
+            with torch.inference_mode():
+                rows_dev = torch.from_numpy(wire).to(dev)
+                prompt_dev = torch.from_numpy(prompt_arr).to(dev)
+                p_len_dev = torch.full((batch_n,), p_len, dtype=torch.long, device=dev)
+                auto_dev = torch.from_numpy(auto_mask).to(dev)
+                draft_dev = torch.from_numpy(draft_arr).to(dev) if drafted else None
+                dlen_dev = torch.from_numpy(dlen_arr).to(dev) if drafted else None
+                rep_dev = torch.from_numpy(rep_arr).to(dev) if route.penalised else None
+                spans.mark("h2d")
+                packed = _serve_step(
+                    self.model, self.graphs, bucket_sec, rows_dev, prompt_dev, p_len_dev,
+                    auto_dev, self._dtype, max_new, suppress_blank, beam=beam,
+                    patience=patience, length_penalty=len_pen, draft=draft_dev,
+                    draft_len=dlen_dev, lang_pos=lang_pos, route=route, rep_penalty=rep_dev,
+                    use_pallas=self.use_pallas, spans=spans,
+                )
+        spans.mark("pack")
         return {
             "group": group, "packed": packed, "rows_dev": rows_dev,
             "prompt_arr": prompt_arr, "lang_pos": lang_pos, "durations": durations,
             "prefix_texts": prefix_texts, "langs": langs, "p_len": p_len,
             "with_ts": with_ts, "batch_n": batch_n, "n": n,
             "bucket_sec": bucket_sec, "max_new": max_new, "beam": beam,
-            "drafted": drafted, "t_start": t_start,
+            "drafted": drafted, "spans": spans,
         }
 
     def _row_output(self, ctx: Dict[str, Any], arr: np.ndarray, i: int, lang: str,
@@ -1455,13 +1487,14 @@ class WhisperEngine:
         return DecodeOutput(
             segments=segments, info=BackendInfo(lang, lang_p),
             batch_rows=ctx["n"], avg_logprob=avg_lp, no_speech_prob=no_speech_p,
-            _tokens=arr[i, :t_max].astype(np.int32), _p_len=p_len, _n_gen=n_gen,
+            _tokens=arr[i, :t_max].astype(np.int32), _p_len=p_len, _n_gen=n_gen, _row=i,
         )
 
     def _harvest(self, ctx: Dict[str, Any]) -> List[DecodeOutput]:
         """Blocking readback + host postprocessing for one group, then the
-        fallback ladder where the options carry one."""
-        group = ctx["group"]
+        fallback ladder where the options carry one. The group's record
+        takes the harvest's end and goes with every output."""
+        group, spans = ctx["group"], ctx["spans"]
         arr = ctx["packed"].cpu().numpy()  # the ONE device->host transfer
         if ctx["drafted"]:
             self._count_draft_verify(group, arr[: len(group), -1], ctx["max_new"])
@@ -1487,11 +1520,15 @@ class WhisperEngine:
             except Exception:
                 LOGGER.exception("word-timestamp alignment failed; results carry no words")
         self._refresh_drafts(group, outputs, ctx["max_new"])
-        elapsed = time.monotonic() - ctx["t_start"]
+        spans.close()
+        elapsed = spans.inference_sec
         if self._metrics is not None:
             self._metrics.record_engine_batch(ctx["n"], ctx["batch_n"], elapsed)
+        if self._record_spans is not None:
+            self._record_spans(spans)
         for out in outputs:
             out.inference_sec = elapsed
+            out.spans = spans
         return outputs
 
     def _fallback(self, ctx: Dict[str, Any], outputs: List[DecodeOutput], langs: List[str],

@@ -78,6 +78,7 @@ from ..models import whisper as W
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.mel import mel_logspec
 from ..ops.kernels.xattn_decode import xattn_decode
+from .spans import NO_SPANS, GroupSpans
 
 # the kernel wrappers whose launch counts a capture records
 KERNELS = {"mel_logspec": mel_logspec, "xattn_decode": xattn_decode,
@@ -280,7 +281,8 @@ class DecodeGraphs:
                captured: Optional[bool] = None, draft: Optional[torch.Tensor] = None,
                draft_len: Optional[torch.Tensor] = None,
                rep_penalty: Optional[torch.Tensor] = None, temperature: float = 1.0,
-               seed: int = 0) -> Union[W.DecodeResult, W.DraftedResult]:
+               seed: int = 0, spans: GroupSpans = NO_SPANS
+               ) -> Union[W.DecodeResult, W.DraftedResult]:
         """Decode of one group on ``entry``, whose cross K/V already holds
         the group's (``precompute_cross_kv(..., out=entry.cross_kv)``, over
         the beams for a beam entry: ``repeat_cross_kv``): the prefill, then
@@ -294,7 +296,8 @@ class DecodeGraphs:
         the chunks replay the graph; ``captured=False`` runs the same chunks
         uncaptured instead (to hold the two against each other). The result
         is copied out of the entry's buffers, so the next group may reuse
-        them once it is enqueued behind this one."""
+        them once it is enqueued behind this one. ``spans``, the group's
+        record, takes ``prefill`` and each chunk's ``replay`` and ``sync``."""
         key = entry.key
         if tuple(prompt.shape) != (key.rows, key.p_len):
             raise ValueError(f"{key}: prompt of shape {tuple(prompt.shape)}")
@@ -321,9 +324,13 @@ class DecodeGraphs:
                                        suppress_blank=suppress_blank, sot_pos=sot_pos,
                                        rep_penalty=rep_penalty, temperature=temperature,
                                        seed=seed)
+        spans.mark("prefill")
         for chunk in range(entry.chunks + (1 if entry.tail else 0)):
-            if key.drafted and bool(st.finished.all()):
-                break
+            if key.drafted:
+                done = bool(st.finished.all())
+                spans.mark("sync")
+                if done:
+                    break
             tail = chunk == entry.chunks
             if captured:
                 if tail:
@@ -336,9 +343,12 @@ class DecodeGraphs:
             else:
                 entry.chunk_fn(dec, st, entry.cross_kv,
                                entry.tail if tail else W.FINISH_CHECK_EVERY)
+            spans.mark("replay")
             if key.drafted:
                 continue
-            if not bool(W.beam_running(st)) if beam else bool(st.finished.all()):
+            done = not bool(W.beam_running(st)) if beam else bool(st.finished.all())
+            spans.mark("sync")
+            if done:
                 break
         if key.drafted:
             return W.finish_drafted(st, key.p_len, no_speech)

@@ -10,6 +10,13 @@ the reference exposes, so ``/metrics``, ``/metrics.json`` and both dashboards
 stay drop-in compatible. Per-key identities (api keys, session ids) are always
 SHA-256-hashed before use as labels; TPU-engine metrics (batch occupancy,
 compile counts, device step time) are additive keys with an ``engine_`` prefix.
+
+The port adds two histograms once its engine has served a group, both fed
+from the group's span record (``engine/spans.py``):
+``engine_queue_wait_sec``, each request from its submission to its group's
+start, and ``engine_decode_sec``, each group's decode on the engine thread
+(the chunks' launches and the finish-flag reads between them, which wait
+out the chunks' device work), so decode wall time and not host overhead.
 """
 
 from __future__ import annotations
@@ -160,10 +167,6 @@ class Metrics:
         with self._lock:
             self._stream_buffer_bytes.pop(hashed, None)
 
-    def set_gauge(self, name: str, value: float) -> None:
-        with self._lock:
-            self._gauges[name] = float(value)
-
     # -- decode timings --------------------------------------------------------
 
     def record_decode(
@@ -211,6 +214,23 @@ class Metrics:
             self._stats["engine_step"].record(step_sec)
             if capacity > 0:
                 self._stats["engine_batch_occupancy"].record(rows / capacity)
+
+    def record_engine_spans(self, spans) -> None:
+        """One engine group's span record (``engine/spans.py``): each row's
+        wait from its submission to the group's start
+        (``engine_queue_wait_sec``) and the group's decode seconds
+        (``engine_decode_sec``). Both histograms appear once a group has
+        been recorded, so a plane without an engine keeps the JAX plane's
+        key set."""
+        waits = [spans.queue_sec(row) for row in range(len(spans.submitted))]
+        decode = spans.decode_sec
+        with self._lock:
+            queue = self._histograms.setdefault("engine_queue_wait_sec",
+                                                Histogram(WAIT_BOUNDS))
+            for wait in waits:
+                queue.observe(wait)
+            self._histograms.setdefault("engine_decode_sec",
+                                        Histogram(LATENCY_BOUNDS)).observe(decode)
 
     def record_engine_compile(self, seconds: float) -> None:
         with self._lock:
