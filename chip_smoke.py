@@ -15,7 +15,11 @@ PyTorch built for CUDA. In order:
    stated, and times kernel, plain version and one PyTorch library call:
    log-mel (atol 2e-4, rtol 1e-4; every wire, 80 and 128 mels, the groups
    the served phases form), cross-attention decode over bf16, fp8, int8 and
-   float32 K/V (atol 1e-3, rtol 1e-2) and encoder flash attention (bf16
+   float32 K/V (atol 1e-3, rtol 1e-2), the default path's two int8-code
+   cross-attention products (atol 1e-4, rtol 1e-5; 1/4/16/64 rows x 250
+   and 1500 keys x 12 and 20 heads; the library call is the widening
+   route they replace, the codes copied to bf16 before the product) and
+   encoder flash attention (bf16
    body atol 2e-3, rtol 1e-2; float32 body atol 1e-5, rtol 1e-5), each
    case printing the share of its limit used and the kernel's share of its
    bound; the cross-attention decode cases cover every cluster size the
@@ -36,16 +40,18 @@ PyTorch built for CUDA. In order:
    ``out_dtype=float32``), against the float32 route (operands upcast,
    the CPU's route) on the same inputs at the served decode's shapes (4
    and 64 rows x 10 s: self-attention over 84 cache slots, cross attention
-   over 500 int8 positions with their scales, the 51865 x 768 logits) and
-   the 10 s encode's (500 x 500), attention atol 1e-3 / rtol 1e-2, logits
-   1e-4 / 1e-4, and times both routes;
+   over 500 int8 positions with their scales, which takes the int8-code
+   products, the 51865 x 768 logits) and the 10 s encode's (500 x 500),
+   attention atol 1e-3 / rtol 1e-2, logits 1e-4 / 1e-4, and times both
+   routes, each line naming the card's route;
 3. serves two paths with whisper-small in bfloat16 at full width and
    random weights from seed 0, each with the launch counts set to 0 just
    before and read just after:
    a. the default path (int8 cross K/V, einsum attention): 8 concurrent
       requests of 1, 2, 5 and 10 s of synthetic audio from 8 threads, on
       the default mu-law wire and again with ``audio_wire="int16"``, each
-      checking the row type every log-mel launch received;
+      checking the row type every log-mel launch received and that each
+      int8-code product launched once per decoder layer per decoder step;
    b. the 30 s path (fp8 cross K/V, ``xattn_kernel="mm"``,
       ``flash_attention="auto"``): 4 concurrent requests of 12, 20, 25 and
       30 s, all in the 30 s bucket, the only one whose 1500 encoder
@@ -310,6 +316,10 @@ FLASH_ATOL, FLASH_RTOL = 2e-3, 1e-2
 # the float32 body rounds nothing below float32: kernel and plain version
 # differ only in the order of float32 sums over up to 1500 keys
 FLASH_F32_ATOL, FLASH_F32_RTOL = 1e-5, 1e-5
+# the int8-code products form the plain versions' exact float32 products
+# (a bf16 value, or a weight rounded to bf16, times an int8 code) and sum
+# them in another order (tests/test_torch_kernels_cuda.py)
+CROSS_ATOL, CROSS_RTOL = 1e-4, 1e-5
 # narrow operands vs the float32 route: both multiply the same bf16 values,
 # exactly in float32, and sum in float32 in another order (a few ulps); the
 # attention weights round to bf16 on both routes, so a weight whose float32
@@ -328,7 +338,7 @@ H100_BF16_FLOPS = 989e12                 # dense bf16 tensor-core peak, SXM, 700
 H100_HBM_BYTES = 3.35e12                 # HBM3 bytes/s
 L2_FLUSH_BYTES = 256 * 1024 * 1024       # > the 50 MB L2: a cold cache per timed call
 SPIN_CYCLES = 1_000_000                  # device spin after each flush, ~0.5 ms
-KERNELS = ("mel", "xattn_decode", "flash_attention", "flash_attention_bwd")
+KERNELS = ("mel", "cross_mm", "xattn_decode", "flash_attention", "flash_attention_bwd")
 BEAM = 5
 # config/model.yaml's accurate profile, as the server passes it to a decode
 ACCURATE = {"beam_size": BEAM, "best_of": 5, "patience": 1.0, "temperature": 0.0,
@@ -606,6 +616,86 @@ def xattn_phase(torch, dev):
     return worst, headline
 
 
+def cross_mm_phase(torch, W, dev) -> dict:
+    """Phase 2 for the int8-code cross-attention products, which the
+    default path's decode step launches once each a decoder layer: both
+    launches against their plain versions on the same card inputs at the
+    served rungs (1/4/16/64 rows x the 5 s and 30 s buckets' 250 and 1500
+    keys x whisper-small's 12 and large-v3-turbo's 20 heads, Dh 64), at
+    CROSS_ATOL / CROSS_RTOL; times (cold) each launch, its plain version
+    and the widening route it replaces (the codes widened to a bf16 copy,
+    then ``_attn_cached``'s product), beside its bound. Returns, for
+    ``cross_logits`` and ``cross_mix``, the largest error and the numbers
+    at 64 rows x 12 heads x 1500 keys."""
+    from stt_tpu_torch.ops.kernels.cross_mm import (
+        cross_logits, cross_logits_plain, cross_mix, cross_mix_plain, plan_logits, plan_mix,
+    )
+
+    dh = 64
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    result = {"cross_logits": {"max_abs_err": 0.0}, "cross_mix": {"max_abs_err": 0.0}}
+    for h in (12, 20):
+        for b in (1, 4, 16, 64):
+            for ta in (250, 1500):
+                gen = torch.Generator(device=dev).manual_seed(b * 10000 + h * 100 + ta)
+                scale = dh ** -0.25
+                k, ks = W._q8(torch.randn((b, h, ta, dh), generator=gen, device=dev) * scale)
+                v, _ = W._q8(torch.randn((b, h, ta, dh), generator=gen, device=dev))
+                q = ((torch.randn((b, h, dh), generator=gen, device=dev) * scale * ks[..., 0])
+                     .to(torch.bfloat16).contiguous())
+                q4 = q[:, :, None, :]
+                w = torch.softmax(cross_logits_plain(q, k), dim=-1)
+                bh, n = b * h, b * h * ta * dh
+                launches = {
+                    "cross_logits": dict(
+                        fn=cross_logits, kernel=lambda: cross_logits(q, k),
+                        plain=lambda: cross_logits_plain(q, k),
+                        library=lambda: W._bmm_f32(
+                            q4, k.to(torch.bfloat16).transpose(-1, -2))[:, :, 0, :],
+                        nbytes=q.numel() * 2 + n + bh * ta * 4,
+                        plan=f"{plan_logits(bh, ta, dh, sms)} keys a block"),
+                    "cross_mix": dict(
+                        fn=cross_mix, kernel=lambda: cross_mix(w, v),
+                        plain=lambda: cross_mix_plain(w, v),
+                        library=lambda: W._bmm_f32(
+                            w.to(torch.bfloat16)[:, :, None, :],
+                            v.to(torch.bfloat16))[:, :, 0, :],
+                        nbytes=bh * ta * 4 + n + bh * dh * 4,
+                        plan="cluster {} x {} keys".format(*plan_mix(bh, ta, dh, sms))),
+                }
+                for name, run in launches.items():
+                    before = run["fn"].launches
+                    got, ref, lib = run["kernel"](), run["plain"](), run["library"]()
+                    torch.cuda.synchronize()
+                    after = run["fn"].launches
+                    tag = f"{name} B{b} H{h} Ta{ta} int8 ({run['plan']})"
+                    if got.shape != ref.shape or got.dtype != torch.float32 \
+                            or not torch.isfinite(got).all() or after != before + 1:
+                        fail(f"{tag}: {got.dtype} {tuple(got.shape)}, non-finite values or "
+                             f"{after - before} launches")
+                    err = (got - ref).abs().max().item()
+                    result[name]["max_abs_err"] = max(result[name]["max_abs_err"], err)
+                    used = limit_used(got, ref, CROSS_ATOL, CROSS_RTOL)
+                    try:
+                        torch.testing.assert_close(got, ref, atol=CROSS_ATOL, rtol=CROSS_RTOL)
+                    except AssertionError as exc:
+                        fail(f"{tag}: kernel disagrees with plain: {exc}")
+                    k_ms = cuda_ms_cold(torch, run["kernel"])
+                    p_ms = cuda_ms_cold(torch, run["plain"])
+                    l_ms = cuda_ms_cold(torch, run["library"])
+                    b_ms, b_by = bound(run["nbytes"], 2.0 * n, H100_F32_FLOPS)
+                    lib_err = (lib - ref).abs().max().item()
+                    log(f"{tag}: max_abs_err {err:.3g} (widening route {lib_err:.3g}), "
+                        f"{used:.3g} of the limit, max |ref| {ref.abs().max().item():.3g}; "
+                        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, widening route "
+                        f"{l_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}), {b_ms / k_ms:.1%} of "
+                        f"the bound, {run['nbytes'] / 1e6:.2f} MB")
+                    if (b, h, ta) == (64, 12, 1500):
+                        result[name].update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                            bound_ms=b_ms, bound_by=b_by)
+    return result
+
+
 def split_sweep(torch, q, k, v, planned: int) -> None:
     """Times the float32 flash body at every key split its launcher takes
     (the planner's pick among them) on (B, H, T, Dh) q/k/v, checking each
@@ -751,7 +841,10 @@ def narrow_phase(torch, W, dev) -> None:
     served decode (4 and 64 rows x 10 s: self-attention over all 84 cache
     slots under the mask, cross attention over 500 int8 positions with their
     scales, the logits against the 51865 x 768 table) and of the 10 s
-    encode (500 x 500 self-attention). Times both routes (cold)."""
+    encode (500 x 500 self-attention). The cross attention over int8 takes
+    the int8-code products on the card (``cross_mm_phase`` holds them at
+    every served rung), not the ``out_dtype`` overloads; each line names the
+    route. Times both routes (cold)."""
     import types
 
     import torch.nn.functional as F
@@ -787,19 +880,22 @@ def narrow_phase(torch, W, dev) -> None:
         cases = {
             "self-attention, 84 slots": (
                 lambda: W._attn_cached(q, k, v, mask), lambda: upcast_attn(q, k, v, mask),
-                (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4, NARROW_ATTN_TOL),
+                (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4, NARROW_ATTN_TOL,
+                "out_dtype route"),
             "cross attention, 500 int8": (
                 lambda: W._cross_layer_attn(q, ckv, 0),
                 lambda: upcast_attn(q * ks[0].to(q.dtype), ckv.k[0], ckv.v[0]) * vs[0],
-                q.numel() * 2 + ckv.k.numel() * 2 + q.numel() * 4, NARROW_ATTN_TOL),
+                q.numel() * 2 + ckv.k.numel() * 2 + q.numel() * 4, NARROW_ATTN_TOL,
+                "int8-code products"),
             "logits, 51865 x 768": (
                 lambda: W._tok_logits(dec, x), lambda: F.linear(x.float(), dec.tok.float()),
-                (x.numel() + dec.tok.numel()) * 2 + rows * vocab * 4, NARROW_LOGITS_TOL),
+                (x.numel() + dec.tok.numel()) * 2 + rows * vocab * 4, NARROW_LOGITS_TOL,
+                "out_dtype route"),
             "encoder self-attention, 500 x 500": (
                 lambda: W._attn_cached(eq, ek, ev), lambda: upcast_attn(eq, ek, ev),
-                eq.numel() * 2 * 3 + eq.numel() * 4, NARROW_ATTN_TOL),
+                eq.numel() * 2 * 3 + eq.numel() * 4, NARROW_ATTN_TOL, "out_dtype route"),
         }
-        for name, (narrow, upcast, nbytes, (atol, rtol)) in cases.items():
+        for name, (narrow, upcast, nbytes, (atol, rtol), route) in cases.items():
             tag = f"narrow operands {rows} rows, {name}"
             got, ref = narrow(), upcast()
             torch.cuda.synchronize()
@@ -811,10 +907,10 @@ def narrow_phase(torch, W, dev) -> None:
             try:
                 torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
             except AssertionError as exc:
-                fail(f"{tag}: out_dtype route disagrees with the float32 route: {exc}")
+                fail(f"{tag}: {route} disagrees with the float32 route: {exc}")
             n_ms, u_ms = cuda_ms_cold(torch, narrow), cuda_ms_cold(torch, upcast)
             log(f"{tag}: max_abs_err {err:.3g}, {used:.3g} of the limit (atol {atol:g}, "
-                f"rtol {rtol:g}), max |ref| {ref.abs().max().item():.3g}; out_dtype route "
+                f"rtol {rtol:g}), max |ref| {ref.abs().max().item():.3g}; {route} "
                 f"{n_ms:.4f} ms, float32 route {u_ms:.4f} ms, bound {nbytes / H100_HBM_BYTES * 1e3:.4f}"
                 f" ms (bytes, narrow operands)")
 
@@ -856,6 +952,7 @@ def counted_run(W, engine, run):
     launched inside a captured decode chunk counts the launches the capture
     recorded times the chunk's replays, and the decoder steps are the
     uncaptured ones plus ``FINISH_CHECK_EVERY`` a replay."""
+    from stt_tpu_torch.ops.kernels.cross_mm import cross_logits, cross_mix
     from stt_tpu_torch.ops.kernels.flash_attention import flash_attention
     from stt_tpu_torch.ops.kernels.mel import mel_logspec
     from stt_tpu_torch.ops.kernels.xattn_decode import xattn_decode
@@ -870,6 +967,7 @@ def counted_run(W, engine, run):
     replayed = engine.graphs.replayed_launches()
     replays = engine.graph_replays
     mel_logspec.launches = xattn_decode.launches = flash_attention.launches = 0
+    cross_logits.launches = cross_mix.launches = 0
     W._decoder_step = counted_step
     try:
         result = run()
@@ -880,6 +978,9 @@ def counted_run(W, engine, run):
               "xattn_decode": xattn_decode.launches + in_graphs["xattn_decode"],
               "flash_attention": flash_attention.launches + in_graphs["flash_attention"],
               "xattn_decode_in_graphs": in_graphs["xattn_decode"],
+              "cross_logits": cross_logits.launches + in_graphs["cross_logits"],
+              "cross_mix": cross_mix.launches + in_graphs["cross_mix"],
+              "cross_logits_in_graphs": in_graphs["cross_logits"],
               "graph_replays": engine.graph_replays - replays,
               "decoder_steps": steps[0] + W.FINISH_CHECK_EVERY * (
                   engine.graph_replays - replays)}
@@ -939,12 +1040,12 @@ def serve_default_phase(torch, E, W, audio_wire: str) -> int:
     """Phase 3a: whisper-small bf16 on the default attention path (int8
     cross K/V, einsum attention), 8 concurrent requests of 1-10 s on the
     given audio wire, after a prewarm of their shapes. Checks that every
-    log-mel launch of the run received rows of the wire's type and that no
-    decode graph was captured while serving; on the mu-law wire it then
-    holds the captured decode against the uncaptured one (phase 3c).
-    Returns the log-mel launch count."""
-    from stt_tpu_torch.ops.kernels.mel import mel_logspec
-
+    log-mel launch of the run received rows of the wire's type, that each
+    int8-code cross-attention product launched once per decoder layer per
+    decoder step, inside the replayed graphs too (:func:`counted_run`), and
+    that no decode graph was captured while serving; on the mu-law wire it
+    then holds the captured decode against the uncaptured one (phase 3c).
+    Returns the run's launch counts."""
     t0 = time.monotonic()
     engine = E.WhisperEngine(
         "small", device="cuda", compute_type="bfloat16",
@@ -980,9 +1081,9 @@ def serve_default_phase(torch, E, W, audio_wire: str) -> int:
             for i, d in enumerate(durations)
         ]
         E.mel_logspec = recorded
-        mel_logspec.launches = 0
-        results, wall = serve_concurrently(engine, requests)
-        launches = mel_logspec.launches
+        (results, wall), counts = counted_run(
+            W, engine, lambda: serve_concurrently(engine, requests))
+        launches = counts["mel_logspec"]
         served_captures = engine.graph_captures - captures
         check_served(E, W, engine, requests, results)
     finally:
@@ -998,13 +1099,20 @@ def serve_default_phase(torch, E, W, audio_wire: str) -> int:
     if len(row_dtypes) != launches or set(row_dtypes) != {wire_dtype}:
         fail(f"{audio_wire} wire: the log-mel kernel got rows {row_dtypes} in {launches} "
              f"launches, not {wire_dtype}")
+    per_step = cfg.n_text_layer * counts["decoder_steps"]
+    if (counts["decoder_steps"] <= 0 or counts["cross_logits_in_graphs"] <= 0
+            or counts["cross_logits"] != per_step or counts["cross_mix"] != per_step):
+        fail(f"{audio_wire} wire: the int8-code products launched {counts['cross_logits']} "
+             f"and {counts['cross_mix']} times ({counts['cross_logits_in_graphs']} in "
+             f"replayed graphs) for {counts['decoder_steps']} decoder steps, not "
+             f"{cfg.n_text_layer} per step")
     log(f"served {len(requests)} requests on the {audio_wire} wire in {wall:.3f} s; "
-        f"mel_logspec launches {launches}, each on {wire_dtype} rows; no decode graph "
-        f"captured while serving ({engine.graph_replays} replays so far)")
+        f"mel_logspec launches {launches}, each on {wire_dtype} rows; launches {counts}; "
+        f"no decode graph captured while serving ({engine.graph_replays} replays so far)")
     front_end_share(torch, E, engine, (1.0, 2.0, 5.0, 10.0), audio_wire)
     if audio_wire == "mulaw":
         graphs_phase(torch, E, W, engine, 10.0, 4, "whisper-small bf16, int8 cross K/V, einsum")
-    return launches
+    return counts
 
 
 def serve_30s_phase(torch, E, W):
@@ -1198,6 +1306,11 @@ def serve_beam_phase(torch, E, W, tag: str, policy: dict, durations, timing_rows
                                       if engine.policy.xattn_on else 0):
             fail(f"beam ({tag}): xattn_decode launched {counts['xattn_decode']} times for "
                  f"{counts['decoder_steps']} decoder steps")
+        codes = "cross_mm" in W.decode_sources(engine.policy, engine._dtype)
+        if not (counts["cross_logits"] == counts["cross_mix"]
+                == (cfg.n_text_layer * counts["decoder_steps"] if codes else 0)):
+            fail(f"beam ({tag}): the int8-code products launched {counts['cross_logits']} and "
+                 f"{counts['cross_mix']} times for {counts['decoder_steps']} decoder steps")
         log(f"beam ({tag}): served {len(requests)} accurate requests ({bucket:g} s bucket) in "
             f"{wall:.3f} s; launches {counts}; no decode graph captured while serving")
         beam_graphs_check(torch, E, W, engine, max(durations), 4, tag)
@@ -1629,7 +1742,8 @@ def route_phase(torch, E, W) -> dict:
     x 30 s); returns the launch counts of all its groups."""
     from stt_tpu_torch import bench as B
 
-    totals = {"mel_logspec": 0, "xattn_decode": 0, "flash_attention": 0}
+    totals = {"mel_logspec": 0, "xattn_decode": 0, "flash_attention": 0, "cross_logits": 0,
+              "cross_mix": 0}
     paths = [("int8 cross K/V, einsum",
               dict(cross_kv_dtype="int8", xattn_kernel="off", flash_attention="off"), 10.0, (4, 64)),
              ("fp8 cross K/V, both kernels",
@@ -1994,7 +2108,8 @@ def long_words_phase(torch, E, W) -> dict:
     from stt_tpu_torch import convert
     from stt_tpu_torch.parallel.checkpoint import export_hf_safetensors
 
-    totals = {"mel_logspec": 0, "xattn_decode": 0, "flash_attention": 0}
+    totals = {"mel_logspec": 0, "xattn_decode": 0, "flash_attention": 0, "cross_logits": 0,
+              "cross_mix": 0}
 
     def add(counts: dict) -> None:
         for k in totals:
@@ -4018,14 +4133,16 @@ def main() -> None:
         + ", ".join(f"{w} {e:.3g}" for w, e in mel_err.items()))
 
     xattn_err, xattn_headline = xattn_phase(torch, dev)
+    cross = cross_mm_phase(torch, W, dev)
     flash_err, flash_headline, flash32_headline = flash_phase(torch, dev)
 
     # -- 2b. narrow operands, float32 accumulation -------------------------------
     narrow_phase(torch, W, dev)
 
     # -- 3a. served requests, default path (int8 cross K/V, einsum attention) ---
-    launches = serve_default_phase(torch, E, W, "mulaw")
-    serve_default_phase(torch, E, W, "int16")
+    default = serve_default_phase(torch, E, W, "mulaw")
+    default_int16 = serve_default_phase(torch, E, W, "int16")
+    launches = default["mel_logspec"]
 
     # -- 3b. served requests, 30 s path (fp8 cross K/V, both attention kernels) -
     counts_30s = serve_30s_phase(torch, E, W)
@@ -4102,7 +4219,15 @@ def main() -> None:
                      + routes["xattn_decode"] + long_words["xattn_decode"]),
         "max_abs_err": xattn_err,
         **xattn_headline,
-    }, {
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": "stt_tpu_torch/ops/cuda/cross_mm.cu",
+        "replaces": "stt_tpu/models/whisper.py:789",
+        "launches": (default[name] + default_int16[name] + beam_int8[name] + routes[name]
+                     + long_words[name]),
+        **cross[name],
+    } for name in ("cross_logits", "cross_mix")), {
         "name": "flash_attention",
         "route": "cuda",
         "source": "stt_tpu_torch/ops/cuda/flash_attention.cu",

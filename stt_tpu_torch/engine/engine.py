@@ -169,6 +169,7 @@ from ..device import resolve_device
 from ..models import timing as T
 from ..models import whisper as W
 from ..models.tokenizer import load_tokenizer
+from ..ops.cuda import build
 from ..ops.kernels.mel import mel_logspec
 from ..ops.mel import HOP_LENGTH, SAMPLE_RATE, expand_wire, log_mel_raw, normalize_log_mel
 from .graphs import DecodeGraphs
@@ -968,6 +969,9 @@ class WhisperEngine:
         beams = sorted({max(1, min(int(b), W.MAX_BEAM)) for b in (beam_sizes or (1,))})
         routes = [(beam, False) for beam in beams] + ([(1, True)] if include_drafted else [])
         t0 = time.monotonic()
+        if self.device.type == "cuda":
+            # log-mel and the decode step's sources, one nvcc each, side by side
+            build.load_many(("mel",) + W.decode_sources(self.policy, self._dtype))
         for sec in bucket_secs or self.audio_buckets_sec:
             for rows in batch_sizes or (self.batch_buckets[0],):
                 for beam, drafted in routes:

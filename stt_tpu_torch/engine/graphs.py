@@ -75,6 +75,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Union
 import torch
 
 from ..models import whisper as W
+from ..ops.kernels.cross_mm import cross_logits, cross_mix
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.mel import mel_logspec
 from ..ops.kernels.xattn_decode import xattn_decode
@@ -82,7 +83,8 @@ from .spans import NO_SPANS, GroupSpans
 
 # the kernel wrappers whose launch counts a capture records
 KERNELS = {"mel_logspec": mel_logspec, "xattn_decode": xattn_decode,
-           "flash_attention": flash_attention}
+           "flash_attention": flash_attention, "cross_logits": cross_logits,
+           "cross_mix": cross_mix}
 
 
 class GraphKey(NamedTuple):

@@ -21,7 +21,10 @@ other on identical weights:
   weights rounded to the compute type first, as the JAX package's
   ``preferred_element_type=float32`` einsums do. Stored K/V narrower than
   the compute type (int8, fp8) are converted to it, exactly, and no
-  further; no float32 copy of a cache or of the token table is made.
+  further; no float32 copy of a cache or of the token table is made. A
+  single-position query over int8 cross K/V takes products that convert
+  the codes as they load them on the card (``_attn_int8_codes``), as the
+  JAX package's XLA einsum does, so no widened copy is made either.
 - The KV caches are head-split with k pre-scaled by ``d_head**-0.25``.
   Under bfloat16 compute the cross K/V is stored int8 with per-(layer,
   row, head) scales (the default, folded into q and the output as in
@@ -112,6 +115,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..convert import from_jax_params
+from ..ops.kernels.cross_mm import cross_logits, cross_mix
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.xattn_decode import xattn_decode
 from .presets import (  # noqa: F401
@@ -954,6 +958,36 @@ def _cross_dequant(ckv: CrossKV):
     return k, v
 
 
+def _reads_int8_codes(qh: torch.Tensor, kh: torch.Tensor) -> bool:
+    """Whether a cross-attention over the stored K/V takes the products
+    that read the int8 codes (:func:`_attn_int8_codes`): int8 storage, one
+    query position, with nothing for autograd to record. Their wrappers
+    launch the kernels for CUDA tensors and take the plain versions, which
+    are :func:`_attn_cached`'s products, for CPU ones."""
+    return (kh.dtype == torch.int8 and qh.shape[2] == 1
+            and not (torch.is_grad_enabled() and qh.requires_grad))
+
+
+def decode_sources(policy: AttentionPolicy, compute_dtype: torch.dtype) -> Tuple[str, ...]:
+    """The CUDA sources (``ops/cuda/<name>.cu``) whose kernels a decode step
+    under ``policy`` launches on the card: the cross-attention decode
+    kernel where it is on, else the int8-code products over int8 storage."""
+    if policy.xattn_on:
+        return ("xattn_decode",)
+    if policy.cross_store_dtype(compute_dtype) == torch.int8:
+        return ("cross_mm",)
+    return ()
+
+
+def _attn_int8_codes(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor) -> torch.Tensor:
+    """:func:`_attn_cached` at Tq == 1 over int8 K/V codes, with no widened
+    copy of them: both products read the codes (``ops/kernels/cross_mm.py``;
+    the weights round to bf16 as they load), the softmax between them is
+    the same float32 one. Returns float32 (B, H, 1, Dh)."""
+    logits = cross_logits(qh[:, :, 0, :].contiguous(), kh)
+    return cross_mix(torch.softmax(logits, dim=-1), vh)[:, :, None, :]
+
+
 def _cross_layer_attn(qx: torch.Tensor, ckv: CrossKV, li: int,
                       kernel: bool = False) -> torch.Tensor:
     """Cross-attention for one layer against the stored K/V. int8 storage
@@ -962,12 +996,17 @@ def _cross_layer_attn(qx: torch.Tensor, ckv: CrossKV, li: int,
     number per (row, head) — so the large K/V are only converted. With
     ``kernel`` a single-position query (Tq == 1) goes through the
     cross-attention decode wrapper for every storage: its kernel on the
-    card, its plain version on the CPU."""
+    card, its plain version on the CPU. Without it, a single-position
+    query over int8 storage reads the codes in both products
+    (:func:`_reads_int8_codes`); every other case widens them in
+    :func:`_attn_cached`."""
     ck, cv = ckv.k[li], ckv.v[li]
     if ckv.k_scale is not None:
         qx = qx * ckv.k_scale[li].to(qx.dtype)
     if kernel and qx.shape[2] == 1:
         out = xattn_decode(qx[:, :, 0, :].contiguous(), ck, cv)[:, :, None, :]
+    elif _reads_int8_codes(qx, ck):
+        out = _attn_int8_codes(qx, ck, cv)
     else:
         out = _attn_cached(qx, ck, cv)
     return out if ckv.v_scale is None else out * ckv.v_scale[li]
@@ -2395,6 +2434,7 @@ __all__ = [
     "build_prompt",
     "compression_ratio",
     "cross_attention_weights",
+    "decode_sources",
     "decoder_forward",
     "detect_language",
     "empty_cross_kv",

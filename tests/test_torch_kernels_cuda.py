@@ -23,7 +23,13 @@ by one bf16 step (< 0.8% of |x|). The flash kernel's float32 body is held
 at atol FLASH_F32_ATOL, rtol FLASH_F32_RTOL: nothing on either side is
 rounded below float32, so the two differ only in the order of float32
 sums over up to 1500 keys (~1e-7 relative), far inside the bf16 limit,
-which would pass a kernel that dropped the ragged key tail.
+which would pass a kernel that dropped the ragged key tail. The int8-code
+cross-attention products are held at CROSS_ATOL, CROSS_RTOL against their
+plain versions on the same inputs: both sides form the same exact float32
+products of a bf16 value (or a weight rounded to bf16) and an int8 code
+and differ only in the order of float32 sums over 64 dims or up to 1500
+keys (~1e-6 of the sum's terms), while a dropped or doubled key moves a
+logit by ~1 and the mix by ~0.05.
 """
 
 import numpy as np
@@ -31,6 +37,10 @@ import pytest
 import torch
 
 from stt_tpu_torch.engine.engine import _encode_wire_rows
+from stt_tpu_torch.models.whisper import _q8
+from stt_tpu_torch.ops.kernels.cross_mm import (
+    cross_logits, cross_logits_plain, cross_mix, cross_mix_plain, plan_mix,
+)
 from stt_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
 from stt_tpu_torch.ops.kernels.mel import log_mel_spectrogram_plain, mel_logspec
 from stt_tpu_torch.ops.kernels.xattn_decode import (
@@ -42,6 +52,8 @@ ATOL, RTOL = 2e-4, 1e-4
 XATTN_ATOL, XATTN_RTOL = 1e-3, 1e-2
 FLASH_ATOL, FLASH_RTOL = 2e-3, 1e-2
 FLASH_F32_ATOL, FLASH_F32_RTOL = 1e-5, 1e-5
+CROSS_ATOL, CROSS_RTOL = 1e-4, 1e-5
+SMALL_LIVE_TOKEN_GAP = 0.06  # the benchmark's token_gap limit for whisper-small
 
 
 @pytest.fixture
@@ -267,6 +279,99 @@ def test_xattn_kernel_rejects_bad_input(cuda_device):
         xattn_decode(q.cpu(), k, v)
 
 
+def _cross_inputs(b, ta, h=12, dh=64, seed=0):
+    """q (B, H, Dh) bf16 with K's int8 scale folded in, K/V codes (B, H, Ta,
+    Dh) int8 as precompute_cross_kv stores them, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scale = dh ** -0.25
+    k, ks = _q8(torch.randn((b, h, ta, dh), generator=gen, device="cuda") * scale)
+    v, _ = _q8(torch.randn((b, h, ta, dh), generator=gen, device="cuda"))
+    q = torch.randn((b, h, dh), generator=gen, device="cuda") * scale
+    return (q * ks[..., 0]).to(torch.bfloat16).contiguous(), k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [12, 20])
+@pytest.mark.parametrize("b", [1, 4, 16, 64])
+@pytest.mark.parametrize("ta", [1, 50, 250, 500, 1500])
+def test_cross_mm_kernels_match_plain(cuda_device, b, h, ta):
+    """Both int8-code launches at the served rungs and buckets (whisper-small's
+    12 heads, turbo's 20) against their plain versions on the same inputs."""
+    q, k, v = _cross_inputs(b, ta, h=h, seed=b + h + ta)
+    before = (cross_logits.launches, cross_mix.launches)
+    logits = cross_logits(q, k)
+    w = torch.softmax(logits, dim=-1)
+    got = cross_mix(w, v)
+    torch.cuda.synchronize()
+    assert (cross_logits.launches, cross_mix.launches) == (before[0] + 1, before[1] + 1)
+    assert logits.shape == (b, h, ta) and got.shape == (b, h, 64)
+    torch.testing.assert_close(logits, cross_logits_plain(q, k), atol=CROSS_ATOL,
+                               rtol=CROSS_RTOL)
+    torch.testing.assert_close(got, cross_mix_plain(w, v), atol=CROSS_ATOL, rtol=CROSS_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,ta,dh,clusters", [
+    (64, 12, 250, 64, 1), (8, 12, 250, 64, 2), (4, 12, 600, 64, 4), (1, 12, 1500, 64, 8),
+    (1, 12, 1001, 64, 8), (1, 12, 130, 64, 2), (3, 4, 777, 32, 4), (2, 2, 300, 128, 8),
+])
+def test_cross_mm_kernels_every_cluster_and_head_dim(cuda_device, b, h, ta, dh, clusters):
+    """Every cluster size the mix's planner picks, ragged last chunks and
+    other head dims, against the plain versions."""
+    q, k, v = _cross_inputs(b, ta, h=h, dh=dh, seed=9)
+    assert plan_mix(b * h, ta, dh, _sms())[0] == clusters
+    logits = cross_logits(q, k)
+    torch.testing.assert_close(logits, cross_logits_plain(q, k), atol=CROSS_ATOL,
+                               rtol=CROSS_RTOL)
+    w = torch.softmax(logits, dim=-1)
+    torch.testing.assert_close(cross_mix(w, v), cross_mix_plain(w, v), atol=CROSS_ATOL,
+                               rtol=CROSS_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ta", [(1, 1500), (4, 1500), (64, 250)])
+def test_cross_mm_pair_in_a_captured_graph(cuda_device, b, ta):
+    """The pair with the softmax between them, captured in a CUDA graph:
+    replays give what eager calls give, bit for bit (no atomics)."""
+    from stt_tpu_torch.models.whisper import _attn_int8_codes
+
+    q, k, v = _cross_inputs(b, ta, seed=5)
+    q4 = q[:, :, None, :].contiguous()
+    eager = _attn_int8_codes(q4, k, v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _attn_int8_codes(q4, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _attn_int8_codes(q4, k, v)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    q4.copy_(torch.flip(q4, dims=(0,)))  # new inputs in place reach the replay
+    graph.replay()
+    torch.testing.assert_close(out, _attn_int8_codes(q4, k, v), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cross_mm_kernels_reject_bad_input(cuda_device):
+    q, k, v = _cross_inputs(2, 50)
+    w = torch.zeros((2, 12, 50), device="cuda")
+    with pytest.raises(TypeError):
+        cross_logits(q.float(), k)
+    with pytest.raises(TypeError):
+        cross_mix(w, v.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        cross_logits(q, k.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="head dim"):
+        cross_logits(q[..., :48].contiguous(), k[..., :48].contiguous())
+    with pytest.raises(ValueError):
+        cross_mix(w.cpu(), v)
+
+
 def _flash_inputs(b, t, h=12, dh=64, seed=0):
     rng = np.random.default_rng(seed)
     scale = dh ** -0.25
@@ -471,9 +576,10 @@ def graph_engines():
         engine.close()
 
 
-def _decode_both(engine, seconds, rows):
-    """One group of ``rows`` requests of ``seconds`` decoded on its entry by
-    replaying the graph and by the same chunk uncaptured."""
+def _greedy_group(engine, seconds, rows):
+    """One group of ``rows`` requests of ``seconds`` made ready on its
+    greedy entry: (entry, prompt, prompt lengths), the entry's cross K/V
+    holding the group's."""
     from stt_tpu_torch.engine import engine as E
     from stt_tpu_torch.models import whisper as W
 
@@ -491,7 +597,14 @@ def _decode_both(engine, seconds, rows):
                                     engine._max_new_for(bucket), enc.shape[1])
         ckv = W.precompute_cross_kv(engine.model.decoder, enc, out=entry.cross_kv)
         prompt, _, _ = E._detect_and_patch_lang(engine.model, enc, prompt, auto, ckv, 1)
-        plen = torch.full((rows,), prompt.shape[1], device="cuda")
+        return entry, prompt, torch.full((rows,), prompt.shape[1], device="cuda")
+
+
+def _decode_both(engine, seconds, rows):
+    """One group of ``rows`` requests of ``seconds`` decoded on its entry by
+    replaying the graph and by the same chunk uncaptured."""
+    entry, prompt, plen = _greedy_group(engine, seconds, rows)
+    with torch.inference_mode():
         return entry, [engine.graphs.decode(entry, prompt, plen, captured=c)
                        for c in (True, False)]
 
@@ -517,6 +630,62 @@ def test_captured_decode_is_bitwise_the_uncaptured_one(graph_engines, policy, ro
         assert entry.launches["xattn_decode"] == 12 * 8
     else:
         assert entry.launches["xattn_decode"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,launches", [("int8", 12 * 8), ("fp8", 0), ("float32", 0)])
+def test_greedy_chunk_launches_the_code_products_once_per_layer_per_step(graph_engines, policy,
+                                                                         launches):
+    """whisper-small's greedy chunk of 8 steps over int8 storage launches
+    each int8-code product once per decoder layer per step, and replays
+    them; the other storages launch neither."""
+    engine = graph_engines[policy]
+    entry, (captured, eager) = _decode_both(engine, 10.0, 4)
+    torch.cuda.synchronize()
+    assert entry.launches["cross_logits"] == entry.launches["cross_mix"] == launches
+    replayed = engine.graphs.replayed_launches()
+    assert replayed["cross_logits"] == replayed["cross_mix"]
+    assert (replayed["cross_logits"] >= launches * entry.replays) and entry.replays > 0
+
+
+@pytest.mark.cuda
+def test_code_products_decode_30s_as_the_widening_route(graph_engines, monkeypatch):
+    """A 30 s greedy decode of 4 rows through the captured int8-code products
+    gives the widening route's tokens (the same step uncaptured with the
+    codes widened in ``_attn_cached``); where a near-tie flips a token, the
+    widening route's logit of the served token lies within the benchmark's
+    token_gap limit of its own choice, and the two agree up to there."""
+    from stt_tpu_torch.models import whisper as W
+
+    engine = graph_engines["int8"]
+    entry, prompt, plen = _greedy_group(engine, 30.0, 4)
+    with torch.inference_mode():
+        got = engine.graphs.decode(entry, prompt, plen)
+        with monkeypatch.context() as patch:
+            patch.setattr(W, "_reads_int8_codes", lambda qh, kh: False)
+            ref = engine.graphs.decode(entry, prompt, plen, captured=False)
+    torch.cuda.synchronize()
+    assert entry.launches["cross_logits"] == 12 * 8
+    assert int(ref.lengths.max()) > W.FINISH_CHECK_EVERY  # more than one chunk of steps
+    eot = W.token_layout(engine.config.n_vocab).eot
+    for row in range(4):
+        a = got.tokens[row, : int(got.lengths[row])].tolist() + [eot]
+        b = ref.tokens[row, : int(ref.lengths[row])].tolist() + [eot]
+        if a == b:
+            continue
+        at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        assert at is not None, (row, a, b)
+        # the widening route's logits at the step that chose b[at], teacher-forced
+        # (tokens hold the prompt; a pass over several positions widens the codes)
+        seq = torch.tensor([b[:at]], device="cuda")
+        with torch.inference_mode():
+            dec = engine.model.decoder
+            cache = W.init_kv_cache(engine.config, 1, seq.shape[1], engine._dtype, "cuda")
+            one = W.CrossKV(*(None if t is None else t[:, row:row + 1] for t in entry.cross_kv))
+            h = W._prefill_parallel(dec, seq, seq.shape[1], cache, one)
+            logits = W._tok_logits(dec, dec.ln(h))[0, -1]
+        gap = float(logits[b[at]] - logits[a[at]])
+        assert gap <= SMALL_LIVE_TOKEN_GAP, (row, at, gap)
 
 
 def _drafted_decode_both(engine, seconds, rows):
