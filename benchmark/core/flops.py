@@ -1,15 +1,17 @@
-"""Operation and byte counts of the served work, and the card's peaks.
+"""The card's peaks, and the operation and byte counts of the log-mel
+front end that every Whisper-encoder model shares.
 
-The yardstick for the model step's share of peak (``mfu_pct.*``) and the
-log-mel kernel's share of its roofline. Counts come from shapes and from
-what the request itself fixes (its bucket, its prompt, the tokens it
-produced), never from what the program reports about its own speed.
+The yardstick for the model step's share of peak (``mfu_pct.*``, whose
+FLOPs a request takes from its architecture's ``request_flops`` in
+``benchmark/architectures/``) and the log-mel kernel's share of its
+roofline. Counts come from shapes and from what the request itself fixes
+(its bucket, its prompt, the tokens it produced), never from what the
+program reports about its own speed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
 
 # NVIDIA H100 SXM data sheet, dense rates, at the full 700 W power limit
 H100_BF16_FLOPS = 989e12
@@ -20,32 +22,6 @@ N_FFT = 400
 HOP = 160
 SAMPLE_RATE = 16000
 FRAMES_PER_SEC = SAMPLE_RATE // HOP   # 100
-
-
-def request_flops(config: Dict, bucket_sec: float, p_len: int, gen_tokens: int,
-                  beams: int = 1) -> float:
-    """Matrix-product FLOPs of one request: the encoder over its padded
-    bucket, the cross K/V, then ``p_len + gen_tokens`` decoder steps with a
-    KV cache, each for every one of ``beams`` beams. The encoder and cross
-    K/V run once a row, whatever the beam. A copy of the port's bench
-    formula (``whisper_request_flops``) with the beams added."""
-    d = int(config["d_model"])
-    n_mels = int(config["num_mel_bins"])
-    ta = int(bucket_sec * FRAMES_PER_SEC) // 2
-    t_mel = int(bucket_sec * FRAMES_PER_SEC)
-    flops = 2 * 3 * n_mels * d * t_mel
-    flops += 2 * 3 * d * d * (t_mel // 2)
-    flops += int(config["encoder_layers"]) * (
-        2 * 4 * ta * d * d + 2 * 2 * ta * ta * d + 2 * 8 * ta * d * d)
-    layers = int(config["decoder_layers"])
-    flops += layers * 2 * 2 * ta * d * d
-    steps = p_len + gen_tokens
-    per_step = layers * (
-        2 * 4 * d * d + 2 * 2 * d * d + 2 * 8 * d * d
-        + 2 * 2 * steps * d + 2 * 2 * ta * d
-    ) + 2 * d * int(config["vocab_size"])
-    flops += steps * per_step * beams
-    return float(flops)
 
 
 def mel_nonzeros(n_mels: int) -> int:

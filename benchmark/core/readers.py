@@ -18,16 +18,11 @@ def idle_pct(run) -> Optional[float]:
     return 100.0 * (1.0 - tr.busy_s / tr.window_s)
 
 
-def _produced(out) -> int:
-    """Tokens a row produced: its text, and the end-of-text if it stopped."""
-    ended = out._p_len + out._n_gen < len(out._tokens)
-    return int(out._n_gen) + int(ended)
-
-
 def mfu_pct(run) -> Optional[float]:
     """FLOPs of the groups whose device phase and harvest lie wholly in the
-    traced stretch, over the card's busy time from the first such group's
-    start to the last one's end, over the bf16 peak, in %."""
+    traced stretch (each request's from the run's architecture,
+    ``request_flops``), over the card's busy time from the first such
+    group's start to the last one's end, over the bf16 peak, in %."""
     tr = run.trace
     if tr is None:
         return None
@@ -38,8 +33,7 @@ def mfu_pct(run) -> Optional[float]:
         if start < tr.start or end > tr.end:
             continue
         spans.append((start, end))
-        work += sum(FL.request_flops(run.config, run.bucket_of(r), int(r.output._p_len),
-                                     _produced(r.output), r.beams) for r in reqs)
+        work += sum(run.architecture.request_flops(run.config, run, r) for r in reqs)
     if not spans:
         return None
     busy = tr.busy_within(min(s for s, _ in spans), max(e for _, e in spans))

@@ -117,6 +117,7 @@ class Run:
     recorder: Recorder
     setup_s: float = 0.0
     trace: Any = None             # core.trace.Trace in a --trace 1 run
+    architecture: Any = None      # the configuration's module in benchmark/architectures/
 
     def counted(self, kind: Optional[str] = None) -> List[Req]:
         """Requests due inside the window (of ``kind``, if given)."""

@@ -2,28 +2,30 @@
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Finds the cell in ``BENCHMARK.json``, its configuration, its traffic and
-its metrics' readers by name (``benchmark/core/manifest.py``); builds the
-port's batching engine (``stt_tpu_torch.engine.engine.WhisperEngine``) as
-the model registry builds it, with the configuration's settings, weights
-drawn from ``WEIGHTS_SEED`` (one model for every run, as a deployment
-serves one checkpoint: random weights end a row at an end-of-text that
-depends on the draw, so the draw sets how much each request decodes) and
-this harness's recorder as its metrics hook; warms
-up the shapes the cell's traffic uses, as the registry's boot does; drives
-the traffic through ``WhisperEngine.submit`` from the seed, with traffic
-before the window so that the window sees a steady state; with ``--trace 1``
-profiles a steady stretch inside the window. After the window it reads the
-metrics, frees the program, judges a sample of the window's results
-against the plain float32 reference (``benchmark/core/check.py``), checks
-that nothing of the JAX package was imported, and prints one JSON line.
+Finds the cell in ``BENCHMARK.json``, its configuration, the architecture
+that names, its traffic and its metrics' readers by name
+(``benchmark/core/manifest.py``); builds the port's batching engine
+through the architecture's ``build_engine`` (for ``whisper``,
+``benchmark/architectures/whisper.py``, as the model registry builds it),
+with the configuration's settings, weights drawn from ``WEIGHTS_SEED``
+(one model for every run, as a deployment serves one checkpoint: random
+weights end a row at an end-of-text that depends on the draw, so the draw
+sets how much each request decodes) and this harness's recorder as its
+metrics hook; warms up the shapes the cell's traffic uses, as the
+registry's boot does; drives the traffic through the engine's ``submit``
+from the seed, with traffic before the window so that the window sees a
+steady state; with ``--trace 1`` profiles a steady stretch inside the
+window. After the window it reads the metrics, frees the program, judges
+a sample of the window's results (``benchmark/core/check.py``) with the
+architecture's ``judge`` against its plain float32 reference, checks that
+nothing of the JAX package was imported, and prints one JSON line.
 
 It needs a CUDA card (as many as the cell asks for) and fails without one;
-``--rehearse`` runs a CPU rehearsal at the port's ``test`` size for the
-benchmark's own tests. ``--control fp8`` judges, in the program's place,
-the plain reference computed in fp8 over the same prompts and served
-tokens: the control that has to come out not correct (it also prints the
-program's own readings); the benchmark's runs never pass it.
+``--rehearse`` runs a CPU rehearsal at the architecture's ``REHEARSAL``
+size for the benchmark's own tests. ``--control fp8`` judges, in the
+program's place, the plain reference computed in fp8 over the same prompts
+and served tokens: the control that has to come out not correct (it also
+prints the program's own readings); the benchmark's runs never pass it.
 """
 
 from __future__ import annotations
@@ -54,10 +56,6 @@ from benchmark.core.trace import kind_of  # noqa: E402
 
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "stt_tpu")
 WEIGHTS_SEED = 0    # the engine's seeded draw: one model for every run of every cell
-# the CPU rehearsal's model and engine: the port's ``test`` widths, two rungs
-REHEARSAL = {"model_size": "test", "d_model": 64, "encoder_layers": 2, "decoder_layers": 2,
-             "encoder_attention_heads": 2, "decoder_attention_heads": 2}
-REHEARSAL_ENGINE = {"batch_buckets": [1, 4], "max_batch": 4}
 
 
 def log(msg: str) -> None:
@@ -92,33 +90,6 @@ def check_card(chips: int) -> Optional[str]:
     if torch.cuda.device_count() < chips:
         return f"the cell needs {chips} cards, torch sees {torch.cuda.device_count()}"
     return None
-
-
-def check_deployment(engine, config: Dict) -> None:
-    """The engine runs what the configuration states, or the run stops."""
-    from stt_tpu_torch.models.presets import get_config
-
-    want = config["engine"]
-    pol, dec = engine.policy, engine.decoder_policy
-    preset = get_config(config["model_size"])
-    found = {
-        "d_model": preset.n_audio_state, "encoder_layers": preset.n_audio_layer,
-        "decoder_layers": preset.n_text_layer, "encoder_attention_heads": preset.n_audio_head,
-        "decoder_attention_heads": preset.n_text_head, "num_mel_bins": preset.n_mels,
-        "vocab_size": preset.n_vocab, "max_source_positions": preset.n_audio_ctx,
-        "max_target_positions": preset.n_text_ctx,
-    }
-    wrong = {k: (v, config[k]) for k, v in found.items() if config[k] != v}
-    stated = {"cross_kv_dtype": pol.cross_kv_dtype, "xattn_kernel": pol.xattn_kernel,
-              "flash_attention": pol.flash_attention, "audio_wire": engine.audio_wire,
-              "pipeline_depth": engine.pipeline_depth}
-    wrong.update({k: (v, want[k]) for k, v in stated.items() if v != want[k]})
-    policy = {"weights": "bf16", "fused_qkv": False, "self_kv": "bf16",
-              "prefill": "parallel"}
-    wrong.update({f"decoder_policy.{k}": (getattr(dec, k), v) for k, v in policy.items()
-                  if getattr(dec, k) != v})
-    if wrong:
-        raise SystemExit(f"the engine departs from the configuration (found, stated): {wrong}")
 
 
 class Context:
@@ -184,22 +155,6 @@ class Context:
         return trace
 
 
-def build_engine(cell: manifest.Cell, seed: int, device: str, recorder: Recorder):
-    from stt_tpu_torch.engine.engine import WhisperEngine
-
-    config, eng = cell.config, cell.config["engine"]
-    return WhisperEngine(
-        config["model_size"], device, config["compute_type"],
-        audio_buckets_sec=eng["audio_buckets_sec"], batch_buckets=eng["batch_buckets"],
-        max_decode_tokens=eng["max_decode_tokens"], batch_window_ms=eng["batch_window_ms"],
-        max_batch=eng["max_batch"], draft_mode=eng["draft_mode"], seed=seed,
-        cross_kv_dtype=eng["cross_kv_dtype"], xattn_kernel=eng["xattn_kernel"],
-        flash_attention=eng["flash_attention"], audio_wire=eng["audio_wire"],
-        pipeline_depth=eng["pipeline_depth"], use_pallas=eng["use_pallas"],
-        metrics=recorder,
-    )
-
-
 def device_info(torch, chips: int, rehearse: bool) -> Dict:
     if rehearse:
         return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": 0}
@@ -225,9 +180,10 @@ def main(argv=None) -> int:
     cell = manifest.load_cell(args.workload, bool(args.trace), ROOT)
     import torch
 
+    arch = cell.architecture
     if args.rehearse:
-        cell.config.update(REHEARSAL)
-        cell.config["engine"].update(REHEARSAL_ENGINE)
+        cell.config.update(arch.REHEARSAL)
+        cell.config["engine"].update(arch.REHEARSAL_ENGINE)
         device = "cpu"
         torch.set_num_threads(2)
     else:
@@ -237,9 +193,9 @@ def main(argv=None) -> int:
             return 2
         device = "cuda"
     recorder, tracker = Recorder(), Tracker()
-    engine = build_engine(cell, WEIGHTS_SEED, device, recorder)
+    engine = arch.build_engine(cell.config, WEIGHTS_SEED, device, recorder)
     if not args.rehearse:
-        check_deployment(engine, cell.config)
+        arch.check_deployment(engine, cell.config)
     cell.generator.prewarm(engine, cell.traffic, cell.config)
     engine.start()
     captures_warm = engine.graph_captures
@@ -268,7 +224,7 @@ def main(argv=None) -> int:
 
     run = Run(cell=cell.name, config=cell.config, traffic=cell.traffic, seconds=args.seconds,
               window=(w0, w1), deadline=info["deadline"], requests=tracker.requests,
-              recorder=recorder, setup_s=setup_s, trace=trace)
+              recorder=recorder, setup_s=setup_s, trace=trace, architecture=arch)
     log(f"card: {card_line() if device == 'cuda' else 'cpu rehearsal'}")
     log(f"sends: {json.dumps(info['send_late_ms'])} ms late (p50, p99, max)")
     log(f"decode graphs captured inside the window: {captures_window}; "
@@ -300,12 +256,12 @@ def main(argv=None) -> int:
 
     reqs = check.sample(run, args.seed)
     t_check = time.perf_counter()
-    numbers = check.judge(run, reqs, WEIGHTS_SEED, device)
+    numbers = arch.judge(run, reqs, WEIGHTS_SEED, device)
     log(f"reference: {int(numbers['requests_judged'])} requests, "
         f"{int(numbers['tokens_judged'])} tokens in {time.perf_counter() - t_check:.1f} s")
     log("readings: " + json.dumps(numbers))
     if args.control:
-        numbers = check.judge(run, reqs, WEIGHTS_SEED, device, control=True)
+        numbers = arch.judge(run, reqs, WEIGHTS_SEED, device, control=True)
         log("control readings: " + json.dumps(numbers))
     limits = cell.traffic["limits"]
     checks = {k: {"value": numbers[k], "limit": float(limits[k])} for k in limits}

@@ -1,5 +1,6 @@
 """The p95, rate, spread and FLOP arithmetic against hand-worked cases; the
-import check; the manifest finding new files by name."""
+import check; the manifest finding new files by name, an architecture
+among them."""
 
 import json
 import shutil
@@ -19,6 +20,7 @@ from benchmark.core.trace import DeviceOp, Trace
 
 ROOT = Path(__file__).resolve().parents[2]
 SMALL = json.loads((ROOT / "benchmark" / "configs" / "whisper-small.json").read_text())
+WHISPER = manifest.load_module(ROOT / "benchmark" / "architectures" / "whisper.py")
 
 
 def test_percentile_is_nearest_rank():
@@ -50,7 +52,8 @@ def _req(kind, due, done, audio_s=1.0, inference=0.1, n_gen=10, error=None):
 
 def _run(reqs, window=(10.0, 20.0), trace=None):
     return Run(cell="c", config=SMALL, traffic={}, seconds=10.0, window=window,
-               deadline=window[1] + 5.0, requests=reqs, recorder=Recorder(), trace=trace)
+               deadline=window[1] + 5.0, requests=reqs, recorder=Recorder(), trace=trace,
+               architecture=WHISPER)
 
 
 def _reader(name):
@@ -92,8 +95,19 @@ def test_request_flops_by_hand():
     cross = 2 * 2 * ta * d * d
     step = (2 * 4 * d * d + 2 * 2 * d * d + 2 * 8 * d * d + 2 * 2 * steps * d
             + 2 * 2 * ta * d) + 2 * d * 3
-    assert FL.request_flops(cfg, 0.02, 1, 1) == enc + cross + steps * step
-    assert FL.request_flops(cfg, 0.02, 1, 1, beams=5) == enc + cross + 5 * steps * step
+    assert WHISPER.flops(cfg, 0.02, 1, 1) == enc + cross + steps * step
+    assert WHISPER.flops(cfg, 0.02, 1, 1, beams=5) == enc + cross + 5 * steps * step
+    # a finished request: its bucket from the configuration, its prompt, its
+    # text and the end-of-text that stopped it, its beams
+    cfg["engine"] = {"audio_buckets_sec": [0.02, 1.0]}
+    req = _req("final", 0.0, 0.1, audio_s=0.01, n_gen=0)
+    req.output._tokens = np.zeros(2, np.int32)
+    req.output._p_len = 1
+    run = Run(cell="c", config=cfg, traffic={}, seconds=1.0, window=(0.0, 1.0), deadline=1.0,
+              requests=[req], recorder=Recorder())
+    assert WHISPER.request_flops(cfg, run, req) == enc + cross + steps * step
+    req.options = {"beam_size": 5}
+    assert WHISPER.request_flops(cfg, run, req) == enc + cross + 5 * steps * step
 
 
 def test_mel_least_time():
@@ -139,7 +153,7 @@ def test_trace_readers_by_hand():
     run3.recorder.batches = list(batches)
     assert _reader("mel_roofline.live").read(run3) is None
     # the group wholly in the stretch: its FLOPs over the busy time across it
-    work = 3 * FL.request_flops(SMALL, 5.0, 4, 21)
+    work = 3 * WHISPER.flops(SMALL, 5.0, 4, 21)
     assert _reader("mfu_pct.live").read(run) == pytest.approx(
         100 * work / (0.4 - 0.1 + 1e-4) / FL.H100_BF16_FLOPS)
 
@@ -196,6 +210,7 @@ def test_new_files_are_found_by_name(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     cell = manifest.load_cell("copy.burst", True, tmp_path)
     assert cell.config["name"] == "whisper-small-copy"
+    assert cell.architecture.REHEARSAL == WHISPER.REHEARSAL
     assert cell.traffic["sessions"] == 3 and cell.generator.__name__.endswith("live")
     assert [m["name"] for m in cell.metrics] == ["sessions_seen.live"]
     run = _run([])
@@ -203,3 +218,83 @@ def test_new_files_are_found_by_name(tmp_path):
     assert manifest.read_metric(cell.metrics[0], run, tmp_path) == 3.0
     with pytest.raises(KeyError):
         manifest.load_cell("no.such.cell", False, tmp_path)
+
+
+TOY = '''"""Architecture ``toy``: the port's test-size engine, judged by a number
+of its own."""
+
+REHEARSAL = {"model_size": "test"}
+REHEARSAL_ENGINE = {"batch_buckets": [1, 4], "max_batch": 4}
+
+
+def build_engine(config, seed, device, recorder):
+    from stt_tpu_torch.engine.engine import WhisperEngine
+
+    eng = config["engine"]
+    return WhisperEngine(config["model_size"], device, "float32",
+                         audio_buckets_sec=eng["audio_buckets_sec"],
+                         batch_buckets=eng["batch_buckets"], max_batch=eng["max_batch"],
+                         draft_mode=eng["draft_mode"], seed=seed, metrics=recorder)
+
+
+def check_deployment(engine, config):
+    pass
+
+
+def request_flops(config, run, req):
+    return 1.0
+
+
+def judge(run, reqs, weights_seed, device, control=False):
+    silent = sum(1 for r in reqs if r.output._n_gen == 0)
+    return {"toy_gap": silent / max(1, len(reqs)),
+            "tokens_judged": float(sum(r.output._n_gen for r in reqs)),
+            "requests_judged": float(len(reqs))}
+'''
+
+
+def test_a_second_architecture_is_new_files_only(tmp_path, monkeypatch, capsys):
+    """A model of another architecture: its module, its configuration and
+    its traffic are new files in a copy of the benchmark, and a rehearsal
+    builds, drives and judges it with nothing of the harness edited."""
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    (tmp_path / "benchmark" / "architectures" / "toy.py").write_text(TOY)
+    config = {"name": "toy", "architecture": "toy", "model_size": "test",
+              "engine": {"audio_buckets_sec": [1.0, 2.0, 5.0, 10.0, 30.0],
+                         "batch_buckets": [1, 4, 16], "max_batch": 16, "draft_mode": "off"},
+              "decode_profiles": {"realtime": SMALL["decode_profiles"]["realtime"]}}
+    (tmp_path / "benchmark" / "configs" / "toy.json").write_text(json.dumps(config))
+    mix = json.loads((ROOT / "benchmark" / "traffic" / "small.live.json").read_text())
+    mix.update(sessions=3, lead_s=2.0, limits={"toy_gap": 0.5})
+    (tmp_path / "benchmark" / "traffic" / "toy.live.json").write_text(json.dumps(mix))
+    bench["configs"].append({"name": "toy", "source": "https://example.org",
+                             "file": "benchmark/configs/toy.json", "reduced": [],
+                             "why": "a second architecture"})
+    bench["workloads"].append({"name": "toy.live", "config": "toy", "traffic": "toy.live",
+                               "chips": 1, "why": "a second architecture"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    monkeypatch.setattr(harness, "ROOT", tmp_path)
+    rc = harness.main(["--workload", "toy.live", "--seed", str(2**31 + 23), "--seconds", "4",
+                       "--trace", "0", "--rehearse"])
+    assert rc == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(result["checks"]) == ["toy_gap"]
+    assert result["checks"]["toy_gap"]["limit"] == 0.5
+    assert result["correct"] is True, result["checks"]
+    assert result["attempted"] > 0 and result["failed"] == 0
+    assert list(result["metrics"]) == ["setup_s"]
+
+def test_a_configuration_without_its_architecture_does_not_load(tmp_path):
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    config = {k: v for k, v in SMALL.items() if k != "architecture"}
+    (tmp_path / "benchmark" / "configs" / "whisper-small.json").write_text(json.dumps(config))
+    with pytest.raises(KeyError, match="'architecture'"):
+        manifest.load_cell("small.live", False, tmp_path)
+    (tmp_path / "benchmark" / "configs" / "whisper-small.json").write_text(
+        json.dumps(dict(config, architecture="no-such-family")))
+    with pytest.raises(FileNotFoundError, match="no-such-family.py"):
+        manifest.load_cell("small.live", False, tmp_path)

@@ -49,8 +49,8 @@ def main() -> int:
         print("no card", file=sys.stderr)
         return 2
     recorder = Recorder()
-    engine = harness.build_engine(cell, harness.WEIGHTS_SEED, "cuda", recorder)
-    harness.check_deployment(engine, cell.config)
+    engine = cell.architecture.build_engine(cell.config, harness.WEIGHTS_SEED, "cuda", recorder)
+    cell.architecture.check_deployment(engine, cell.config)
     cell.generator.prewarm(engine, cell.traffic, cell.config)
     engine.start()
     knee = sustained = None
@@ -65,7 +65,8 @@ def main() -> int:
             tracker.wait_all(120.0)
             run = Run(cell=cell.name, config=cell.config, traffic=traffic,
                       seconds=args.seconds, window=info["window"], deadline=info["deadline"],
-                      requests=tracker.requests, recorder=recorder)
+                      requests=tracker.requests, recorder=recorder,
+                      architecture=cell.architecture)
             w0, w1 = run.window
             half = 0.5 * (w0 + w1)
             finals = run.counted("final")
